@@ -1,0 +1,162 @@
+"""FLUX VAE, decode path (JAX counterpart: ``flux_fp8_api_tpu.models.autoencoder``;
+reference modules/autoencoder.py).
+
+The public functions keep the JAX package's NHWC layout; inside, activations are NCHW
+and conv weights OIHW, torch's native layouts. GroupNorm runs in fp32. The encoder's
+parameters are initialised (the tree mirrors the JAX one) but encoding is not ported
+yet (ROADMAP: img2img).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.config import AutoEncoderParams
+from ..utils.tree import ParamTree
+
+
+def _conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    w = p["weight"]
+    return F.conv2d(x, w.to(x.dtype), p["bias"].to(x.dtype), stride=stride, padding=w.shape[-1] // 2)
+
+
+def _group_norm(p, x: torch.Tensor, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    return F.group_norm(x.float(), groups, p["weight"].float(), p["bias"].float(), eps).to(x.dtype)
+
+
+def _swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def _resnet_block(p, x: torch.Tensor) -> torch.Tensor:
+    """reference ResnetBlock (autoencoder.py:55-92)."""
+    h = _conv(p["conv1"], _swish(_group_norm(p["norm1"], x)))
+    h = _conv(p["conv2"], _swish(_group_norm(p["norm2"], h)))
+    if "nin_shortcut" in p:
+        x = _conv(p["nin_shortcut"], x)
+    return x + h
+
+
+def _attn_block(p, x: torch.Tensor) -> torch.Tensor:
+    """reference AttnBlock (autoencoder.py:23-52): 1×1-conv qkv and fp32 softmax
+    attention over the h·w tokens. Above 4096 tokens the queries run in chunks (the
+    largest divisor of l not above 2048, as in the JAX package) so the logits stay
+    bounded: 16k tokens at a 1024² image would otherwise take a 1 GB logit matrix."""
+    h = _group_norm(p["norm"], x)
+    q, k, v = (_conv(p[n], h) for n in ("q", "k", "v"))
+    b, c, hh, ww = q.shape
+    l = hh * ww
+    q, k, v = (t.reshape(b, c, l).transpose(1, 2).float() for t in (q, k, v))
+    scale = c**-0.5
+    chunk = next((n for n in range(2048, 255, -1) if l % n == 0), None)
+    if l <= 4096 or chunk is None:
+        chunk = l
+    out = torch.cat([
+        torch.softmax(torch.matmul(q[:, i:i + chunk], k.transpose(1, 2)) * scale, dim=-1) @ v
+        for i in range(0, l, chunk)
+    ], dim=1)
+    out = out.to(x.dtype).transpose(1, 2).reshape(b, c, hh, ww)
+    return x + _conv(p["proj_out"], out)
+
+
+def _upsample(p, x: torch.Tensor) -> torch.Tensor:
+    """nearest ×2 + 3×3 conv (autoencoder.py:110-120)."""
+    return _conv(p["conv"], F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def decoder_apply(p, z: torch.Tensor, cfg: AutoEncoderParams) -> torch.Tensor:
+    """reference Decoder.forward (autoencoder.py:263-283): z (B, z_ch, h, w) NCHW →
+    (B, out_ch, H, W)."""
+    h = _conv(p["conv_in"], z)
+    h = _resnet_block(p["mid"]["block_1"], h)
+    h = _attn_block(p["mid"]["attn_1"], h)
+    h = _resnet_block(p["mid"]["block_2"], h)
+    for i_level in reversed(range(len(cfg.ch_mult))):
+        up = p["up"][i_level]
+        for i_block in range(cfg.num_res_blocks + 1):
+            h = _resnet_block(up["block"][i_block], h)
+        if i_level != 0:
+            h = _upsample(up["upsample"], h)
+    return _conv(p["conv_out"], _swish(_group_norm(p["norm_out"], h)))
+
+
+def ae_decode(params: ParamTree, cfg: AutoEncoderParams, z: torch.Tensor) -> torch.Tensor:
+    """latent (B, h, w, z) NHWC → image (B, H, W, out_ch) NHWC (reference
+    AutoEncoder.decode, autoencoder.py:330-332)."""
+    z = z / cfg.scale_factor + cfg.shift_factor
+    out = decoder_apply(params["decoder"], z.permute(0, 3, 1, 2), cfg)
+    return out.permute(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------------------- param init
+
+
+def init_autoencoder_params(
+    cfg: AutoEncoderParams, generator: torch.Generator, dtype=torch.float32
+) -> ParamTree:
+    """Random init with the reference's channel plan (Encoder autoencoder.py:123-177,
+    Decoder :203-261): He-normal conv weights, zero biases, unit GroupNorm."""
+    device = generator.device
+
+    def conv(k, cin, cout):
+        std = (2.0 / (k * k * cin)) ** 0.5
+        w = torch.randn((cout, cin, k, k), generator=generator, device=device) * std
+        return {"weight": w.to(dtype), "bias": torch.zeros((cout,), dtype=dtype, device=device)}
+
+    def gn(c):
+        return {"weight": torch.ones((c,), dtype=dtype, device=device),
+                "bias": torch.zeros((c,), dtype=dtype, device=device)}
+
+    def resnet(cin, cout):
+        p = {"norm1": gn(cin), "conv1": conv(3, cin, cout), "norm2": gn(cout), "conv2": conv(3, cout, cout)}
+        if cin != cout:
+            p["nin_shortcut"] = conv(1, cin, cout)
+        return p
+
+    def attn(c):
+        return {"norm": gn(c), "q": conv(1, c, c), "k": conv(1, c, c), "v": conv(1, c, c),
+                "proj_out": conv(1, c, c)}
+
+    ch, n_res = cfg.ch, len(cfg.ch_mult)
+    in_ch_mult = (1,) + tuple(cfg.ch_mult)
+
+    enc: Dict[str, Any] = {"conv_in": conv(3, cfg.in_channels, ch)}
+    down = []
+    block_in = ch
+    for i_level in range(n_res):
+        block_in = ch * in_ch_mult[i_level]
+        block_out = ch * cfg.ch_mult[i_level]
+        level: Dict[str, Any] = {"block": []}
+        for _ in range(cfg.num_res_blocks):
+            level["block"].append(resnet(block_in, block_out))
+            block_in = block_out
+        if i_level != n_res - 1:
+            level["downsample"] = {"conv": conv(3, block_in, block_in)}
+        down.append(level)
+    enc["down"] = down
+    enc["mid"] = {"block_1": resnet(block_in, block_in), "attn_1": attn(block_in),
+                  "block_2": resnet(block_in, block_in)}
+    enc["norm_out"] = gn(block_in)
+    enc["conv_out"] = conv(3, block_in, 2 * cfg.z_channels)
+
+    block_in = ch * cfg.ch_mult[n_res - 1]
+    dec: Dict[str, Any] = {"conv_in": conv(3, cfg.z_channels, block_in)}
+    dec["mid"] = {"block_1": resnet(block_in, block_in), "attn_1": attn(block_in),
+                  "block_2": resnet(block_in, block_in)}
+    up: list = [None] * n_res
+    for i_level in reversed(range(n_res)):
+        block_out = ch * cfg.ch_mult[i_level]
+        level = {"block": []}
+        for _ in range(cfg.num_res_blocks + 1):
+            level["block"].append(resnet(block_in, block_out))
+            block_in = block_out
+        if i_level != 0:
+            level["upsample"] = {"conv": conv(3, block_in, block_in)}
+        up[i_level] = level
+    dec["up"] = up
+    dec["norm_out"] = gn(block_in)
+    dec["conv_out"] = conv(3, block_in, cfg.out_ch)
+    return ParamTree({"encoder": enc, "decoder": dec})

@@ -1,0 +1,139 @@
+"""T5 v1.1 encoder (JAX counterpart: ``flux_fp8_api_tpu.models.t5``).
+
+HF T5 v1.1 semantics: RMS layer norm in fp32 without bias, no embedding or attention
+scaling, gated-gelu feed-forward, bidirectional relative position bias computed once
+and shared by all blocks, and — as the reference does — no attention mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..ops.quant import WO_QUANTIZERS, Linear, linear_apply
+from ..utils.tree import ParamTree
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    d_kv: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+
+
+def _t5_layer_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (weight.float() * x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def relative_position_bucket(
+    relative_position: torch.Tensor, num_buckets: int = 32, max_distance: int = 128
+) -> torch.Tensor:
+    """HF T5's bidirectional bucket function (modeling_t5._relative_position_bucket)."""
+    num_buckets = num_buckets // 2
+    ret = (relative_position > 0).to(torch.int64) * num_buckets
+    n = relative_position.abs()
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.float() / max_exact + 1e-6)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.int64)
+    val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+def compute_position_bias(rel_bias_table: torch.Tensor, seq_len: int, cfg: T5Config) -> torch.Tensor:
+    """(1, heads, L, L) fp32 additive attention bias from the learned bucket table."""
+    pos = torch.arange(seq_len, device=rel_bias_table.device)
+    buckets = relative_position_bucket(
+        pos[None, :] - pos[:, None],
+        cfg.relative_attention_num_buckets,
+        cfg.relative_attention_max_distance,
+    )
+    return rel_bias_table.float()[buckets].permute(2, 0, 1)[None]
+
+
+def _t5_attention(blk, x, position_bias, cfg: T5Config, dtype):
+    b, l, _ = x.shape
+    h, dk = cfg.num_heads, cfg.d_kv
+    q, k, v = (linear_apply(blk[n], x, dtype)[0].reshape(b, l, h, dk) for n in ("q", "k", "v"))
+    scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) + position_bias
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, h * dk)
+    return linear_apply(blk["o"], out, dtype)[0]
+
+
+def _t5_block(blk, x, position_bias, cfg: T5Config, dtype):
+    h = _t5_layer_norm(x, blk["ln1"], cfg.layer_norm_epsilon)
+    x = x + _t5_attention(blk, h, position_bias, cfg, dtype)
+    h = _t5_layer_norm(x, blk["ln2"], cfg.layer_norm_epsilon)
+    gate = torch.nn.functional.gelu(linear_apply(blk["wi_0"], h, dtype)[0], approximate="tanh")
+    return x + linear_apply(blk["wo"], gate * linear_apply(blk["wi_1"], h, dtype)[0], dtype)[0]
+
+
+def t5_encode(params: ParamTree, cfg: T5Config, input_ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """(B, L) token ids → (B, L, d_model) last_hidden_state."""
+    x = params["shared"].to(dtype)[input_ids]
+    position_bias = compute_position_bias(params["rel_bias"], input_ids.shape[1], cfg)
+    for blk in params["blocks"]:
+        x = _t5_block(blk, x, position_bias, cfg, dtype)
+    return _t5_layer_norm(x, params["final_ln"], cfg.layer_norm_epsilon)
+
+
+def init_t5_params(cfg: T5Config, generator: torch.Generator, dtype=torch.float32) -> ParamTree:
+    """Random init on ``generator``'s device: N(0, 1)·0.02 matrices, unit norms."""
+    device = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device).to(dtype) * 0.02
+
+    def lin(i, o):
+        return Linear("float", weight=normal(o, i))
+
+    inner = cfg.num_heads * cfg.d_kv
+
+    def block():
+        return {
+            "q": lin(cfg.d_model, inner),
+            "k": lin(cfg.d_model, inner),
+            "v": lin(cfg.d_model, inner),
+            "o": lin(inner, cfg.d_model),
+            "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+            "wi_0": lin(cfg.d_model, cfg.d_ff),
+            "wi_1": lin(cfg.d_model, cfg.d_ff),
+            "wo": lin(cfg.d_ff, cfg.d_model),
+            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        }
+
+    return ParamTree({
+        "shared": normal(cfg.vocab_size, cfg.d_model),
+        "rel_bias": normal(cfg.relative_attention_num_buckets, cfg.num_heads),
+        "blocks": [block() for _ in range(cfg.num_layers)],
+        "final_ln": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    })
+
+
+def quantize_t5_params(params: ParamTree, tier: str) -> ParamTree:
+    """Weight-only tier over every block linear, in place (the reference quantizes the
+    whole HF module, conditioner.py:56-70). Only ``qfloat8`` is ported."""
+    if tier not in WO_QUANTIZERS:
+        raise NotImplementedError(
+            f"text-encoder tier {tier!r} is not ported yet (ROADMAP: other quant kinds)"
+        )
+    qfn = WO_QUANTIZERS[tier]
+    for blk in params["blocks"]:
+        for key, value in list(blk.items()):
+            if isinstance(value, Linear) and value.kind == "float":
+                setattr(blk, key, qfn(value.weight, value.bias))
+    return params
