@@ -8,25 +8,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. card: name and power limit;
 2. build: the attention kernel library, from this checkout's sources, with nvcc;
 3. kernel: the CUDA attention kernel against its plain PyTorch version at flux-dev's
-   shapes (24 heads × 128; L = 4608 and the tail-masked 3392, an Lq ≠ Lkv call, and
-   rows whose logits all underflow), with the time of each;
-4. fp8 linear: ``torch._scaled_mm`` against its plain fp32 version at the qkv shape;
-5. model: a small flux model (two heads of 128) on the card against the same model
+   shapes (24 heads × 128; L = 4608 and 3392, an Lq ≠ Lkv call, and rows whose logits
+   all underflow), with the time of each;
+4. guard rail and ablation: the attention kernel's stats and ablate builds and the
+   bare two-dot kernel against their plain versions at L = 4608 and 3392, with their
+   times (the stats build's output must equal the serving build's bit for bit); then,
+   with the launch counts at 0, the path itself: ``qknorm_attention_checked`` passing
+   qk-normed inputs and raising on inputs scaled ×60 and on a NaN, and
+   ``python -m flux_fp8_api_tpu_torch.ablate_attention 4608 3392 2816`` run in this
+   process, whose rows are printed;
+5. fp8 linear: ``torch._scaled_mm`` against its plain fp32 version at the qkv shape;
+6. model: a small flux model (two heads of 128) on the card against the same model
    on the CPU, where every op takes its plain version;
-6. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
+7. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
    weights) calibrated and warmed by ``compile()``, serving three POST /generate
    requests through ``PipelineServer``; the attention kernel's launch count must be
    57 per model evaluation.
 
-The last lines are the card line, one JSON object describing each kernel, and
-``{"ok": true, "device": {...}}``.
+The last lines are the card line, one JSON object describing each kernel build (its
+launches counted in the path of phase 7 or 4, its time and error from phase 3 or 4),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import io
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -38,6 +45,15 @@ CONFIG = ROOT / "configs" / "config-dev.json"
 # left is fp32 summation order inside the products and the final bf16 rounding of the
 # output (one bf16 ulp is 2^-8 relative).
 K1_ATOL, K1_RTOL = 1e-3, 1e-2
+# stats build: its max |logit| against the plain version's, relative (summation order
+# of the fp32 logits).
+K1S_MAX_RTOL = 1e-3
+# ablate build: out = acc·1e30 (den < 0 is clamped), with elements near 0 wherever
+# Σ p·v cancels, so ‖out − plain‖ / ‖plain‖ in fp64; p ≈ −20 rounds to bf16 in steps
+# of 0.125 and a logit summed in another order can cross a step.
+K1A_REL_TOL = 1e-2
+# bare two-dot: max|out − plain| / max|plain|; bf16 logits and output on both sides.
+K2_REL_TOL = 1e-2
 # fp8 linear: max|out − plain| / max|plain|; fast accumulation and the bf16 output
 # each cost about 2^-8.
 FP8_REL_TOL = 2e-2
@@ -67,12 +83,23 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rope_tables(h_img: int, w_img: int):
+    """flux-dev's rope tables for an h_img × w_img image and 512 text tokens, on the card."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
+    from flux_fp8_api_tpu_torch.ops.rope import embed_nd_cos_sin
+
+    dev = torch.device("cuda")
+    ids = torch.cat([make_txt_ids(512, 1, dev), make_img_ids(h_img // 8, w_img // 8, 1, dev)], 1)
+    cos, sin = embed_nd_cos_sin(ids, (16, 56, 56), 10_000)
+    return cos[0].contiguous(), sin[0].contiguous()
+
+
 def phase_kernel(card: str):
     import torch
 
     from flux_fp8_api_tpu_torch.ops.attention_kernel import qknorm_attention, qknorm_attention_ref
-    from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
-    from flux_fp8_api_tpu_torch.ops.rope import embed_nd_cos_sin
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -83,11 +110,6 @@ def phase_kernel(card: str):
     def normed(*shape):
         x = torch.randn(shape, generator=gen, device=dev)
         return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
-
-    def tables(h_img, w_img):
-        ids = torch.cat([make_txt_ids(512, 1, dev), make_img_ids(h_img // 8, w_img // 8, 1, dev)], 1)
-        cos, sin = embed_nd_cos_sin(ids, (16, 56, 56), 10_000)
-        return cos[0].contiguous(), sin[0].contiguous()
 
     worst = 0.0
     times = {}
@@ -112,7 +134,7 @@ def phase_kernel(card: str):
     for h_img, w_img in ((1024, 1024), (720, 1024)):
         l = 512 + (h_img // 16) * (w_img // 16)
         q, k, v = normed(heads, l, d), normed(heads, l, d), torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
-        cos, sin = tables(h_img, w_img)
+        cos, sin = rope_tables(h_img, w_img)
         check(f"L={l} rope", q, k, v, scale, cos=cos, sin=sin)
         ms = cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, cos=cos, sin=sin), 20)
         plain_ms = cuda_time_ms(lambda: qknorm_attention_ref(q, k, v, scale, cos=cos, sin=sin), 5)
@@ -134,6 +156,112 @@ def phase_kernel(card: str):
     if bool(out.float().abs().max() != 0):
         fail("kernel", "all-underflow rows must be exactly 0")
     return worst, times
+
+
+def phase_guard_ablation(card: str):
+    """The stats and ablate builds and the bare two-dot against their plain versions,
+    then the guard-rail and ablation path with the launch counts at 0."""
+    import torch
+
+    from flux_fp8_api_tpu_torch import ablate_attention
+    from flux_fp8_api_tpu_torch.ablate_attention import bare_two_dot, bare_two_dot_ref
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import (
+        LAUNCHES, qknorm_attention, qknorm_attention_checked, qknorm_attention_ref,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    heads, d = 24, 128
+    scale = d**-0.5
+    results = {}  # build → {"max_abs_err", "ms", "plain_ms"} at L = 4608
+
+    def normed(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
+
+    def record(build, l, err, ms, plain_ms, what):
+        print(f"[{card}] {build} L={l}: {what}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        if l == 4608:
+            results[build] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    for h_img, w_img in ((1024, 1024), (720, 1024)):
+        l = 512 + (h_img // 16) * (w_img // 16)
+        q, k = normed(heads, l, d), normed(heads, l, d)
+        v = torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
+        cos, sin = rope_tables(h_img, w_img)
+        rope = dict(cos=cos, sin=sin)
+
+        out, m = qknorm_attention(q, k, v, scale, return_max_logit=True, **rope)
+        serving = qknorm_attention(q, k, v, scale, **rope)
+        ref, ref_m = qknorm_attention_ref(q, k, v, scale, return_max_logit=True, **rope)
+        torch.cuda.synchronize()
+        if not torch.equal(out, serving):
+            fail("guard", f"L={l}: the stats build's output differs from the serving build's")
+        m_rel = abs(float(m) - float(ref_m)) / float(ref_m)
+        if not m_rel <= K1S_MAX_RTOL:
+            fail("guard", f"L={l}: max logit {float(m)} vs plain {float(ref_m)}")
+        o, r = out.float(), ref.float()
+        err = float((o - r).abs().max())
+        if bool(((o - r).abs() > K1_ATOL + K1_RTOL * r.abs()).any()):
+            fail("guard", f"L={l}: stats build outside tolerance, max_abs_err {err}")
+        record("qknorm_attention_stats", l, err,
+               cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, return_max_logit=True, **rope), 20),
+               cuda_time_ms(lambda: qknorm_attention_ref(q, k, v, scale, return_max_logit=True, **rope), 5),
+               f"output bit-identical to the serving build; max|logit| {float(m):.6f} vs plain "
+               f"{float(ref_m):.6f} (rel {m_rel:.2e}, tol {K1S_MAX_RTOL}); max_abs_err {err:.3e}")
+
+        out = qknorm_attention(q, k, v, scale, ablate_exp=True, **rope)
+        ref = qknorm_attention_ref(q, k, v, scale, ablate_exp=True, **rope)
+        o, r = out.double(), ref.double()
+        rel = float((o - r).norm() / r.norm())
+        if not (bool(torch.isfinite(o).all()) and rel <= K1A_REL_TOL):
+            fail("guard", f"L={l}: ablate build relative error {rel}")
+        record("qknorm_attention_ablate_exp", l, float((o - r).abs().max()),
+               cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, ablate_exp=True, **rope), 20),
+               cuda_time_ms(lambda: qknorm_attention_ref(q, k, v, scale, ablate_exp=True, **rope), 5),
+               f"norm_rel_err {rel:.3e} (tol {K1A_REL_TOL}) on outputs up to {float(r.abs().max()):.3e}")
+
+        qb, kb, vb = (torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+        out, ref = bare_two_dot(qb, kb, vb).float(), bare_two_dot_ref(qb, kb, vb).float()
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= K2_REL_TOL:
+            fail("guard", f"L={l}: bare two-dot relative error {rel}")
+        record("bare_two_dot", l, err,
+               cuda_time_ms(lambda: bare_two_dot(qb, kb, vb), 20),
+               cuda_time_ms(lambda: bare_two_dot_ref(qb, kb, vb), 5),
+               f"max_abs_err {err:.3e} = {rel:.2e} of max|plain| (tol {K2_REL_TOL})")
+
+    # the path: the guard rail a user calls after loading weights, and the ablation tool
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    l = 4608
+    q, k = normed(heads, l, d), normed(heads, l, d)
+    v = torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = rope_tables(1024, 1024)
+    out = qknorm_attention_checked(q, k, v, scale, cos=cos, sin=sin)
+    if not bool(torch.isfinite(out.float()).all()):
+        fail("guard", "qknorm_attention_checked: non-finite output on qk-normed inputs")
+    q_nan = q.clone()
+    q_nan[7, 1234, 56] = float("nan")
+    for name, qq, kk in (("x60", q * 60, k * 60), ("NaN", q_nan, k)):
+        try:
+            qknorm_attention_checked(qq, kk, v, scale, cos=cos, sin=sin)
+        except FloatingPointError as e:
+            print(f"[{card}] qknorm_attention_checked raises on {name} inputs: {e}", flush=True)
+        else:
+            fail("guard", f"qknorm_attention_checked passed {name} inputs")
+    rows = ablate_attention.main(["4608", "3392", "2816"])
+    launches = dict(LAUNCHES)
+    for build in ("qknorm_attention_stats", "qknorm_attention_ablate_exp", "bare_two_dot"):
+        if launches[build] == 0:
+            fail("guard", f"{build} was not launched on the guard-rail and ablation path")
+    for r in rows:
+        if not all(x > 0 for x in (*r["ms"].values(), r["bare_two_dot_ms"])):
+            fail("guard", f"ablation row with a non-positive time: {r}")
+    print(f"[{card}] guard-rail and ablation path launches: {launches}", flush=True)
+    return results, launches
 
 
 def phase_fp8_linear(card: str):
@@ -283,17 +411,12 @@ def main() -> int:
         fail("card", f"no checkout of the port beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail("card", f"nvidia-smi failed: {smi.stderr.strip()}")
-    card_line = smi.stdout.strip().splitlines()[0]
+    from flux_fp8_api_tpu_torch import ablate_attention
+    from flux_fp8_api_tpu_torch.ops import attention_kernel
+
+    card_line = ablate_attention.card_line()  # nvidia-smi's name and power limit
     name = torch.cuda.get_device_name(0)
     print(f"card: {name} | {card_line} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-
-    from flux_fp8_api_tpu_torch.ops import attention_kernel
 
     t = time.perf_counter()
     lib = attention_kernel.build_library()
@@ -301,21 +424,31 @@ def main() -> int:
     print((lib.parent / "ptxas.log").read_text().strip(), flush=True)
 
     max_err, times = phase_kernel(card_line)
+    builds, path_launches = phase_guard_ablation(card_line)
     phase_fp8_linear(card_line)
     phase_model(card_line)
     launches = phase_server(card_line)
 
-    print(card_line)
-    print(json.dumps({"kernels": [{
+    k1_source = "flux_fp8_api_tpu_torch/csrc/qknorm_attention.cu"
+    kernels = [{
         "name": "qknorm_attention",
         "route": "cuda",
-        "source": "flux_fp8_api_tpu_torch/csrc/qknorm_attention.cu",
+        "source": k1_source,
         "replaces": "flux_fp8_api_tpu/ops/attention_kernel.py:183",
         "launches": launches,
         "max_abs_err": max_err,
         "ms": times[4608][0],
         "plain_ms": times[4608][1],
-    }]}))
+    }]
+    for build, source, replaces in (
+        ("qknorm_attention_stats", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:109"),
+        ("qknorm_attention_ablate_exp", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:115"),
+        ("bare_two_dot", "flux_fp8_api_tpu_torch/csrc/bare_two_dot.cu", "ablate_attention.py:75"),
+    ):
+        kernels.append({"name": build, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": path_launches[build], **builds[build]})
+    print(card_line)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -3,7 +3,7 @@
 
 Dispatch is by device only, inside :func:`~.attention_kernel.qknorm_attention`: CUDA
 tensors run the hand-written kernel with the rope rotation fused in, CPU tensors run
-its plain PyTorch version.
+its plain PyTorch version. :func:`benchmark_blocks` times the kernel on the card.
 """
 
 from __future__ import annotations
@@ -56,3 +56,70 @@ def attention(
     (B, L, N, H) q/k/v → (B, L, N·H)."""
     b, l, n, h = q.shape
     return attention_core(q, k, v, cos=cos, sin=sin).reshape(b, l, n * h)
+
+
+# --------------------------------------------------------------------- measurement
+
+
+def cuda_device() -> torch.device:
+    """The current CUDA device, or a RuntimeError where there is none: the
+    measurements here time kernels on the card and never time a plain version."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("this measurement times CUDA kernels and needs a CUDA device")
+    return torch.device("cuda")
+
+
+def fed_back_seconds(call, x: torch.Tensor, iters: int) -> float:
+    """Per-call seconds of ``x = call(x)`` repeated ``iters`` times after one warm call,
+    timed with CUDA events on the current stream. Each output is the next input, so
+    no call can be skipped or overlapped with the next."""
+    x = call(x)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        x = call(x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def benchmark_blocks(
+    l: int,
+    folded_heads: int = 24,
+    head_dim: int = 128,
+    iters: int = 24,
+    lkv: Optional[int] = None,
+    fuse_rope: bool = True,
+    ablate_exp: bool = False,
+) -> float:
+    """Per-call seconds of the attention kernel at joint seq ``l``, measured the way
+    the model calls it: folded batch·head axis, rope fused unless ``fuse_rope=False``.
+    ``lkv`` (default ``l``) makes the call rectangular, the shape a sequence-parallel
+    shard sees; ``ablate_exp=True`` times the build without the exp (the ceiling
+    measurement of ``flux_fp8_api_tpu_torch.ablate_attention``).
+
+    JAX counterpart: ``flux_fp8_api_tpu.ops.attention.benchmark_blocks``. The CUDA
+    kernel has one compiled tile, so there are no blocks to choose. Inputs come from
+    a generator seeded with 17; the fed-back output may overflow under ``ablate_exp``,
+    which does not change the time. Raises RuntimeError without a CUDA device.
+    """
+    dev = cuda_device()
+    lkv = l if lkv is None else int(lkv)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((folded_heads, l, head_dim), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((folded_heads, lkv, head_dim), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((folded_heads, lkv, head_dim), generator=gen, device=dev).to(torch.bfloat16)
+
+    def rope(n):  # values do not matter to the time; unit magnitude keeps exp finite
+        t = torch.linspace(0.0, 1.0, n * head_dim, device=dev).reshape(n, head_dim)
+        return torch.cos(t), torch.sin(t)
+
+    rope_kw = {}
+    if fuse_rope:
+        (cos_q, sin_q), (cos_k, sin_k) = rope(l), rope(lkv)
+        rope_kw = dict(cos=cos_k, sin=sin_k, cos_q=cos_q, sin_q=sin_q)
+    sm_scale = 1.0 / head_dim**0.5
+    return fed_back_seconds(
+        lambda x: qknorm_attention(x, k, v, sm_scale, ablate_exp=ablate_exp, **rope_kw), q, iters
+    )

@@ -1,14 +1,16 @@
-"""Max-free qk-norm attention: the hand-written CUDA kernel, its plain PyTorch
-version, the wrapper that picks between them by device, and the kernel's build.
+"""Max-free qk-norm attention: the hand-written CUDA kernel in its three builds
+(serving, stats, ablate), their plain PyTorch version, the wrapper that picks between
+them by device, the guard rail built on the stats build, and the kernels' build.
 
-JAX counterpart: ``flux_fp8_api_tpu.ops.attention_kernel.qknorm_attention`` (the Pallas
-TPU kernel, serving build), whose docstring argues why FLUX's qk-RMSNorm makes a
-constant-shift softmax safe: ``p = exp(s - SHIFT)``, ``out = Σp·v / Σp``.
+JAX counterpart: ``flux_fp8_api_tpu.ops.attention_kernel`` (the Pallas TPU kernel),
+whose docstring argues why FLUX's qk-RMSNorm makes a constant-shift softmax safe:
+``p = exp(s - SHIFT)``, ``out = Σp·v / Σp``.
 
-The CUDA source is ``csrc/qknorm_attention.cu``. It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, at first use, into
-``build/kernels/<hash of the sources>/`` at the repository root, and loaded with
-``ctypes``.
+The CUDA sources are in ``csrc/``: ``qknorm_attention.cu`` and ``bare_two_dot.cu``
+(the measurement kernel of ``flux_fp8_api_tpu_torch.ablate_attention``). Each is
+compiled with ``nvcc`` for ``sm_90a`` at first use, all at once, and linked into one
+shared library with a plain C interface in ``build/kernels/<hash of the sources>/`` at
+the repository root, loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -26,15 +28,23 @@ import torch
 
 SHIFT = 20.0
 MAX_SAFE_LOGIT = 100.0
-HEAD_DIM = 128  # the only head dim the CUDA kernel takes
+HEAD_DIM = 128  # the only head dim the CUDA kernels take
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("qknorm_attention.cu",)
+_SOURCES = ("qknorm_attention.cu", "bare_two_dot.cu")
+_HEADERS = ("tile_mma.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-# Launch count of the CUDA kernel: the wrapper adds one per launch and nowhere else.
-# Drivers reset it to 0 before a run and read it after, to show the path used it.
-LAUNCHES = {"qknorm_attention": 0}
+# Launch count of each CUDA kernel build: its wrapper adds one per launch and nowhere
+# else. Drivers reset them to 0 before a run and read them after, to show the path
+# used each build.
+LAUNCHES = {
+    "qknorm_attention": 0,
+    "qknorm_attention_stats": 0,
+    "qknorm_attention_ablate_exp": 0,
+    "bare_two_dot": 0,
+}
 
 _lib = None
 
@@ -47,48 +57,62 @@ def _nvcc() -> str:
         return found
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the attention kernel is built with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the attention kernels are built with the CUDA toolkit")
 
 
 def library_path() -> Path:
     """Where the built library lives: keyed by a hash of the kernel sources."""
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libflux_kernels.so"
 
 
 def build_library() -> Path:
-    """Compile the kernel sources for sm_90a if this source hash has no library yet.
-    Returns the library's path."""
+    """Compile the kernel sources for sm_90a if this source hash has no library yet:
+    one ``nvcc -c`` per source, all started together, then one link. The ptxas
+    report of every kernel goes to ``ptxas.log`` beside the library. Returns the
+    library's path."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-        *[str(_CSRC / s) for s in _SOURCES],
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (out.parent / "ptxas.log").write_text(proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in _SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(_CSRC / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(_SOURCES, objs)
+        ]
+        logs = [p.communicate()[1] for p in procs]  # waits for every compile
+        for src, p, err in zip(_SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
+        so = str(Path(tmp) / out.name)
+        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        (out.parent / "ptxas.log").write_text("".join(logs))
+        os.replace(so, out)
     return out
 
 
-def _library():
+def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         fn = lib.qknorm_attention_bf16
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.bare_two_dot_bf16
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -104,13 +128,19 @@ def qknorm_attention_ref(
     sin: Optional[torch.Tensor] = None,
     cos_q: Optional[torch.Tensor] = None,
     sin_q: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    *,
+    return_max_logit: bool = False,
+    ablate_exp: bool = False,
+):
     """Plain PyTorch version of the kernel: the same function with the same roundings
     — rope in fp32 cast back to q's dtype, fp32 logits, ``exp(s·scale − SHIFT)``,
     ``bf16(p)`` before ``P·V``, den from the unrounded p, den clamped at 1e-30.
 
     q (H, Lq, D), k/v (H, Lkv, D); cos/sin (Lkv, D) fp32, cos_q/sin_q (Lq, D)
-    defaulting to cos/sin. Returns (H, Lq, D) in q's dtype.
+    defaulting to cos/sin. Returns (H, Lq, D) in q's dtype; with ``return_max_logit``
+    also ``max |s|·|sm_scale|`` as a 0-d fp32 tensor (NaN if any logit is NaN).
+    ``ablate_exp`` drops the exp (``p = s·scale − SHIFT``): a measurement build whose
+    output is not a softmax.
     """
     if cos is not None:
         cos_q = cos if cos_q is None else cos_q
@@ -118,10 +148,15 @@ def qknorm_attention_ref(
         q = _rotate(q, cos_q, sin_q)
         k = _rotate(k, cos, sin)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    p = torch.exp(s * sm_scale - SHIFT)
+    p = s * sm_scale - SHIFT
+    if not ablate_exp:
+        p = torch.exp(p)
     den = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(torch.bfloat16).float(), v.float())
-    return (acc / torch.clamp(den, min=1e-30)).to(q.dtype)
+    out = (acc / torch.clamp(den, min=1e-30)).to(q.dtype)
+    if return_max_logit:
+        return out, s.abs().amax() * abs(sm_scale)
+    return out
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -136,28 +171,10 @@ def _check_table(t: torch.Tensor, rows: int, name: str) -> None:
         raise ValueError(f"{name} must be a contiguous ({rows}, {HEAD_DIM}) float32 table")
 
 
-def qknorm_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    sm_scale: float,
-    cos: Optional[torch.Tensor] = None,
-    sin: Optional[torch.Tensor] = None,
-    cos_q: Optional[torch.Tensor] = None,
-    sin_q: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """(H, Lq, D) q × (H, Lkv, D) k/v → (H, Lq, D), with the rope rotation fused in
-    when ``cos``/``sin`` are given (see :func:`qknorm_attention_ref` for the function).
-
-    CPU tensors run the plain version. CUDA tensors launch the kernel, which takes bf16
-    with D = 128 and a contiguous last dimension; anything else raises. The output is
-    allocated token-major, (Lq, H, D), and returned as its (H, Lq, D) view.
-    """
-    if not q.is_cuda:
-        return qknorm_attention_ref(q, k, v, sm_scale, cos, sin, cos_q, sin_q)
-
-    h, lq, d = q.shape
-    lkv = k.shape[1]
+def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the CUDA kernels take: bf16 (H, L, 128) on one device, k and v of one
+    shape, a contiguous and 16-byte aligned last dimension. Raises ValueError."""
+    h = q.shape[0]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bfloat16 on {q.device}, got {t.dtype} on {t.device}")
@@ -167,6 +184,47 @@ def qknorm_attention(
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned last dimension")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+
+
+def head_strides(*tensors: torch.Tensor):
+    """(head, row) strides of each (H, L, D) tensor, flattened, as the kernels take them."""
+    return [s for t in tensors for s in (t.stride(0), t.stride(1))]
+
+
+def qknorm_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sm_scale: float,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    cos_q: Optional[torch.Tensor] = None,
+    sin_q: Optional[torch.Tensor] = None,
+    *,
+    return_max_logit: bool = False,
+    ablate_exp: bool = False,
+):
+    """(H, Lq, D) q × (H, Lkv, D) k/v → (H, Lq, D), with the rope rotation fused in
+    when ``cos``/``sin`` are given (see :func:`qknorm_attention_ref` for the function).
+
+    ``return_max_logit=True`` selects the stats build and returns ``(out, max_logit)``,
+    ``max_logit`` a 0-d fp32 tensor on q's device (no host sync here): the input of
+    :func:`qknorm_attention_checked`. ``ablate_exp=True`` selects the measurement build
+    without the exp. The two do not combine.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel, which takes bf16
+    with D = 128 and a contiguous last dimension; anything else raises. The output is
+    allocated token-major, (Lq, H, D), and returned as its (H, Lq, D) view.
+    """
+    if return_max_logit and ablate_exp:
+        raise ValueError("the stats and ablate_exp builds do not combine")
+    if not q.is_cuda:
+        return qknorm_attention_ref(q, k, v, sm_scale, cos, sin, cos_q, sin_q,
+                                    return_max_logit=return_max_logit, ablate_exp=ablate_exp)
+
+    h, lq, d = q.shape
+    lkv = k.shape[1]
+    check_heads(q, k, v)
     tables = [None] * 4
     if cos is not None:
         cos_q = cos if cos_q is None else cos_q
@@ -178,13 +236,45 @@ def qknorm_attention(
         tables = [cos_q.data_ptr(), sin_q.data_ptr(), cos.data_ptr(), sin.data_ptr()]
 
     out = torch.empty((lq, h, d), dtype=q.dtype, device=q.device).transpose(0, 1)
-    err = _library().qknorm_attention_bf16(
+    # a fresh zero on the launch stream: the stats build atomicMax-es into it
+    max_logit = torch.zeros((), dtype=torch.float32, device=q.device) if return_max_logit else None
+    err = load_library().qknorm_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tables,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        h, lq, lkv, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        *head_strides(q, k, v, out),
+        h, lq, lkv, float(sm_scale), None if max_logit is None else max_logit.data_ptr(),
+        int(ablate_exp), torch.cuda.current_stream(q.device).cuda_stream,
     )
+    build = ("qknorm_attention_stats" if return_max_logit
+             else "qknorm_attention_ablate_exp" if ablate_exp else "qknorm_attention")
     if err != 0:
-        raise RuntimeError(f"qknorm_attention kernel launch failed: cudaError {err}")
-    LAUNCHES["qknorm_attention"] += 1
+        raise RuntimeError(f"{build} kernel launch failed: cudaError {err}")
+    LAUNCHES[build] += 1
+    return (out, max_logit) if return_max_logit else out
+
+
+def qknorm_attention_checked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sm_scale: float,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    cos_q: Optional[torch.Tensor] = None,
+    sin_q: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Guard-railed attention: runs the stats build and raises ``FloatingPointError``
+    when ``max |logit|`` exceeds ``MAX_SAFE_LOGIT`` or is NaN (the regime where the
+    max-free softmax would overflow exp to inf → NaN images with no diagnostic).
+
+    It reads one scalar back per call (a host sync), so it is for validation moments
+    — after a LoRA fuse or loading an unusual checkpoint — not the serving loop.
+    """
+    out, m = qknorm_attention(q, k, v, sm_scale, cos, sin, cos_q, sin_q, return_max_logit=True)
+    m_val = float(m)
+    if not (m_val <= MAX_SAFE_LOGIT):
+        raise FloatingPointError(
+            f"qk-norm attention logits reached |{m_val:.1f}| > safe bound "
+            f"{MAX_SAFE_LOGIT}: the max-free softmax would overflow. Check qk-norm "
+            "scale weights (LoRA fuse / checkpoint)."
+        )
     return out

@@ -171,18 +171,20 @@ class FluxPipeline:
 
     def _encode_prompts(self, prompts: List[str]):
         """Encode each distinct prompt at N=1 through the conditioning LRU
-        → {prompt: (vec (1, 768), txt (1, L, 4096))}."""
+        → {prompt: (vec (1, 768), txt (1, L, 4096))}. ``timings`` gets this call's
+        hits and misses; the attributes keep the lifetime totals."""
         size = self.config.cond_cache_size
         t5_len = self.config.text_enc_max_length
         out: Dict[str, Any] = {}
+        hits = misses = 0
         for p in dict.fromkeys(prompts):
             hit = self._cond_cache.get((p, t5_len)) if size > 0 else None
             if hit is not None:
                 self._cond_cache.move_to_end((p, t5_len))
-                self.cond_cache_hits += 1
+                hits += 1
                 out[p] = hit
                 continue
-            self.cond_cache_misses += 1
+            misses += 1
             enc = get_weighted_text_embeddings(
                 self.clip, self.t5, p, num_images_per_prompt=1, t5_length=t5_len
             )
@@ -191,8 +193,10 @@ class FluxPipeline:
                 self._cond_cache[(p, t5_len)] = enc
                 while len(self._cond_cache) > size:
                     self._cond_cache.popitem(last=False)
-        self.timings["cond_cache_hits"] = self.cond_cache_hits
-        self.timings["cond_cache_misses"] = self.cond_cache_misses
+        self.cond_cache_hits += hits
+        self.cond_cache_misses += misses
+        self.timings["cond_cache_hits"] = hits
+        self.timings["cond_cache_misses"] = misses
         return out
 
     def prepare(self, img: torch.Tensor, prompt: Union[str, List[str]]):

@@ -1,7 +1,7 @@
 """The attention kernel's plain version against the JAX Pallas kernel (interpret mode,
-as the JAX package's own tests run it on the CPU), and attention_core against the JAX
-package's XLA path. The CUDA kernel itself runs only on the card
-(tests/test_torch_kernels.py).
+as the JAX package's own tests run it on the CPU) in its serving, stats and ablate
+builds, the guard rail in both packages, and attention_core against the JAX package's
+XLA path. The CUDA kernel itself runs only on the card (tests/test_torch_kernels.py).
 
 Tolerances: the plain version and the Pallas kernel compute the same function with
 the same roundings (bf16 p before P·V), in fp32 otherwise, so they agree to fp32
@@ -18,9 +18,14 @@ import torch
 
 from flux_fp8_api_tpu.ops import attention as jattn
 from flux_fp8_api_tpu.ops.attention_kernel import qknorm_attention as jax_kernel
+from flux_fp8_api_tpu.ops.attention_kernel import qknorm_attention_checked as jax_checked
 from flux_fp8_api_tpu.ops.rope import embed_nd_cos_sin as jembed
 from flux_fp8_api_tpu_torch.ops import attention as tattn
-from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES, qknorm_attention
+from flux_fp8_api_tpu_torch.ops.attention_kernel import (
+    LAUNCHES,
+    qknorm_attention,
+    qknorm_attention_checked,
+)
 
 from .torch_parity import t
 
@@ -51,12 +56,12 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("h,lq,lkv,d,rope,bq,bkv", CASES)
-def test_plain_version_matches_pallas_kernel(h, lq, lkv, d, rope, bq, bkv):
+def _case(h, lq, lkv, d, rope):
+    """qk-normed q/k, randn v and (with ``rope``) tables, as numpy; the keyword
+    arguments of the rope tables for each package."""
     r = np.random.default_rng(lq + lkv + d)
     q, k = _normed(r, (h, lq, d)), _normed(r, (h, lkv, d))
     v = r.normal(size=(h, lkv, d)).astype(np.float32)
-    scale = d**-0.5
     jkw, tkw = {}, {}
     if rope:
         cos, sin = _tables(lkv, d)
@@ -65,10 +70,89 @@ def test_plain_version_matches_pallas_kernel(h, lq, lkv, d, rope, bq, bkv):
         if lq != lkv:  # a q shard: the last lq positions
             jkw.update(cos_q=jnp.asarray(cos[-lq:]), sin_q=jnp.asarray(sin[-lq:]))
             tkw.update(cos_q=t(cos[-lq:]), sin_q=t(sin[-lq:]))
+    return q, k, v, jkw, tkw
+
+
+@pytest.mark.parametrize("h,lq,lkv,d,rope,bq,bkv", CASES)
+def test_plain_version_matches_pallas_kernel(h, lq, lkv, d, rope, bq, bkv):
+    q, k, v, jkw, tkw = _case(h, lq, lkv, d, rope)
+    scale = d**-0.5
     a = jax_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
                    block_q=bq, block_kv=bkv, interpret=True, **jkw)
     b = qknorm_attention(t(q), t(k), t(v), scale, **tkw)
     np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("h,lq,lkv,d,rope,bq,bkv", CASES)
+def test_plain_stats_build_matches_pallas_stats_build(h, lq, lkv, d, rope, bq, bkv):
+    """return_max_logit: the output as the serving build's (same tolerance), the max to
+    rtol 1e-5 — both are max|s|·scale over the same fp32 logits, which differ only in
+    summation order. Lengths of 200 leave pad columns in the Pallas kernel's tail
+    block, which must count as 0."""
+    q, k, v, jkw, tkw = _case(h, lq, lkv, d, rope)
+    scale = d**-0.5
+    a, am = jax_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, block_q=bq,
+                       block_kv=bkv, interpret=True, return_max_logit=True, **jkw)
+    b, bm = qknorm_attention(t(q), t(k), t(v), scale, return_max_logit=True, **tkw)
+    assert bm.shape == () and bm.dtype == torch.float32
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(bm), float(am), rtol=1e-5)
+    np.testing.assert_array_equal(b.numpy(), qknorm_attention(t(q), t(k), t(v), scale, **tkw).numpy())
+
+
+@pytest.mark.parametrize("h,lq,lkv,d,rope,bq,bkv", CASES)
+def test_plain_ablate_build_matches_pallas_ablate_build(h, lq, lkv, d, rope, bq, bkv):
+    """ablate_exp: p = s·scale − SHIFT is negative for qk-normed inputs, so den < 0, the
+    clamp makes out = acc·1e30, and p ≈ −20 rounds to bf16 in steps of 0.125: a logit
+    that the two sides sum in another order can land on the other side of a step.
+    Compared relative in norm (in fp64), to 1e-5 (the gap seen is about 3e-7)."""
+    q, k, v, jkw, tkw = _case(h, lq, lkv, d, rope)
+    scale = d**-0.5
+    a = np.asarray(jax_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, block_q=bq,
+                              block_kv=bkv, interpret=True, ablate_exp=True, **jkw))
+    b = qknorm_attention(t(q), t(k), t(v), scale, ablate_exp=True, **tkw).numpy()
+    assert np.isfinite(b).all()
+    a, b = a.astype(np.float64), b.astype(np.float64)  # |out| ~ 1e33: squares overflow fp32
+    assert np.linalg.norm(b - a) / np.linalg.norm(a) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["qk-normed", "x60", "nan"])
+def test_checked_guard_rail_in_both_packages(case):
+    """qknorm_attention_checked passes qk-normed inputs and raises FloatingPointError
+    when the max |logit| passes MAX_SAFE_LOGIT (q and k scaled ×60, as a bad LoRA fuse
+    of the norm scales would) or is NaN, in the JAX package and in the port."""
+    h, l, d = 1, 256, 32
+    r = np.random.default_rng(3)
+    amp = 60.0 if case == "x60" else 1.0
+    q, k = _normed(r, (h, l, d)) * amp, _normed(r, (h, l, d)) * amp
+    v = r.normal(size=(h, l, d)).astype(np.float32)
+    if case == "nan":
+        q[0, 5, 3] = np.nan
+    scale = d**-0.5
+    jcall = lambda: jax_checked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,  # noqa: E731
+                                block_q=128, block_kv=128, interpret=True)
+    tcall = lambda: qknorm_attention_checked(t(q), t(k), t(v), scale)  # noqa: E731
+    if case == "qk-normed":
+        np.testing.assert_allclose(tcall().numpy(), np.asarray(jcall()), rtol=1e-4, atol=1e-4)
+    else:
+        for call in (jcall, tcall):
+            with pytest.raises(FloatingPointError, match="safe bound"):
+                call()
+
+
+def test_stats_and_ablate_builds_do_not_combine():
+    x = torch.randn(2, 16, 8)
+    with pytest.raises(ValueError, match="do not combine"):
+        qknorm_attention(x, x, x, 0.3, return_max_logit=True, ablate_exp=True)
+
+
+@pytest.mark.parametrize("ablate_exp", [False, True])
+def test_benchmark_blocks_times_only_the_card(ablate_exp):
+    """The measurement never times the plain version: without a card it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; tests/test_torch_kernels.py times it")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tattn.benchmark_blocks(128, folded_heads=2, iters=1, ablate_exp=ablate_exp)
 
 
 def test_all_underflow_rows_emit_zero_not_nan():

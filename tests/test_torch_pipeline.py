@@ -183,6 +183,16 @@ def test_cache_config_validation():
         tsampling.CacheConfig.parse(3)
 
 
+def test_timings_count_this_requests_cond_cache_hits():
+    """``timings`` carries the hits and misses of the request it describes; the
+    lifetime totals stay on the pipeline's attributes."""
+    pipe = FluxPipeline.load_pipeline_from_config_path("configs/config-tiny-cpu.json")
+    for _ in range(2):
+        pipe.generate("a lighthouse at dusk", 64, 64, 2, seed=3)
+    assert (pipe.timings["cond_cache_hits"], pipe.timings["cond_cache_misses"]) == (1, 0)
+    assert (pipe.cond_cache_hits, pipe.cond_cache_misses) == (1, 1)
+
+
 @pytest.fixture(scope="module")
 def server():
     pipe = FluxPipeline.load_pipeline_from_config_path("configs/config-tiny-cpu.json")
