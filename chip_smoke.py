@@ -23,18 +23,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
    weights) calibrated and warmed by ``compile()``, serving three POST /generate
    requests through ``PipelineServer``; the attention kernel's launch count must be
-   57 per model evaluation.
+   57 per model evaluation;
+8. int linears: ``int8``, ``int4`` and the weight-only ``wo_int8``/``wo_int4``/
+   ``wo_int2`` Linears at the qkv shape and ``int8`` at linear2's, at M = 1, 17 and
+   4608 rows: the int32 product (``torch._int_mm``) equal to an exact fp64 product,
+   the output against the plain version, and the times beside ``_scaled_mm`` fp8;
+9. tiers: ``configs/config-dev-int8.json`` and ``configs/config-dev-gigaquant.json``
+   (int4 flow with its embedders, wo_int4 T5 and CLIP, weight-only fp8 VAE) at full
+   width and depth, each calibrated and warmed by ``compile()`` and serving one
+   1024×1024, 28-step request, 57 attention launches per model evaluation;
+10. checkpoints: (a) phase 7's calibrated pipeline saved prequantized, reloaded through
+    a copy of ``configs/config-dev-prequant.json`` with ``ckpt_path`` set: no
+    calibration trial, and phase 7's 512×512 request served again with identical
+    latents; (b) a BFL float file at full width, 2 double + 2 single blocks, loaded
+    by ``flux_from_pretrained``: the tree and its forward identical to the source's;
+    (c) the same model as reference-prequantized files, with and without input scales:
+    fp8 leaves equal to ``quantize_linear_fp8`` of the source, and the prequantized
+    flag as the loader's detection says.
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7 or 4, its time and error from phase 3 or 4),
-and ``{"ok": true, "device": {...}}``.
+and ``{"ok": true, "device": {...}}``. Phases 7-10 free their pipelines before the
+next (phase 7's lives until phase 10 has saved it).
 """
 
 from __future__ import annotations
 
+import gc
 import io
 import json
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,6 +82,13 @@ FP8_REL_TOL = 2e-2
 # e5m2 rounding boundary (2 mantissa bits) the element differs by up to 25%, so the
 # check is on the norm, not the worst element.
 MODEL_REL_TOL = 5e-2
+# int8/int4 linear, card vs plain: the same exact integer product and the same fp32
+# epilogue, so what is left is a fused multiply-add in the epilogue and the final bf16
+# rounding: |out − plain| ≤ 2^-8·|plain| + 1e-6.
+INT_RTOL, INT_ATOL = 2**-8, 1e-6
+# weight-only linear, card (bf16 weights, bf16 output, cuBLAS fp32 accumulation) vs an
+# fp32 product of the dequantized weight: max|out − plain| / max|plain|.
+WO_REL_TOL = 2e-2
 
 
 def fail(phase: str, msg: str) -> None:
@@ -343,7 +370,7 @@ def phase_server(card: str):
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
     from flux_fp8_api_tpu_torch.server import PipelineServer
 
-    requests = [  # (body, expected (width, height), steps)
+    requests = [  # (body, expected (width, height), steps); the last is served again in phase 10
         ({"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
           "num_steps": 28, "seed": 11}, (1024, 1024), 28),
         ({"prompt": "a beautiful cat in the sun", "seed": 12}, (720, 1024), 24),
@@ -367,6 +394,7 @@ def phase_server(card: str):
     server = PipelineServer(pipe, host="127.0.0.1", port=0)
     server.start_background()
     evals = warm_evals
+    last = None
     try:
         for body, (w, h), steps in requests:
             before = LAUNCHES["qknorm_attention"]
@@ -392,12 +420,299 @@ def phase_server(card: str):
             print(f"[{card}] POST /generate {w}x{h} {steps} steps: {dt:.3f} s/request, "
                   f"denoise {its:.3f} it/s, decode {pipe.timings['decode_seconds']:.3f} s, "
                   f"{launched} kernel launches", flush=True)
+            last = (body, lat.clone())
     finally:
         server.shutdown()
     launches = LAUNCHES["qknorm_attention"]
     if launches != blocks * evals:
         fail("server", f"{launches} kernel launches in the run, expected {blocks} x {evals}")
-    return launches
+    return launches, pipe, last
+
+
+def release() -> None:
+    """Return the device memory of the pipelines a phase has dropped."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_int_linears(card: str):
+    """int8/int4 and weight-only Linears on the card against their plain versions at
+    M = 1, 17 and 4608 rows; int8/int4 and ``_scaled_mm`` fp8 timed at M = 4608."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops import quant
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def weight(n, k):
+        w = ((torch.rand(n, k, generator=gen, device=dev) * 2 - 1) * (3 / k) ** 0.5).to(torch.bfloat16)
+        return w, ((torch.rand(n, generator=gen, device=dev) * 2 - 1) / k**0.5).to(torch.bfloat16)
+
+    cases = [(kind, 9216, 3072) for kind in ("int8", "int4", "wo_int8", "wo_int4", "wo_int2")]
+    cases.append(("int8", 3072, 15360))
+    quantizers = {"wo_int8": quant.quantize_linear_wo_int8, "wo_int4": quant.quantize_linear_wo_int4,
+                  "wo_int2": quant.quantize_linear_wo_int2, **quant.FLOW_QUANTIZERS}
+    times = {}
+    for kind, n, k in cases:
+        w, b = weight(n, k)
+        lin = quantizers[kind](w, b)
+        for m in (1, 17, 4608):
+            x = torch.randn(1, m, k, generator=gen, device=dev).to(torch.bfloat16)
+            quant.with_input_scale(lin, x.abs().max().float())
+            out, _ = quant.linear_apply(lin, x, torch.bfloat16)
+            torch.cuda.synchronize()
+            if out.shape != (1, m, n) or out.dtype != torch.bfloat16 or not bool(torch.isfinite(out.float()).all()):
+                fail("int", f"{kind} {n}x{k} M={m}: got {tuple(out.shape)} {out.dtype}")
+            if kind in ("int8", "int4"):
+                x8 = quant.quantize_activation_int8(x, lin.in_scale).reshape(m, k)
+                q = quant._unpack_int4(lin.q) if kind == "int4" else lin.q
+                acc = quant.int_mm(x8, q)
+                exact = torch.matmul(x8.double(), q.double().t())  # exact: |sum| < 2^53
+                if acc.dtype != torch.int32 or not torch.equal(acc.long(), exact.long()):
+                    fail("int", f"{kind} {n}x{k} M={m}: the int32 product differs from the exact one")
+                ref = acc.float() * ((1.0 / lin.in_scale.to(torch.bfloat16).float()) * lin.w_scale_inv) + b.float()
+                err = (out.float()[0] - ref).abs()
+                bad = int((err > INT_ATOL + INT_RTOL * ref.abs()).sum())
+                what = f"int32 product exact; max_abs_err {float(err.max()):.3e} (tol {INT_ATOL} + 2^-8*|plain|)"
+            else:
+                ref = x.float()[0] @ quant.dequantize_kernel(lin).t() + b.float()
+                rel = float((out.float()[0] - ref).abs().max() / ref.abs().max())
+                bad = int(not rel <= WO_REL_TOL)
+                what = f"max_rel_err {rel:.3e} (tol {WO_REL_TOL})"
+            print(f"[{card}] {kind} W({n},{k}) M={m}: {what}", flush=True)
+            if bad:
+                fail("int", f"{kind} {n}x{k} M={m}: {bad} elements outside tolerance")
+            if m == 4608 and kind in ("int8", "int4") and n == 9216:
+                times[kind] = cuda_time_ms(lambda: quant.linear_apply(lin, x, torch.bfloat16), 20)
+                if kind == "int8":
+                    times["_int_mm alone"] = cuda_time_ms(lambda: quant.int_mm(x8, lin.q), 20)
+    w, b = weight(9216, 3072)
+    x = torch.randn(1, 4608, 3072, generator=gen, device=dev).to(torch.bfloat16)
+    fp8 = quant.with_input_scale(quant.quantize_linear_fp8(w, b), x.abs().max().float())
+    times["fp8 (_scaled_mm)"] = cuda_time_ms(lambda: quant.linear_apply(fp8, x, torch.bfloat16), 20)
+    print(f"[{card}] linear x(4608,3072) W(9216,3072), ms incl. the activation quantization: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    print(f"[{card}] phase int linears: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def serve_one(card: str, pipe, body: dict, size):
+    """POST /generate once through PipelineServer; → (seconds, attention launches)."""
+    from PIL import Image
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+
+    server = PipelineServer(pipe, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        before = LAUNCHES["qknorm_attention"]
+        t = time.perf_counter()
+        status, _, payload = post(f"http://127.0.0.1:{server.port}/generate", body)
+        dt = time.perf_counter() - t
+    finally:
+        server.shutdown()
+    im = Image.open(io.BytesIO(payload))
+    im.load()
+    if status != 200 or im.format != "JPEG" or im.size != size:
+        fail("serve", f"{body}: status {status}, {im.format} {im.size}, expected JPEG {size}")
+    return dt, LAUNCHES["qknorm_attention"] - before
+
+
+def phase_tiers(card: str):
+    """config-dev-int8 and config-dev-gigaquant at full width and depth, random weights."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+
+    for name, flow_kind, encoder_kind in (("config-dev-int8.json", "int8", "wo_fp8"),
+                                          ("config-dev-gigaquant.json", "int4", "wo_int4")):
+        t_phase = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()  # phase 7's pipeline, kept for phase 10
+        LAUNCHES["qknorm_attention"] = 0
+        pipe = FluxPipeline.load_pipeline_from_config_path(str(ROOT / "configs" / name))  # compile() runs here
+        setup_s = time.perf_counter() - t_phase
+        model, cfg = pipe.model_params, pipe.model_cfg
+        kinds = {
+            "linear1": model["single_blocks"][0]["linear1"].kind,
+            "img_mod_lin": model["double_blocks"][0]["img_mod_lin"].kind,
+            "img_in": model["img_in"].kind,
+            "t5": pipe.t5.params["blocks"][0]["wo"].kind,
+            "clip": pipe.clip.params["blocks"][0]["fc1"].kind if pipe.config.clip_quantization_dtype else "float",
+            "ae": str(pipe.ae_params["decoder"]["conv_in"]["weight"].dtype),
+        }
+        if kinds["linear1"] != flow_kind or kinds["t5"] != encoder_kind:
+            fail("tiers", f"{name}: leaf kinds {kinds}")
+        blocks = cfg.depth + cfg.depth_single_blocks
+        warm = pipe.config.num_scale_trials + (pipe.config.warmup_steps or 24)
+        if LAUNCHES["qknorm_attention"] != blocks * warm:
+            fail("tiers", f"{name}: compile() launched K1 {LAUNCHES['qknorm_attention']} times, expected {blocks} x {warm}")
+        body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
+                "num_steps": 28, "seed": 21}
+        dt, launched = serve_one(card, pipe, body, (1024, 1024))
+        lat = pipe.last_latents
+        if lat is None or not bool(torch.isfinite(lat.float()).all()):
+            fail("tiers", f"{name}: non-finite latents")
+        if launched != blocks * 28:
+            fail("tiers", f"{name}: {launched} K1 launches, expected {blocks} x 28")
+        print(f"[{card}] {name}: leaf kinds {kinds}; set-up (load + 12-step calibration + "
+              f"{pipe.config.warmup_steps or 24}-step warm) {setup_s:.1f} s, peak device memory "
+              f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.1f} GiB above the "
+              f"{resident / 2**30:.1f} GiB already resident; POST /generate 1024x1024 28 steps: "
+              f"{dt:.3f} s/request, denoise {pipe.timings['denoise_it_per_s']:.3f} it/s, "
+              f"{launched} K1 launches = {blocks} x 28; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+        del pipe, model
+        release()
+
+
+def _spec(**overrides):
+    """configs/config-dev.json with fields replaced (validated, as flux_from_pretrained does)."""
+    from flux_fp8_api_tpu_torch.utils.config import ModelSpec, load_config_from_path
+
+    return ModelSpec.model_validate({**load_config_from_path(str(CONFIG)).model_dump(), **overrides})
+
+
+def phase_checkpoints(card: str, held: dict):
+    """(a) full-size prequant round trip of phase 7's pipeline (``held`` gives it up
+    once saved); (b) a BFL float file and (c) reference-prequantized files at full
+    width, 2 double + 2 single blocks."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.models.flux import FluxStatic, flux_apply, init_flux_params, max_logit_bound
+    from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
+    from flux_fp8_api_tpu_torch.ops.quant import Linear, quantize_linear_fp8
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.utils.loader import flux_from_pretrained, load_models_from_config
+    from tests.torch_parity import write_bfl_checkpoint
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        print(f"[{card}] checkpoints in {tmp}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free", flush=True)
+        # (a) save phase 7's calibrated pipeline, reload it from a prequantized config
+        t_phase = time.perf_counter()
+        path = tmp / "flux-dev-prequant.safetensors"
+        t = time.perf_counter()
+        held["pipe"].save_prequantized(str(path))
+        write_s = time.perf_counter() - t
+        body, ref_latents = held.pop("request")
+        del held["pipe"]
+        release()
+        spec = json.loads((ROOT / "configs" / "config-dev-prequant.json").read_text())
+        spec["ckpt_path"] = str(path)
+        cfg_path = tmp / "config-dev-prequant.json"
+        cfg_path.write_text(json.dumps(spec))
+        from flux_fp8_api_tpu_torch.utils.config import load_config_from_path
+
+        config = load_config_from_path(str(cfg_path))
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        models = load_models_from_config(config)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        if not models.flow_prequantized:
+            fail("checkpoints", "a prequant-v1 file did not load as prequantized")
+        pipe = FluxPipeline(name=str(config.version), clip=models.clip, t5=models.t5, model=models.flow,
+                            model_cfg=models.flow_cfg, ae=models.ae, config=config,
+                            prequantized=models.flow_prequantized)  # compile(): warm only
+        del models
+        if pipe._needs_calibration or pipe._trials_done:
+            fail("checkpoints", f"calibration ran after a prequantized load ({pipe._trials_done} trials)")
+        dt, _ = serve_one(card, pipe, body, (body["width"], body["height"]))
+        if pipe._trials_done or not torch.equal(pipe.last_latents, ref_latents):
+            diff = float((pipe.last_latents.float() - ref_latents.float()).abs().max())
+            fail("checkpoints", f"reloaded pipeline: latents differ from phase 7's (max {diff}), "
+                                f"{pipe._trials_done} calibration trials")
+        print(f"[{card}] (a) prequant round trip: {path.stat().st_size} bytes, write {write_s:.1f} s, "
+              f"read (load_models_from_config) {read_s:.1f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; 0 calibration trials; "
+              f"{body['width']}x{body['height']} {body['num_steps']} steps seed {body['seed']} "
+              f"in {dt:.3f} s, latents bit-identical to phase 7's; {time.perf_counter() - t_phase:.1f} s", flush=True)
+        del pipe
+        release()
+        path.unlink()
+
+        # (b) BFL float file, full width, 2 double + 2 single blocks
+        t_phase = time.perf_counter()
+        params = {**_spec().params.model_dump(), "depth": 2, "depth_single_blocks": 2}
+        spec = _spec(params=params)
+        cfg = FluxStatic.from_params(spec.params)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        src = init_flux_params(cfg, gen, torch.bfloat16)
+        for blk in (*src["double_blocks"], *src["single_blocks"]):
+            for name, value in list(blk.items()):
+                if not isinstance(value, Linear):  # qk-norm scales that the permutation moves
+                    noise = torch.randn(value.shape, generator=gen, device="cuda")
+                    setattr(blk, name, (1 + 0.1 * noise).to(torch.bfloat16))
+        bfl = tmp / "flux-2x2.safetensors"
+        t = time.perf_counter()
+        write_bfl_checkpoint(bfl, src, cfg)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded, _, prequant = flux_from_pretrained(str(CONFIG), ckpt_path=str(bfl), params=params,
+                                                    flow_quantization_dtype="bfloat16")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        a, b = dict(src.named_buffers()), dict(loaded.named_buffers())
+        if sorted(a) != sorted(b) or prequant:
+            fail("checkpoints", f"BFL load: {len(a)} vs {len(b)} tensors, prequantized {prequant}")
+        for key in a:
+            if a[key].dtype != b[key].dtype or not torch.equal(a[key], b[key]):
+                fail("checkpoints", f"BFL load: {key} differs from the source")
+        x = dict(img=torch.randn(1, 1024, 64, generator=gen, device="cuda"),
+                 img_ids=make_img_ids(64, 64, 1, "cuda"),
+                 txt=torch.randn(1, 512, 4096, generator=gen, device="cuda"),
+                 txt_ids=make_txt_ids(512, 1, "cuda"), timesteps=torch.full((1,), 0.6, device="cuda"),
+                 y=torch.randn(1, 768, generator=gen, device="cuda"), guidance=torch.full((1,), 3.5, device="cuda"))
+        out_src, out_loaded = flux_apply(src, cfg, **x), flux_apply(loaded, cfg, **x)
+        if not (torch.equal(out_src, out_loaded) and bool(torch.isfinite(out_src.float()).all())):
+            fail("checkpoints", "BFL load: the forward differs from the source tree's")
+        print(f"[{card}] (b) BFL float file, hidden {cfg.hidden_size}, 2+2 blocks: {bfl.stat().st_size} bytes, "
+              f"write {write_s:.1f} s, read {read_s:.1f} s; {len(a)} tensors and the forward at 512x512 "
+              f"bit-identical to the source; attention |logit| bound {max_logit_bound(loaded, cfg):.2f}; "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        del loaded
+        bfl.unlink()
+
+        # (c) reference-prequantized files, with and without tuned input scales
+        t_phase = time.perf_counter()
+        for in_scale in (None, 57344.0 / 3.0):
+            ref = tmp / "flux-2x2-reference-fp8.safetensors"
+            write_bfl_checkpoint(ref, src, cfg, reference_fp8=True, input_scale=in_scale)
+            models = load_models_from_config(_spec(params=params, ckpt_path=str(ref), prequantized_flow=True))
+            if models.flow_prequantized != (in_scale is not None):
+                fail("checkpoints", f"reference fp8 file, input_scale {in_scale}: flow_prequantized "
+                                    f"{models.flow_prequantized}")
+            n = 0
+            for stack in ("double_blocks", "single_blocks"):
+                for i, blk in enumerate(models.flow[stack]):
+                    for name, lin in blk.items():
+                        if not isinstance(lin, Linear):
+                            continue
+                        want = quantize_linear_fp8(src[stack][i][name].weight, None)
+                        ok = (lin.kind == "fp8" and torch.equal(lin.q.view(torch.uint8), want.q.view(torch.uint8))
+                              and torch.equal(lin.w_scale, want.w_scale)
+                              and float(lin.in_scale) == float(torch.tensor(in_scale or 1.0)))
+                        if not ok:
+                            fail("checkpoints", f"reference fp8 file: {stack}.{i}.{name} differs from quantize_linear_fp8")
+                        n += 1
+            if models.flow["img_in"].kind != "float" or not torch.equal(models.flow["img_in"].weight, src["img_in"].weight):
+                fail("checkpoints", "reference fp8 file: img_in should load as the float source")
+            print(f"[{card}] (c) reference-prequantized file, input_scale {in_scale}: {n} fp8 leaves equal to "
+                  f"quantize_linear_fp8 of the source; flow_prequantized {models.flow_prequantized}", flush=True)
+            del models
+            ref.unlink()
+        print(f"[{card}] (c) {time.perf_counter() - t_phase:.1f} s", flush=True)
+        del src
+        release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -427,7 +742,12 @@ def main() -> int:
     builds, path_launches = phase_guard_ablation(card_line)
     phase_fp8_linear(card_line)
     phase_model(card_line)
-    launches = phase_server(card_line)
+    launches, pipe7, request = phase_server(card_line)
+    held = {"pipe": pipe7, "request": request}
+    del pipe7
+    phase_int_linears(card_line)
+    phase_tiers(card_line)
+    phase_checkpoints(card_line, held)
 
     k1_source = "flux_fp8_api_tpu_torch/csrc/qknorm_attention.cu"
     kernels = [{

@@ -7,6 +7,9 @@
 from __future__ import annotations
 
 import argparse
+import logging
+
+logger = logging.getLogger(__name__)
 
 
 def parse_args(argv=None):
@@ -55,7 +58,9 @@ def parse_args(argv=None):
     parser.add_argument("--compilation-cache-dir", type=str, default=None,
                         help="(no effect here: PyTorch runs eagerly, nothing is compiled ahead)")
     parser.add_argument("--save-prequantized", type=str, default=None, metavar="PATH",
-                        help="Save a prequantized flow checkpoint (not ported yet)")
+                        help="Calibrate (if needed), save a prequantized flow checkpoint "
+                             "(quantized data + weight/input scales) to PATH, then exit "
+                             "instead of serving; reload it with -PF")
     parser.add_argument("--mesh", type=str, default=None,
                         help="Multi-device serving mesh (not ported yet)")
     return parser.parse_args(argv)
@@ -63,8 +68,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.save_prequantized:
-        raise NotImplementedError("--save-prequantized is not ported yet (ROADMAP: checkpoint loaders)")
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)-7s | %(name)s - %(message)s")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP: multi-GPU)")
 
@@ -98,6 +102,18 @@ def main(argv=None):
             quantize_flow_embedder_layers=args.quantize_flow_embedder_layers,
         )
         pipeline = FluxPipeline.load_pipeline_from_config(config)
+
+    if args.save_prequantized:
+        if pipeline._needs_calibration:
+            # the reference's warmup recipe until the input scales freeze: the file
+            # ships them
+            logger.info("calibrating input scales before the prequantized export …")
+            pipeline.compile()
+        pipeline.save_prequantized(args.save_prequantized)
+        logger.info("prequantized flow checkpoint written to %s — serve it with "
+                    "--config-path configs/config-dev-prequant.json -f %s (ckpt_path, "
+                    "prequantized_flow=true)", args.save_prequantized, args.save_prequantized)
+        return
     serve(pipeline, host=args.host, port=args.port)
 
 

@@ -2,9 +2,9 @@
 reference modules/autoencoder.py).
 
 The public functions keep the JAX package's NHWC layout; inside, activations are NCHW
-and conv weights OIHW, torch's native layouts. GroupNorm runs in fp32. The encoder's
-parameters are initialised (the tree mirrors the JAX one) but encoding is not ported
-yet (ROADMAP: img2img).
+and conv weights OIHW, torch's native layouts. GroupNorm runs in fp32. The parameter
+tree holds the encoder half as the JAX one does (random init and ``ae.sft`` loads
+fill it), but encoding is not ported yet (ROADMAP: img2img).
 """
 
 from __future__ import annotations
@@ -14,13 +14,21 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..ops.quant import F8_WEIGHT_MAX, amax_to_scale
 from ..utils.config import AutoEncoderParams
 from ..utils.tree import ParamTree
 
 
 def _conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Conv with an OIHW weight, which may be weight-only e4m3 (see
+    :func:`quantize_ae_params`): it is dequantized in the compute dtype with its
+    per-out-channel scale, as the JAX ``_conv`` does. A checkpoint may omit a bias."""
     w = p["weight"]
-    return F.conv2d(x, w.to(x.dtype), p["bias"].to(x.dtype), stride=stride, padding=w.shape[-1] // 2)
+    if w.dtype == torch.float8_e4m3fn:
+        w = w.to(x.dtype) * p["kscale_inv"].to(x.dtype)[:, None, None, None]
+    bias = p.get("bias")
+    return F.conv2d(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype),
+                    stride=stride, padding=w.shape[-1] // 2)
 
 
 def _group_norm(p, x: torch.Tensor, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
@@ -89,6 +97,32 @@ def ae_decode(params: ParamTree, cfg: AutoEncoderParams, z: torch.Tensor) -> tor
     z = z / cfg.scale_factor + cfg.shift_factor
     out = decoder_apply(params["decoder"], z.permute(0, 3, 1, 2), cfg)
     return out.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------- weight-only quant
+
+
+def quantize_ae_params(params: ParamTree) -> ParamTree:
+    """Weight-only e4m3 quantization of every conv weight with per-out-channel scales,
+    in place (JAX ``quantize_ae_params``: what the reference's ``ae_quantization_dtype``
+    advertises, util.py:288-291, where it finds no nn.Linear and does nothing).
+    :func:`_conv` dequantizes at use; AE parameter memory halves."""
+
+    def walk(node: torch.nn.Module) -> None:
+        for key, child in list(node.named_children()):
+            w = child.get("weight") if isinstance(child, ParamTree) else None
+            if w is not None and w.dim() == 4 and w.dtype != torch.float8_e4m3fn:
+                w32 = w.float()
+                scale = amax_to_scale(w32.abs().amax(dim=(1, 2, 3)), F8_WEIGHT_MAX)  # (out,)
+                q = torch.clamp(w32 * scale[:, None, None, None], -F8_WEIGHT_MAX, F8_WEIGHT_MAX)
+                entries = dict(child.items())
+                entries.update(weight=q.to(torch.float8_e4m3fn), kscale_inv=1.0 / scale)
+                setattr(node, key, ParamTree(entries))
+            else:
+                walk(child)
+
+    walk(params)
+    return params
 
 
 # ------------------------------------------------------------------------- param init

@@ -8,11 +8,12 @@ legacy argmax rule for openai-era configs whose eos_token_id is 2).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.quant import Linear, linear_apply
+from ..ops.quant import Linear, linear_apply, quantize_blocks_weight_only
 from ..utils.tree import ParamTree
 
 
@@ -26,6 +27,19 @@ class CLIPConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     eos_token_id: int = 49407
+
+    @classmethod
+    def from_hf_config(cls, cfg: Dict[str, Any]) -> "CLIPConfig":
+        return cls(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            max_position_embeddings=cfg["max_position_embeddings"],
+            layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+            eos_token_id=cfg.get("eos_token_id", 49407),
+        )
 
 
 def _ln(x: torch.Tensor, p, eps: float) -> torch.Tensor:
@@ -104,4 +118,52 @@ def init_clip_params(cfg: CLIPConfig, generator: torch.Generator, dtype=torch.fl
         "position_embedding": normal(cfg.max_position_embeddings, d),
         "blocks": [block() for _ in range(cfg.num_layers)],
         "final_layer_norm": lnp(),
+    })
+
+
+def quantize_clip_params(params: ParamTree, tier: str) -> ParamTree:
+    """Weight-only tier over the block linears, in place (reference
+    clip_quantization_dtype, util.py:65 + conditioner.py:56-70)."""
+    quantize_blocks_weight_only(params["blocks"], tier)
+    return params
+
+
+def load_clip_checkpoint(sd_get, cfg: CLIPConfig, dtype=torch.bfloat16, report=None,
+                         device=None) -> ParamTree:
+    """HF CLIPTextModel state dict → the encoder's tree, each tensor moved to
+    ``device`` as it is read. With a ``report`` (utils.checkpoint.LoadReport) missing
+    tensors zero-fill (norm weights with ones) and are recorded instead of raising."""
+    from ..utils.checkpoint import LoadReport
+
+    def fetch(name, shape, fill=0.0):
+        return LoadReport.fetch(sd_get, name, shape, fill, report).to(device, dtype)
+
+    def lin(name, out_f, in_f):
+        return Linear("float", weight=fetch(f"{name}.weight", (out_f, in_f)),
+                      bias=fetch(f"{name}.bias", (out_f,)))
+
+    def lnp(name):
+        return {"weight": fetch(f"{name}.weight", (cfg.hidden_size,), fill=1.0),
+                "bias": fetch(f"{name}.bias", (cfg.hidden_size,))}
+
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"text_model.encoder.layers.{i}."
+        blocks.append({
+            "q_proj": lin(p + "self_attn.q_proj", h, h),
+            "k_proj": lin(p + "self_attn.k_proj", h, h),
+            "v_proj": lin(p + "self_attn.v_proj", h, h),
+            "out_proj": lin(p + "self_attn.out_proj", h, h),
+            "layer_norm1": lnp(p + "layer_norm1"),
+            "fc1": lin(p + "mlp.fc1", inter, h),
+            "fc2": lin(p + "mlp.fc2", h, inter),
+            "layer_norm2": lnp(p + "layer_norm2"),
+        })
+    return ParamTree({
+        "token_embedding": fetch("text_model.embeddings.token_embedding.weight", (cfg.vocab_size, h)),
+        "position_embedding": fetch("text_model.embeddings.position_embedding.weight",
+                                    (cfg.max_position_embeddings, h)),
+        "blocks": blocks,
+        "final_layer_norm": lnp("text_model.final_layer_norm"),
     })

@@ -1,19 +1,61 @@
 """Text-encoder wrapper: tokenizer + encoder + weight-only tier
 (JAX counterpart: ``flux_fp8_api_tpu.models.conditioner``; reference ``HFEmbedder``,
-modules/conditioner.py:38-117). Resident on one device; offload, streaming, sharding
-and loading from pretrained directories are not ported yet.
+modules/conditioner.py:38-117). Resident on one device; offload, streaming and
+sharding are not ported yet.
+
+Checkpoints load from local HF-style directories (``config.json`` + safetensors,
+optionally sharded through ``model.safetensors.index.json``); ``from_pretrained``
+takes paths, never hub ids.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import json
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..utils.config import into_dtype
+from ..utils.safetensors_io import SafetensorsFile
 from ..utils.tree import ParamTree
-from .clip import clip_encode
-from .t5 import quantize_t5_params, t5_encode
+from .clip import CLIPConfig, clip_encode, load_clip_checkpoint, quantize_clip_params
+from .t5 import T5Config, load_t5_checkpoint, quantize_t5_params, t5_encode
+
+
+def _hf_state_dict_getter(model_dir: Path) -> Callable[[str], torch.Tensor]:
+    """``sd_get(name)`` over a (possibly sharded) HF safetensors directory; raises
+    KeyError for an absent name. ``sd_get.all_keys`` holds every tensor name, for the
+    unexpected-key report."""
+    index = model_dir / "model.safetensors.index.json"
+    if index.exists():
+        weight_map: Dict[str, str] = json.loads(index.read_text())["weight_map"]
+        files: Dict[str, SafetensorsFile] = {}
+
+        def get(name: str) -> torch.Tensor:
+            fname = weight_map.get(name)
+            if fname is None:
+                raise KeyError(name)
+            if fname not in files:
+                files[fname] = SafetensorsFile(model_dir / fname)
+            return files[fname].get(name)
+
+        get.all_keys = set(weight_map)
+        return get
+    candidates = sorted(model_dir.glob("*.safetensors"))
+    if not candidates:
+        raise FileNotFoundError(f"no safetensors files in {model_dir}")
+    shards = [SafetensorsFile(c) for c in candidates]
+
+    def get(name: str) -> torch.Tensor:
+        for s in shards:
+            if name in s:
+                return s.get(name)
+        raise KeyError(name)
+
+    get.all_keys = set().union(*(set(s.keys()) for s in shards))
+    return get
 
 
 class TextEncoder:
@@ -57,17 +99,55 @@ class TextEncoder:
         )
         return self.encode_ids(batch.input_ids)
 
+    @classmethod
+    def from_pretrained(
+        cls,
+        kind: str,
+        model_path: str,
+        max_length: int,
+        dtype="bfloat16",
+        quantization_dtype=None,
+        tokenizer_path: Optional[str] = None,
+        device: Optional[torch.device] = None,
+    ) -> "TextEncoder":
+        """Load a local HF directory: its ``config.json``, its safetensors (each tensor
+        moved to ``device`` as it is read, then the tier applied there) and its
+        tokenizer through ``transformers.AutoTokenizer``. The load is tolerant like
+        the reference's strict=False one (util.py:225-237): missing tensors fill and
+        extra keys are ignored, each with a warning naming them."""
+        from transformers import AutoTokenizer
+
+        from ..utils.checkpoint import LoadReport
+
+        model_dir = Path(model_path)
+        hf_cfg = json.loads((model_dir / "config.json").read_text())
+        # CLIP ships CLIPTextConfig top-level or under "text_config"
+        if "text_config" in hf_cfg:
+            hf_cfg = {**hf_cfg, **hf_cfg["text_config"]}
+        sd_get = _hf_state_dict_getter(model_dir)
+        tdtype = into_dtype(dtype)
+        report = LoadReport(f"{kind} checkpoint {model_path}")
+        if kind == "clip":
+            config = CLIPConfig.from_hf_config(hf_cfg)
+            params = load_clip_checkpoint(sd_get, config, tdtype, report=report, device=device)
+        else:
+            config = T5Config.from_hf_config(hf_cfg)
+            params = load_t5_checkpoint(sd_get, config, tdtype, report=report, device=device)
+        report.finish(sd_get.all_keys)
+        params = apply_quantization(kind, params, quantization_dtype)
+        tokenizer = AutoTokenizer.from_pretrained(tokenizer_path or model_path)
+        return cls(kind, params, config, tokenizer, max_length=max_length, dtype=tdtype, device=device)
+
 
 def apply_quantization(kind: str, params: ParamTree, quantization_dtype) -> ParamTree:
     """Map the reference's tier names onto the weight-only quantizers
-    (conditioner.py:17-35). ``qfloat8`` on T5 is ported; anything else raises."""
+    (conditioner.py:17-35: qfloat8→quanto fp8, qint8→bnb int8, qint4→bnb nf4,
+    qint2→quanto int2), in place."""
     if quantization_dtype is None:
         return params
     tier = str(getattr(quantization_dtype, "value", quantization_dtype))
     if tier in ("bfloat16", "float16"):
         return params
     if kind == "clip":
-        raise NotImplementedError(
-            f"CLIP tier {tier!r} is not ported yet (ROADMAP: other quant kinds)"
-        )
+        return quantize_clip_params(params, tier)
     return quantize_t5_params(params, tier)

@@ -7,9 +7,10 @@ per-block trees, and ``final_layer`` (``linear``, ``adaln``). The depth stacks r
 as Python loops where the JAX package scans stacked leaves. Only the ``flat`` fused
 qkv layout is ported.
 
-Quantization tiers follow the reference (float8_quantize.py:320-369,395-496):
-``final_layer`` never, modulation linears gated by ``quantize_modulation``, embedders
-gated by ``quantize_flow_embedder_layers``, every other block linear always.
+Quantization tiers (``fp8``, ``int8``, ``int4``) follow the reference's partition
+(float8_quantize.py:320-369,395-496): ``final_layer`` never, modulation linears gated
+by ``quantize_modulation``, embedders gated by ``quantize_flow_embedder_layers``,
+every other block linear always.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..ops.math import (
     silu,
     timestep_embedding,
 )
-from ..ops.quant import Linear, linear_apply, quantize_linear_fp8
+from ..ops.quant import FLOW_QUANTIZERS, Linear, linear_apply
 from ..ops.rope import embed_nd_cos_sin
 from ..utils.config import FluxParams, into_dtype
 from ..utils.tree import ParamTree
@@ -105,8 +106,12 @@ MODULATION_LEAF_NAMES = ("img_mod_lin", "txt_mod_lin", "mod_lin")
 LeafFn = Callable[[Tuple[str, ...], Linear], Linear]
 
 
-def fp8_tier(quantize_modulation: bool = True, quantize_flow_embedder_layers: bool = False) -> LeafFn:
-    """The reference's fp8 tier as a per-leaf transform."""
+def quant_tier(
+    kind: str = "fp8", quantize_modulation: bool = True, quantize_flow_embedder_layers: bool = False
+) -> LeafFn:
+    """A flow tier (``fp8``, ``int8`` or ``int4``) as a per-leaf transform, with the
+    reference's partition rules (JAX flux.py:237-310)."""
+    qfn = FLOW_QUANTIZERS[kind]
 
     def leaf(path: Tuple[str, ...], lin: Linear) -> Linear:
         if lin.kind != "float" or path[0] == "final_layer":
@@ -115,7 +120,7 @@ def fp8_tier(quantize_modulation: bool = True, quantize_flow_embedder_layers: bo
             return lin
         if path[-1] in MODULATION_LEAF_NAMES and not quantize_modulation:
             return lin
-        return quantize_linear_fp8(lin.weight, lin.bias)
+        return qfn(lin.weight, lin.bias)
 
     return leaf
 
@@ -137,10 +142,11 @@ def quantize_flux_tree(
     model: ParamTree,
     quantize_modulation: bool = True,
     quantize_flow_embedder_layers: bool = False,
+    kind: str = "fp8",
 ) -> ParamTree:
-    """Quantize the tier's Linear leaves to fp8, in place (each block keeps its own
-    per-tensor scales, as each of the reference's F8Linears does). Returns the model."""
-    _map_linears(model, fp8_tier(quantize_modulation, quantize_flow_embedder_layers))
+    """Quantize the tier's Linear leaves to ``kind``, in place (each block keeps its
+    own scales, as each of the reference's F8Linears does). Returns the model."""
+    _map_linears(model, quant_tier(kind, quantize_modulation, quantize_flow_embedder_layers))
     return model
 
 
@@ -154,7 +160,7 @@ def init_flux_params(
     leaf_fn: Optional[LeafFn] = None,
 ) -> ParamTree:
     """Random-init model on ``generator``'s device, built leaf by leaf: each Linear is
-    drawn, passed through ``leaf_fn`` (e.g. :func:`fp8_tier`) and only then is the next
+    drawn, passed through ``leaf_fn`` (e.g. :func:`quant_tier`) and only then is the next
     drawn, so a quantized model never holds the whole float tree at once.
 
     Kernels follow the JAX init: U(±√(3/in)), biases U(±1/√in), norm scales ones.

@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Dict
 
 import torch
 
-from ..ops.quant import WO_QUANTIZERS, Linear, linear_apply
+from ..ops.quant import Linear, linear_apply, quantize_blocks_weight_only
 from ..utils.tree import ParamTree
 
 
@@ -27,6 +28,20 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
+
+    @classmethod
+    def from_hf_config(cls, cfg: Dict[str, Any]) -> "T5Config":
+        return cls(
+            vocab_size=cfg["vocab_size"],
+            d_model=cfg["d_model"],
+            d_ff=cfg["d_ff"],
+            num_layers=cfg["num_layers"],
+            num_heads=cfg["num_heads"],
+            d_kv=cfg["d_kv"],
+            relative_attention_num_buckets=cfg.get("relative_attention_num_buckets", 32),
+            relative_attention_max_distance=cfg.get("relative_attention_max_distance", 128),
+            layer_norm_epsilon=cfg.get("layer_norm_epsilon", 1e-6),
+        )
 
 
 def _t5_layer_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -125,15 +140,53 @@ def init_t5_params(cfg: T5Config, generator: torch.Generator, dtype=torch.float3
 
 
 def quantize_t5_params(params: ParamTree, tier: str) -> ParamTree:
-    """Weight-only tier over every block linear, in place (the reference quantizes the
-    whole HF module, conditioner.py:56-70). Only ``qfloat8`` is ported."""
-    if tier not in WO_QUANTIZERS:
-        raise NotImplementedError(
-            f"text-encoder tier {tier!r} is not ported yet (ROADMAP: other quant kinds)"
-        )
-    qfn = WO_QUANTIZERS[tier]
-    for blk in params["blocks"]:
-        for key, value in list(blk.items()):
-            if isinstance(value, Linear) and value.kind == "float":
-                setattr(blk, key, qfn(value.weight, value.bias))
+    """Apply a weight-only tier ('qfloat8'/'qint8'/'qint4'/'qint2') to every block
+    linear, in place (the reference quantizes the whole HF module via quanto/bnb,
+    conditioner.py:56-70)."""
+    quantize_blocks_weight_only(params["blocks"], tier)
     return params
+
+
+def load_t5_checkpoint(sd_get, cfg: T5Config, dtype=torch.bfloat16, report=None,
+                       device=None) -> ParamTree:
+    """HF T5EncoderModel state dict → the encoder's tree, each tensor moved to
+    ``device`` as it is read. ``sd_get(name)`` returns a tensor or raises KeyError.
+
+    HF key layout: shared.weight, encoder.block.{i}.layer.0.SelfAttention.{q,k,v,o}.weight,
+    …layer.0.layer_norm.weight, …layer.1.DenseReluDense.{wi_0,wi_1,wo}.weight,
+    …layer.1.layer_norm.weight, encoder.final_layer_norm.weight, and block 0's
+    relative_attention_bias. With a ``report`` (utils.checkpoint.LoadReport) missing
+    tensors zero-fill (norms with ones) and are recorded instead of raising."""
+    from ..utils.checkpoint import LoadReport
+
+    def fetch(name, shape, fill=0.0):
+        return LoadReport.fetch(sd_get, name, shape, fill, report).to(device, dtype)
+
+    def lin(name, out_f, in_f):
+        return Linear("float", weight=fetch(name, (out_f, in_f)))
+
+    def ln(name):
+        return fetch(name, (cfg.d_model,), fill=1.0)
+
+    d, ff, inner = cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.d_kv
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"encoder.block.{i}."
+        blocks.append({
+            "q": lin(p + "layer.0.SelfAttention.q.weight", inner, d),
+            "k": lin(p + "layer.0.SelfAttention.k.weight", inner, d),
+            "v": lin(p + "layer.0.SelfAttention.v.weight", inner, d),
+            "o": lin(p + "layer.0.SelfAttention.o.weight", d, inner),
+            "ln1": ln(p + "layer.0.layer_norm.weight"),
+            "wi_0": lin(p + "layer.1.DenseReluDense.wi_0.weight", ff, d),
+            "wi_1": lin(p + "layer.1.DenseReluDense.wi_1.weight", ff, d),
+            "wo": lin(p + "layer.1.DenseReluDense.wo.weight", d, ff),
+            "ln2": ln(p + "layer.1.layer_norm.weight"),
+        })
+    return ParamTree({
+        "shared": fetch("shared.weight", (cfg.vocab_size, d)),
+        "rel_bias": fetch("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+                          (cfg.relative_attention_num_buckets, cfg.num_heads)),
+        "blocks": blocks,
+        "final_ln": ln("encoder.final_layer_norm.weight"),
+    })

@@ -1,23 +1,38 @@
 """Quantized linear layers and per-tensor scale math
 (JAX counterpart: ``flux_fp8_api_tpu.ops.quant``).
 
-A :class:`Linear` is an ``nn.Module`` whose buffers hold either a float weight or fp8
-data plus scales. Weights are torch's (out_features, in_features); the JAX package
-stores (in, out), and ``utils/convert.py`` transposes.
+A :class:`Linear` is an ``nn.Module`` whose buffers hold either a float weight or
+quantized data plus scales. Weights are torch's (out_features, in_features); the JAX
+package stores (in, out), and ``utils/convert.py`` transposes.
 
-Kinds this port runs:
+Kinds and their layouts here:
 
-- ``float``: ``weight`` (+ ``bias``).
-- ``fp8``: ``q`` e4m3 with scalar ``w_scale``/``in_scale`` and their reciprocals. The
-  activation is saturated to e5m2 with the input scale and multiplied on the card by
-  ``torch._scaled_mm`` — the reference's own op (float8_quantize.py:284-292), with
-  ``ModelSpec.fp8_fast_accum`` as its ``use_fast_accum``. On the CPU the same product
-  is computed in fp32 from the dequantized operands.
-- ``wo_fp8``: weight-only e4m3 with per-out-channel scales (the text encoders'
-  ``qfloat8`` tier); activations stay in the compute dtype.
+- ``float``: ``weight`` (out, in) (+ ``bias``).
+- ``fp8``: ``q`` (out, in) e4m3 with scalar ``w_scale``/``in_scale`` and their
+  reciprocals. The activation is saturated to e5m2 with the input scale and multiplied
+  on the card by ``torch._scaled_mm`` — the reference's own op
+  (float8_quantize.py:284-292), with ``ModelSpec.fp8_fast_accum`` as its
+  ``use_fast_accum``. On the CPU the same product is computed in fp32 from the
+  dequantized operands.
+- ``int8``: ``q`` (out, in) int8, per-out-channel ``w_scale``/``w_scale_inv`` (out,),
+  scalar ``in_scale``. The activation is quantized in bf16 to int8 and multiplied by
+  ``torch._int_mm`` on the card; the epilogue dequantizes by the reciprocal of the
+  bf16-rounded input scale actually applied.
+- ``int4``: ``q`` (out, in/2) uint8, offset-binary nibbles (q + 7) with the JAX
+  package's HALF-SPLIT pairing along the in axis: byte [o, i] holds element i in its
+  low nibble and element i + in/2 in its high one. The JAX (in/2, out) array
+  transposes into this layout byte for byte. It runs as ``int8`` after unpacking.
+- ``wo_fp8`` / ``wo_int8``: weight-only, ``q`` (out, in) e4m3 / int8 with
+  per-out-channel scales; activations stay in the compute dtype (text-encoder tiers).
+- ``wo_int4`` / ``wo_int2``: weight-only blockwise, ``q`` (out, in·bits/8) uint8 with
+  CONSECUTIVE in-elements packed low bits first (offset-binary, q + qmax), and
+  ``w_scale_inv`` (out, nblocks): blocks of 64 along in, or one block spanning the
+  row when 64 does not divide in. Both are the JAX arrays transposed.
 
-Scale semantics match the reference (float8_quantize.py:214-218): ``amax_to_scale``
-clamps, ``to_fp8_saturated`` clips before the cast.
+Scale semantics match the reference (float8_quantize.py:214-218) for fp8 and the JAX
+package's 127/amax law for the int kinds; every quantizer gives the bytes and scales
+the JAX package serves (its flow quantize and calibration run jitted, see
+``_int_scales``; its text-encoder tiers run eagerly).
 """
 
 from __future__ import annotations
@@ -32,6 +47,15 @@ WEIGHT_F8_DTYPE = torch.float8_e4m3fn
 INPUT_F8_DTYPE = torch.float8_e5m2
 F8_WEIGHT_MAX = float(torch.finfo(WEIGHT_F8_DTYPE).max)  # 448.0
 F8_INPUT_MAX = float(torch.finfo(INPUT_F8_DTYPE).max)  # 57344.0
+INT8_MAX = 127.0
+INT4_MAX = 7.0
+WO_BLOCK = 64  # block size along in_features of the wo_int4 / wo_int2 scales
+
+KINDS = ("float", "fp8", "int8", "int4", "wo_fp8", "wo_int8", "wo_int4", "wo_int2")
+# kinds whose activations are quantized, and so carry a calibrated input scale
+ACTIVATION_KINDS = ("fp8", "int8", "int4")
+# ``torch._int_mm`` on the card refuses M <= 16 rows; smaller products are padded
+INT_MM_MIN_ROWS = 17
 
 
 def amax_to_scale(amax: torch.Tensor, max_val: float) -> torch.Tensor:
@@ -40,6 +64,22 @@ def amax_to_scale(amax: torch.Tensor, max_val: float) -> torch.Tensor:
     can land one ulp from the correctly rounded quotient."""
     amax = torch.clamp(amax.float(), min=1e-12)
     return torch.clamp(amax.new_tensor(max_val) / amax, max=max_val)
+
+
+def int8_amax_to_scale(amax: torch.Tensor) -> torch.Tensor:
+    """Unclamped symmetric int8 scale ``127 / max(amax, 1e-12)`` (JAX quant.py:53)."""
+    amax = torch.clamp(amax.float(), min=1e-12)
+    return amax.new_tensor(INT8_MAX) / amax
+
+
+def _int_scales(amax: torch.Tensor, qmax: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scale, scale_inv) of a flow int kind: ``qmax / a`` and ``a · fl(1/qmax)`` with
+    a = max(amax, 1e-12). The reciprocal is formed as XLA forms it inside the JAX
+    package's jitted quantize and calibration (it rewrites 1/(c/a) into a·(1/c)), so
+    the port's scales are the ones the JAX package serves and saves; an exact
+    reciprocal can differ by one ulp."""
+    amax = torch.clamp(amax.float(), min=1e-12)
+    return amax.new_tensor(qmax) / amax, amax * (amax.new_tensor(1.0) / amax.new_tensor(qmax))
 
 
 def to_fp8_saturated(x: torch.Tensor, scale: torch.Tensor, max_val: float) -> torch.Tensor:
@@ -63,7 +103,7 @@ class Linear(nn.Module):
         bias: Optional[torch.Tensor] = None,
     ):
         super().__init__()
-        if kind not in ("float", "fp8", "wo_fp8"):
+        if kind not in KINDS:
             raise ValueError(f"unsupported Linear kind {kind!r}")
         self.kind = kind
         self.register_buffer("weight", weight)
@@ -74,9 +114,18 @@ class Linear(nn.Module):
         self.register_buffer("in_scale_inv", in_scale_inv)
         self.register_buffer("bias", bias)
 
+    @property
+    def in_features(self) -> int:
+        w = self.weight if self.weight is not None else self.q
+        return w.shape[-1] * {"int4": 2, "wo_int4": 2, "wo_int2": 4}.get(self.kind, 1)
+
     def extra_repr(self) -> str:
         w = self.weight if self.weight is not None else self.q
-        return f"kind={self.kind}, (out, in)={tuple(w.shape)}"
+        return f"kind={self.kind}, (out, in)=({w.shape[0]}, {self.in_features})"
+
+
+def _one(device) -> torch.Tensor:
+    return torch.ones((), dtype=torch.float32, device=device)
 
 
 def quantize_linear_fp8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
@@ -86,9 +135,41 @@ def quantize_linear_fp8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> L
     w32 = weight.float()
     scale = amax_to_scale(w32.abs().max(), F8_WEIGHT_MAX)
     q = to_fp8_saturated(w32, scale, F8_WEIGHT_MAX).to(WEIGHT_F8_DTYPE)
-    one = torch.ones((), dtype=torch.float32, device=weight.device)
+    one = _one(weight.device)
     return Linear("fp8", q=q, w_scale=scale, w_scale_inv=1.0 / scale,
                   in_scale=one, in_scale_inv=one.clone(), bias=bias)
+
+
+def quantize_linear_int8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+    """Float (out, in) weight → int8 Linear, per-out-channel scales mapping each
+    channel's amax to 127, round half to even (JAX quant.py:144)."""
+    w32 = weight.float()
+    scale, scale_inv = _int_scales(w32.abs().amax(dim=1), INT8_MAX)  # (out,)
+    q = torch.round(torch.clamp(w32 * scale[:, None], -INT8_MAX, INT8_MAX)).to(torch.int8)
+    one = _one(weight.device)
+    return Linear("int8", q=q, w_scale=scale, w_scale_inv=scale_inv,
+                  in_scale=one, in_scale_inv=one.clone(), bias=bias)
+
+
+def quantize_linear_int4(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+    """Float (out, in) weight → packed int4 Linear, per-out-channel scales (the
+    gigaquant flow tier, JAX quant.py:170), half-split packed along in."""
+    if weight.dim() != 2 or weight.shape[1] % 2:
+        raise ValueError(f"int4 packing needs an (out, even in) weight, got {tuple(weight.shape)}")
+    w32 = weight.float()
+    scale, scale_inv = _int_scales(w32.abs().amax(dim=1), INT4_MAX)
+    q = (torch.round(torch.clamp(w32 * scale[:, None], -INT4_MAX, INT4_MAX)) + INT4_MAX).to(torch.uint8)
+    half = weight.shape[1] // 2
+    one = _one(weight.device)
+    return Linear("int4", q=q[:, :half] | (q[:, half:] << 4), w_scale=scale,
+                  w_scale_inv=scale_inv, in_scale=one, in_scale_inv=one.clone(), bias=bias)
+
+
+def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(out, in/2) half-split packed nibbles → (out, in) int8 in [-7, 7]."""
+    low = (packed & 0xF).to(torch.int8) - 7
+    high = (packed >> 4).to(torch.int8) - 7
+    return torch.cat([low, high], dim=-1)
 
 
 def quantize_linear_wo_fp8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
@@ -99,17 +180,119 @@ def quantize_linear_wo_fp8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -
     return Linear("wo_fp8", q=q, w_scale=scale, w_scale_inv=1.0 / scale, bias=bias)
 
 
-WO_QUANTIZERS = {"qfloat8": quantize_linear_wo_fp8}
+def quantize_linear_wo_int8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+    """Per-out-channel symmetric int8 weight-only quantization."""
+    w32 = weight.float()
+    scale = int8_amax_to_scale(w32.abs().amax(dim=1))
+    q = torch.round(torch.clamp(w32 * scale[:, None], -INT8_MAX, INT8_MAX)).to(torch.int8)
+    return Linear("wo_int8", q=q, w_scale=scale, w_scale_inv=1.0 / scale, bias=bias)
+
+
+def _blockwise_quantize(weight: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) → packed uint8 (out, in·bits/8) + fp32 reciprocal scales
+    (out, nblocks) (JAX quant.py:400)."""
+    out_f, in_f = weight.shape
+    per_byte = 8 // bits
+    if in_f % per_byte:
+        raise ValueError(f"in_features {in_f} not packable at {bits} bits")
+    block = WO_BLOCK if in_f % WO_BLOCK == 0 else in_f
+    qmax = float(2 ** (bits - 1) - 1)  # 7 for int4, 1 for int2
+    w32 = weight.float().reshape(out_f, in_f // block, block)
+    amax = torch.clamp(w32.abs().amax(dim=2), min=1e-12)  # (out, nblocks)
+    scale = amax.new_tensor(qmax) / amax
+    q = (torch.round(torch.clamp(w32 * scale[:, :, None], -qmax, qmax)) + qmax).to(torch.uint8)
+    q = q.reshape(out_f, in_f // per_byte, per_byte)
+    packed = torch.zeros((out_f, in_f // per_byte), dtype=torch.uint8, device=weight.device)
+    for j in range(per_byte):
+        packed |= q[:, :, j] << (j * bits)
+    return packed, 1.0 / scale
+
+
+def _blockwise_dequantize(packed: torch.Tensor, scale_inv: torch.Tensor, bits: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Unpack and scale into ``dtype`` through int8 and ``dtype`` intermediates only
+    (a T5-XXL kernel in fp32 would cost twice the memory of the bf16 result)."""
+    per_byte = 8 // bits
+    qmax = 2 ** (bits - 1) - 1
+    out_f, in_packed = packed.shape
+    parts = [((packed >> (j * bits)) & (2**bits - 1)).to(torch.int8) - qmax for j in range(per_byte)]
+    q = torch.stack(parts, dim=-1).reshape(out_f, scale_inv.shape[-1], -1)
+    return (q.to(dtype) * scale_inv.to(dtype)[:, :, None]).reshape(out_f, in_packed * per_byte)
+
+
+def quantize_linear_wo_int4(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+    packed, scale_inv = _blockwise_quantize(weight, 4)
+    return Linear("wo_int4", q=packed, w_scale_inv=scale_inv, bias=bias)
+
+
+def quantize_linear_wo_int2(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+    packed, scale_inv = _blockwise_quantize(weight, 2)
+    return Linear("wo_int2", q=packed, w_scale_inv=scale_inv, bias=bias)
+
+
+WO_QUANTIZERS = {
+    "qfloat8": quantize_linear_wo_fp8,
+    "qint8": quantize_linear_wo_int8,
+    "qint4": quantize_linear_wo_int4,
+    "qint2": quantize_linear_wo_int2,
+}
+
+
+def quantize_blocks_weight_only(blocks, tier: str) -> None:
+    """Apply a weight-only tier to every float Linear of an encoder's blocks, in place
+    (shared by T5 and CLIP; JAX ``quantize_stacked_weight_only``)."""
+    qfn = WO_QUANTIZERS[tier]
+    for blk in blocks:
+        for key, value in list(blk.items()):
+            if isinstance(value, Linear) and value.kind == "float":
+                setattr(blk, key, qfn(value.weight, value.bias))
+
+
+FLOW_QUANTIZERS = {"fp8": quantize_linear_fp8, "int8": quantize_linear_int8, "int4": quantize_linear_int4}
+
+
+def dequantize_kernel(lin: Linear) -> torch.Tensor:
+    """The float (out, in) weight a Linear stands for, in fp32 (reference ``extract_weight_from_linear``,
+    lora_loading.py:615-631)."""
+    if lin.kind == "float":
+        return lin.weight.float()
+    if lin.kind == "fp8":
+        return lin.q.float() * lin.w_scale_inv
+    if lin.kind in ("int8", "wo_fp8", "wo_int8"):
+        return lin.q.float() * lin.w_scale_inv[:, None]
+    if lin.kind == "int4":
+        return _unpack_int4(lin.q).float() * lin.w_scale_inv[:, None]
+    return _blockwise_dequantize(lin.q, lin.w_scale_inv, 4 if lin.kind == "wo_int4" else 2, torch.float32)
+
+
+def with_kernel(lin: Linear, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> Linear:
+    """A new Linear of the same kind from a float (out, in) weight, keeping the tuned
+    input scale (reference ``set_weight_tensor``,
+    float8_quantize.py:209-212)."""
+    bias = lin.bias if bias is None else bias
+    if lin.kind == "float":
+        return Linear("float", weight=weight.to(lin.weight.dtype), bias=bias)
+    if lin.kind not in FLOW_QUANTIZERS:
+        raise ValueError(f"re-quantizing a weight-only ({lin.kind}) leaf is not supported — "
+                         "weight-only tiers are load-time only (text encoders)")
+    fresh = FLOW_QUANTIZERS[lin.kind](weight, bias)
+    fresh.in_scale, fresh.in_scale_inv = lin.in_scale, lin.in_scale_inv
+    return fresh
 
 
 def with_input_scale(lin: Linear, amax: torch.Tensor) -> Linear:
     """Set the tuned input scale from a calibrated running amax, in place (reference
-    ``quantize_input`` freeze path, float8_quantize.py:238-246). Only ``fp8`` leaves
-    quantize activations; other kinds are returned unchanged."""
+    ``quantize_input`` freeze path, float8_quantize.py:238-246): the e5m2 law for
+    ``fp8``, 127/amax for ``int8``/``int4``; other kinds are returned unchanged."""
     if lin.kind == "fp8":
         scale = amax_to_scale(amax.to(lin.in_scale.device), F8_INPUT_MAX)
-        lin.in_scale = scale
-        lin.in_scale_inv = 1.0 / scale
+        scale_inv = 1.0 / scale
+    elif lin.kind in ("int8", "int4"):
+        scale, scale_inv = _int_scales(amax.to(lin.in_scale.device), INT8_MAX)
+    else:
+        return lin
+    lin.in_scale = scale
+    lin.in_scale_inv = scale_inv
     return lin
 
 
@@ -136,9 +319,37 @@ def fp8_linear_ref(lin: Linear, x8: torch.Tensor, compute_dtype) -> torch.Tensor
     return out.to(compute_dtype)
 
 
+def quantize_activation_int8(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
+    """``round(clip(bf16(x)·bf16(in_scale), ±127))`` as int8: the product is taken in
+    bf16, as in the JAX package (quant.py:566-569)."""
+    sc = in_scale.to(torch.bfloat16)
+    return torch.round(torch.clamp(x.to(torch.bfloat16) * sc, -INT8_MAX, INT8_MAX)).to(torch.int8)
+
+
+def int_mm(x8: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product ``x8 @ q.T`` of (M, K) and (N, K) int8 matrices.
+
+    On the card: ``torch._int_mm``, which refuses M <= 16 rows (K and N must be
+    multiples of 8), so fewer rows are padded with zeros to INT_MM_MIN_ROWS and the
+    result sliced: zero rows add nothing to an integer product. On the CPU: the plain
+    version, an fp64 product, exact while |sum| < 2^53 (flux's largest is
+    127²·15360 < 2^28)."""
+    if x8.is_cuda:
+        m = x8.shape[0]
+        if m < INT_MM_MIN_ROWS:
+            x8 = F.pad(x8, (0, 0, 0, INT_MM_MIN_ROWS - m))
+        return torch._int_mm(x8.contiguous(), q.t())[:m]
+    return int_mm_ref(x8, q)
+
+
+def int_mm_ref(x8: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int_mm`, exact in fp64."""
+    return torch.matmul(x8.double(), q.double().t()).to(torch.int32)
+
+
 def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool) -> torch.Tensor:
+    bias = None if lin.bias is None else lin.bias.to(compute_dtype)
     if lin.kind == "float":
-        bias = None if lin.bias is None else lin.bias.to(compute_dtype)
         return F.linear(x.to(compute_dtype), lin.weight.to(compute_dtype), bias)
 
     if lin.kind == "fp8":
@@ -150,14 +361,28 @@ def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool) 
                 lin.q.t(),
                 scale_a=lin.in_scale_inv,
                 scale_b=lin.w_scale_inv,
-                bias=None if lin.bias is None else lin.bias.to(compute_dtype),
+                bias=bias,
                 out_dtype=compute_dtype,
                 use_fast_accum=fast_accum,
             )
             return out.reshape(*lead, out.shape[-1])
         return fp8_linear_ref(lin, x8, compute_dtype)
 
-    # wo_fp8: dequantize the weight into the compute dtype, full-precision activations
-    w = lin.q.to(compute_dtype) * lin.w_scale_inv.to(compute_dtype)[:, None]
-    bias = None if lin.bias is None else lin.bias.to(compute_dtype)
+    if lin.kind in ("int8", "int4"):
+        x8 = quantize_activation_int8(x, lin.in_scale)
+        q = _unpack_int4(lin.q) if lin.kind == "int4" else lin.q
+        acc = int_mm(x8.reshape(-1, x8.shape[-1]), q)
+        # dequantize by the reciprocal of the scale actually applied (bf16-rounded),
+        # not the stored fp32 in_scale_inv (JAX quant.py:576-579); int32 × fp32
+        # promotes to fp32 inside the one multiply, as acc.float() would in a pass of its own
+        out = acc * ((1.0 / lin.in_scale.to(torch.bfloat16).float()) * lin.w_scale_inv)
+        if lin.bias is not None:
+            out = out + lin.bias.float()
+        return out.to(compute_dtype).reshape(*x.shape[:-1], out.shape[-1])
+
+    # weight-only: dequantize the weight into the compute dtype, full-precision activations
+    if lin.kind in ("wo_fp8", "wo_int8"):
+        w = lin.q.to(compute_dtype) * lin.w_scale_inv.to(compute_dtype)[:, None]
+    else:
+        w = _blockwise_dequantize(lin.q, lin.w_scale_inv, 4 if lin.kind == "wo_int4" else 2, compute_dtype)
     return F.linear(x.to(compute_dtype), w, bias)

@@ -3,7 +3,7 @@
 
 The same public surface and the same calibration protocol: the first
 ``num_scale_trials`` denoise steps after load collect per-layer input amaxes, and the
-fp8 input scales freeze after them. Randomness comes from ``torch.Generator``s, so a
+input scales of the fp8, int8 and int4 linears freeze after them. Randomness comes from ``torch.Generator``s, so a
 seed gives other noise than the JAX package's threefry keys.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item): init
@@ -28,7 +28,7 @@ from .models.autoencoder import ae_decode
 from .models.flux import FluxStatic, max_logit_bound
 from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
-from .ops.quant import Linear
+from .ops.quant import ACTIVATION_KINDS, Linear
 from .ops.schedule import get_schedule
 from .sampling import CacheConfig, denoise, make_denoise_step
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
@@ -123,7 +123,7 @@ class FluxPipeline:
     def _is_quantized(self) -> bool:
         if self.model_params is None:
             return False
-        return any(isinstance(m, Linear) and m.kind == "fp8" for m in self.model_params.modules())
+        return any(isinstance(m, Linear) and m.kind in ACTIVATION_KINDS for m in self.model_params.modules())
 
     # -------------------------------------------------------------------------- seeds
 
@@ -332,6 +332,26 @@ class FluxPipeline:
 
     def unload_lora(self, path_or_identifier: str):
         raise NotImplementedError("LoRA is not ported yet (ROADMAP: LoRA)")
+
+    # -------------------------------------------------------------------- checkpoints
+
+    def save_prequantized(self, path: str):
+        """Write the quantized flow and its tuned scales so that a reload skips both
+        quantization and calibration (the reference's prequantized workflow,
+        README.md:186-192), in the file layout the JAX package reads too. Raises while
+        the input scales are still uncalibrated (generate, or ``compile()``, first)."""
+        if self._needs_calibration:
+            raise RuntimeError(
+                "input scales are not calibrated yet — run generate() for at least "
+                f"{self.config.num_scale_trials} steps (or compile()) before saving"
+            )
+        from .utils.checkpoint import save_prequantized
+
+        save_prequantized(path, self.model_params, extra_meta={
+            "quantize_modulation": str(self.config.quantize_modulation),
+            "quantize_flow_embedder_layers": str(self.config.quantize_flow_embedder_layers),
+            "version": str(self.config.version),
+        })
 
     # ------------------------------------------------------------------------ compile
 

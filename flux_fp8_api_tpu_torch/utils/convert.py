@@ -4,7 +4,10 @@ The input is a nested dict mirroring a JAX parameter tree, in which each JAX
 ``ops.quant.Linear`` appears as a plain dict of numpy arrays plus ``"kind"``, so this
 module never imports the JAX package. The conversion:
 
-- transposes Linear kernels from JAX's (in, out) to torch's (out, in);
+- transposes Linear kernels and quantized data from JAX's (in, out) to torch's
+  (out, in): a plain transpose carries every kind byte for byte, the packed int4
+  half-split pairing and the wo_int4/wo_int2 consecutive packing included (their
+  layouts are in ``ops/quant.py``), as do the blockwise scales' (nblocks, out);
 - moves fp8 and bf16 bytes exactly (a ``uint8``/``int16`` view on the numpy side, a
   dtype view on the torch side);
 - splits the depth-stacked leaves under ``double_blocks``, ``single_blocks`` and
@@ -54,11 +57,13 @@ def _linear(d: Mapping[str, Any], device) -> Linear:
     kind = d["kind"]
     if kind == "float":
         return Linear("float", weight=get("kernel", True), bias=get("bias"))
+    # blockwise weight-only scales are (nblocks, out) in JAX, (out, nblocks) here
+    blockwise = kind in ("wo_int4", "wo_int2")
     return Linear(
         kind,
         q=get("q", True),
         w_scale=get("w_scale"),
-        w_scale_inv=get("w_scale_inv"),
+        w_scale_inv=get("w_scale_inv", blockwise),
         in_scale=get("in_scale"),
         in_scale_inv=get("in_scale_inv"),
         bias=get("bias"),

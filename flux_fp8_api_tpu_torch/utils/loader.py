@@ -1,30 +1,54 @@
-"""Model-bundle construction from a ModelSpec, random-init paths
-(JAX counterpart: ``flux_fp8_api_tpu.utils.loader``; reference util.py:82-95,225-333).
+"""Model-bundle construction from a ModelSpec: checkpoints when the config names them,
+random-init otherwise (JAX counterpart: ``flux_fp8_api_tpu.utils.loader``; reference
+util.py:82-95,225-333).
 
-No checkpoint loader is ported yet: a config that names a flow, VAE or text-encoder
-checkpoint raises. Without one, every model is drawn from a fixed seed on its device:
-the flow at full width, built and quantized leaf by leaf; 2-layer CLIP and T5 towers
-at the config's widths with a hub-free word-level tokenizer.
+Every model is built on its device leaf by leaf, each flow Linear quantized to the
+config's tier as soon as it is read or drawn, so the float flow is never held whole
+(24 GB in bf16 at flux-dev size). Without a checkpoint the flow is drawn at full
+width from a fixed seed and the CLIP and T5 towers have 2 layers at the config's
+widths with a hub-free word-level tokenizer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import re
+from pathlib import Path
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..models.autoencoder import init_autoencoder_params
+from ..models.autoencoder import init_autoencoder_params, quantize_ae_params
 from ..models.clip import CLIPConfig, init_clip_params
 from ..models.conditioner import TextEncoder, apply_quantization
-from ..models.flux import FluxStatic, fp8_tier, init_flux_params
+from ..models.flux import FluxStatic, init_flux_params, max_logit_bound, quant_tier
 from ..models.t5 import T5Config, init_t5_params
+from .checkpoint import (
+    PREQUANT_FORMAT,
+    is_prequantized_reference_file,
+    load_ae_checkpoint,
+    load_flux_checkpoint,
+    load_prequantized,
+    reference_prequant_has_input_scales,
+)
 from .config import ModelSpec, into_device, into_dtype
+from .safetensors_io import SafetensorsFile
 from .tree import ParamTree
 
+logger = logging.getLogger(__name__)
+
 FLOW_SEED, AE_SEED, CLIP_SEED, T5_SEED = 0, 1, 2, 3
+
+FLOW_QUANT_KINDS = {
+    "qfloat8": "fp8",
+    "qint8": "int8",
+    # the reference's gigaquant flow tier (config-dev-gigaquant.json: qint4 via quanto)
+    # → packed int4 weights run through the int8 product
+    "qint4": "int4",
+}
 
 
 @dataclasses.dataclass
@@ -47,45 +71,97 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 
 
 def flow_quant_kind(config: ModelSpec) -> Optional[str]:
+    """The flow's Linear kind for the config's tier; None for the float tiers."""
     tier = config.flow_quantization_dtype
     if tier is None:
         return None
     name = str(getattr(tier, "value", tier))
     if name in ("bfloat16", "bf16", "float16", "fp16"):
         return None
-    if name != "qfloat8":
-        raise NotImplementedError(
-            f"flow_quantization_dtype={name!r} is not ported yet (ROADMAP: other quant kinds)"
+    kind = FLOW_QUANT_KINDS.get(name)
+    if kind is None:
+        # skipping quantization would place a 24 GB bf16 flow on the card, or measure
+        # full precision while claiming a quantized tier
+        raise ValueError(
+            f"flow_quantization_dtype={name!r} is not a supported flow tier "
+            f"(supported: {sorted(FLOW_QUANT_KINDS)}, or bf16/fp16 for none)"
         )
-    return "fp8"
+    return kind
 
 
 def load_flow_model(config: ModelSpec):
-    """→ (model, FluxStatic, prequantized=False). The model is drawn on the flux device
-    leaf by leaf, each Linear quantized to the config's tier as soon as it exists, so
-    the float model is never held whole (24 GB in bf16 at flux-dev size)."""
-    if config.ckpt_path:
-        raise NotImplementedError("flow checkpoints are not loadable yet (ROADMAP: checkpoint loaders)")
+    """→ (model, FluxStatic, prequantized). Reads ``ckpt_path`` when set (a
+    ``flux-fp8-api-tpu/prequant-v1`` file, a reference-prequantized file or a float BFL
+    file), else draws the model from a seed (reference util.py:240-256 plus the
+    quantize-on-load step, float8_quantize.py:395-496). ``prequantized`` is True when
+    the file carries tuned input scales, so calibration can be skipped."""
     cfg = FluxStatic.from_params(
         config.params, compute_dtype=config.flow_dtype, fp8_fast_accum=config.fp8_fast_accum
     )
+    kind = flow_quant_kind(config)
     leaf_fn = None
-    if flow_quant_kind(config) == "fp8":
-        leaf_fn = fp8_tier(config.quantize_modulation, config.quantize_flow_embedder_layers)
+    if kind is not None:
+        leaf_fn = quant_tier(kind, config.quantize_modulation, config.quantize_flow_embedder_layers)
     device = into_device(config.flux_device)
-    model = init_flux_params(cfg, _generator(device, FLOW_SEED), torch.bfloat16, leaf_fn)
-    return model, cfg, False
+    if not config.ckpt_path:
+        model = init_flux_params(cfg, _generator(device, FLOW_SEED), torch.bfloat16, leaf_fn)
+        return model, cfg, False
+
+    f = SafetensorsFile(config.ckpt_path)
+    if f.metadata.get("format") == PREQUANT_FORMAT:
+        model, prequant = load_prequantized(f, cfg, device), True
+    elif is_prequantized_reference_file(f):
+        # fp8 leaves as the file has them; without tuned input scales the reference
+        # re-runs the amax trials (float8_quantize.py:139-185), so calibration runs
+        model = load_flux_checkpoint(f, cfg, device=device)
+        prequant = reference_prequant_has_input_scales(f)
+    else:
+        if config.prequantized_flow and kind is not None:
+            logger.warning("prequantized_flow=true but %s is a plain float checkpoint: "
+                           "quantizing at load instead", config.ckpt_path)
+        model, prequant = load_flux_checkpoint(f, cfg, leaf_fn=leaf_fn, device=device), False
+    # the attention kernel's max-free softmax needs this bound under MAX_SAFE_LOGIT
+    # (FluxPipeline refuses a model above it): a checkpoint is the first model whose
+    # qk-norm scales are not known in advance
+    logger.info("%s: attention |logit| bound %.2f", config.ckpt_path, max_logit_bound(model, cfg))
+    return model, cfg, prequant
+
+
+def flux_from_pretrained(config_path: str, **overrides):
+    """Standalone flow load from a config file, without the pipeline (the reference's
+    ``Flux.from_pretrained``, flux_model.py:718-734) → ``(model, FluxStatic,
+    prequantized)``. ``overrides`` patch ModelSpec fields (e.g. ``ckpt_path=...``);
+    an unknown field raises ValueError rather than loading random weights."""
+    from .config import load_config_from_path
+
+    config = load_config_from_path(config_path)
+    if overrides:
+        unknown = set(overrides) - set(ModelSpec.model_fields)
+        if unknown:
+            raise ValueError(f"unknown ModelSpec override(s): {sorted(unknown)}")
+        config = ModelSpec.model_validate({**config.model_dump(), **overrides})
+    return load_flow_model(config)
 
 
 def load_autoencoder(config: ModelSpec) -> ParamTree:
-    if config.ae_path:
-        raise NotImplementedError("VAE checkpoints are not loadable yet (ROADMAP: checkpoint loaders)")
-    if config.ae_quantization_dtype is not None:
-        raise NotImplementedError("VAE quantization is not ported yet (ROADMAP: other quant kinds)")
+    """The VAE from ``ae_path`` or a seed, with the ``ae_quantization_dtype`` tier:
+    weight-only fp8 on the conv weights (a deliberate deviation: the reference's flag
+    finds no nn.Linear in the conv-only AE and does nothing, util.py:288-291). fp8 is
+    the only conv tier; any other requested value maps onto it with a warning, as in
+    the JAX package."""
     device = into_device(config.ae_device)
-    return init_autoencoder_params(
-        config.ae_params, _generator(device, AE_SEED), into_dtype(config.ae_dtype)
-    )
+    dtype = into_dtype(config.ae_dtype)
+    if config.ae_path:
+        params = load_ae_checkpoint(config.ae_path, config.ae_params, dtype, device=device)
+    else:
+        params = init_autoencoder_params(config.ae_params, _generator(device, AE_SEED), dtype)
+    if config.ae_quantization_dtype is not None:
+        tier = str(getattr(config.ae_quantization_dtype, "value", config.ae_quantization_dtype))
+        if tier != "qfloat8":
+            logger.warning("ae_quantization_dtype=%s: only qfloat8 is implemented for the conv "
+                           "AE; applying weight-only fp8 instead", tier)
+        params = quantize_ae_params(params)
+    return params
 
 
 class ToyTokenizer:
@@ -186,32 +262,56 @@ def _random_t5(config: ModelSpec, device: torch.device) -> TextEncoder:
                        dtype=into_dtype(config.text_enc_dtype), device=device)
 
 
-def _is_local_path(path: Any) -> bool:
-    from pathlib import Path
-
-    return path is not None and Path(str(path)).exists()
+def _looks_like_hub_id(path) -> bool:
+    """True for an HF hub id ("org/name") that is not a local path. The shipped
+    configs name hub repos (openai/clip-vit-large-patch14); with no hub access those
+    fall back to the random tower with a warning."""
+    p = str(path)
+    return not Path(p).exists() and re.fullmatch(r"[\w.\-]+/[\w.\-]+", p) is not None
 
 
 def load_text_encoders(config: ModelSpec):
-    """→ (clip, t5) random-init TextEncoders (reference util.py:259-275). A hub id
-    (the shipped configs name ``openai/clip-vit-large-patch14``) falls back to the
-    random tower as in the JAX package; a local checkpoint directory raises."""
-    if _is_local_path(config.clip_path) or _is_local_path(config.text_enc_path):
-        raise NotImplementedError(
-            "text-encoder checkpoints are not loadable yet (ROADMAP: checkpoint loaders)"
-        )
+    """→ (clip, t5) TextEncoders (reference util.py:259-275): a local HF directory
+    loads through ``TextEncoder.from_pretrained``; a hub id or no path gives the
+    random tower."""
     device = into_device(config.text_enc_device)
-    return _random_clip(config, device), _random_t5(config, device)
+    dtype = config.text_enc_dtype
+    if config.clip_path and not _looks_like_hub_id(config.clip_path):
+        clip = TextEncoder.from_pretrained(
+            "clip", config.clip_path, max_length=77, dtype=dtype,
+            quantization_dtype=config.clip_quantization_dtype,
+            tokenizer_path=config.clip_tokenizer_path, device=device,
+        )
+    else:
+        if config.clip_path:
+            logger.warning("clip_path=%r is a hub id, not a local path: using a RANDOM-weight "
+                           "toy CLIP — images will not follow prompts", config.clip_path)
+        clip = _random_clip(config, device)
+    if config.text_enc_path and not _looks_like_hub_id(config.text_enc_path):
+        t5 = TextEncoder.from_pretrained(
+            "t5", config.text_enc_path, max_length=config.text_enc_max_length, dtype=dtype,
+            quantization_dtype=config.text_enc_quantization_dtype,
+            tokenizer_path=config.t5_tokenizer_path, device=device,
+        )
+    else:
+        if config.text_enc_path:
+            logger.warning("text_enc_path=%r is a hub id, not a local path: using a RANDOM-weight "
+                           "toy T5 — images will not follow prompts", config.text_enc_path)
+        t5 = _random_t5(config, device)
+    return clip, t5
 
 
 def load_models_from_config(config: ModelSpec) -> LoadedModels:
     """reference util.py:325-333."""
     clip, t5 = load_text_encoders(config)
     flow, flow_cfg, prequant = load_flow_model(config)
+    # with a checkpoint the loader's detection is final: a reference-prequantized file
+    # without input scales must calibrate even when the config claims
+    # prequantized_flow (JAX loader.py:336-342); without one, the config flag holds
     return LoadedModels(
         flow=flow,
         flow_cfg=flow_cfg,
-        flow_prequantized=prequant or config.prequantized_flow,
+        flow_prequantized=prequant if config.ckpt_path else config.prequantized_flow,
         ae=load_autoencoder(config),
         clip=clip,
         t5=t5,

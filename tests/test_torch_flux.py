@@ -238,7 +238,7 @@ def test_random_init_builds_leaf_by_leaf(port_cfg):
 
     def leaf(path, lin):
         seen.append(path)
-        return tflux.fp8_tier()(path, lin)
+        return tflux.quant_tier()(path, lin)
 
     gen = torch.Generator().manual_seed(0)
     model = tflux.init_flux_params(port_cfg, gen, torch.bfloat16, leaf)

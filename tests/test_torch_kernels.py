@@ -12,7 +12,9 @@ logits differ by summation order). The ablate build's output is acc·1e30 (den <
 clamped) with elements near 0 wherever Σ p·v cancels, so it is compared relative in
 norm, in fp64, to 1e-2. The bare two-dot: bf16 logits and output on both sides, so
 max|kernel − plain| ≤ 1e-2·max|plain|. The fp8 GEMM: fast accumulation and the bf16
-output each cost about 2^-8, so max|out − plain| ≤ 2e-2·max|plain|.
+output each cost about 2^-8, so max|out − plain| ≤ 2e-2·max|plain|. The int linears:
+the int32 product equals the exact one (fp64, |sum| < 2^53), and the bf16 output is
+the plain epilogue's to one bf16 rounding, |out − plain| ≤ 2^-8·|plain| + 1e-6.
 """
 
 import pytest
@@ -30,9 +32,13 @@ from flux_fp8_api_tpu_torch.ops.attention_kernel import (
 from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
 from flux_fp8_api_tpu_torch.ops.quant import (
     F8_INPUT_MAX,
+    FLOW_QUANTIZERS,
     INPUT_F8_DTYPE,
+    _unpack_int4,
     fp8_linear_ref,
+    int_mm,
     linear_apply,
+    quantize_activation_int8,
     quantize_linear_fp8,
     to_fp8_saturated,
     with_input_scale,
@@ -211,3 +217,24 @@ def test_fp8_linear_matches_plain_version(dev, m, k, n, fast):
     assert out.shape == (1, m, n) and out.dtype == torch.bfloat16
     assert float((out.float() - ref).abs().max() / ref.abs().max()) <= 2e-2
     assert float(amax) == float(x.abs().max())
+
+
+@pytest.mark.parametrize("m", [1, 17, 4608])
+@pytest.mark.parametrize("kind,n,k", [("int8", 9216, 3072), ("int4", 9216, 3072), ("int8", 3072, 15360)])
+def test_int_linear_matches_exact_product(dev, kind, n, k, m):
+    """torch._int_mm refuses M <= 16 rows on the card; int_mm pads them. The product
+    must be exact at every M, and the linear its plain epilogue."""
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn(1, m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = ((torch.rand(n, k, generator=gen, device=dev) * 2 - 1) * (3 / k) ** 0.5).to(torch.bfloat16)
+    b = ((torch.rand(n, generator=gen, device=dev) * 2 - 1) / k**0.5).to(torch.bfloat16)
+    lin = with_input_scale(FLOW_QUANTIZERS[kind](w, b), x.abs().max().float())
+    x8 = quantize_activation_int8(x, lin.in_scale).reshape(m, k)
+    q = _unpack_int4(lin.q) if kind == "int4" else lin.q
+    acc = int_mm(x8, q)
+    assert acc.dtype == torch.int32 and acc.shape == (m, n)
+    assert torch.equal(acc.long(), torch.matmul(x8.double(), q.double().t()).long())
+    out, _ = linear_apply(lin, x, torch.bfloat16)
+    ref = acc.float() * ((1.0 / lin.in_scale.to(torch.bfloat16).float()) * lin.w_scale_inv) + b.float()
+    assert out.shape == (1, m, n) and out.dtype == torch.bfloat16
+    assert bool(((out.float()[0] - ref).abs() <= 1e-6 + 2**-8 * ref.abs()).all())

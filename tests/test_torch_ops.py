@@ -183,8 +183,9 @@ class TestQuant:
         assert float(b.in_scale_inv) == float(a.in_scale_inv)
 
     def test_unported_kind_raises(self):
+        # every kind the JAX package has is ported (tests/test_torch_quant_tiers.py)
         with pytest.raises(ValueError):
-            tquant.Linear("int8")
+            tquant.Linear("nf4")
 
 
 class TestConfig:

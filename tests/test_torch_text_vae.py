@@ -73,8 +73,10 @@ def test_t5_qfloat8_bytes_and_encode_match_jax(t5_pair):
     a = np.asarray(jt5.t5_encode(qa, cfg, jnp.asarray(x), jnp.float32))
     b = tt5.t5_encode(qb, tt5.T5Config(**T5_CFG), torch.from_numpy(x).long(), torch.float32)
     np.testing.assert_allclose(b.numpy(), a, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt5.quantize_t5_params(to_torch(params), "qint4")
+    # every tier the configs name is ported (tests/test_torch_quant_tiers.py); an
+    # unknown one is refused, as in the JAX package
+    with pytest.raises(KeyError):
+        tt5.quantize_t5_params(to_torch(params), "qint3")
 
 
 @pytest.mark.parametrize("eos", [2, 5])
