@@ -7,12 +7,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card: name and power limit;
 2. build: the attention kernel library, from this checkout's sources, with nvcc;
-3. kernel: the CUDA attention kernel against its plain PyTorch version at flux-dev's
-   shapes (24 heads × 128; L = 4608 and 3392, an Lq ≠ Lkv call, and rows whose logits
-   all underflow), with the time of each;
-4. guard rail and ablation: the attention kernel's stats and ablate builds and the
-   bare two-dot kernel against their plain versions at L = 4608 and 3392, with their
-   times (the stats build's output must equal the serving build's bit for bit); then,
+3. kernel: the rope pass (bit for bit) and the CUDA attention kernel K1 against their
+   plain PyTorch versions at flux-dev's shapes (24 heads × 128; L = 4608, 3392 and
+   1536, an Lq ≠ Lkv call, no rope, and rows whose logits all underflow), each timed
+   beside its plain version and its bound (the published bf16 tensor-core rate or HBM
+   bandwidth, whichever bounds it), and K1 beside ``F.scaled_dot_product_attention`` on
+   the same rotated inputs under each backend that runs (a yardstick the port never
+   calls);
+4. guard rail and ablation: K1's stats and ablate builds and the bare two-dot kernel
+   against their plain versions at L = 4608, 3392 and 1536, with their times (the
+   stats build's output must equal the serving build's bit for bit); then,
    with the launch counts at 0, the path itself: ``qknorm_attention_checked`` passing
    qk-normed inputs and raising on inputs scaled ×60 and on a NaN, and
    ``python -m flux_fp8_api_tpu_torch.ablate_attention 4608 3392 2816`` run in this
@@ -22,8 +26,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    on the CPU, where every op takes its plain version;
 7. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
    weights) calibrated and warmed by ``compile()``, serving three POST /generate
-   requests through ``PipelineServer``; the attention kernel's launch count must be
-   57 per model evaluation;
+   requests through ``PipelineServer``, every launch count set to 0 just before and
+   read just after: K1 and the rope pass each 57 launches per model evaluation, and
+   no other build;
 8. int linears: ``int8``, ``int4`` and the weight-only ``wo_int8``/``wo_int4``/
    ``wo_int2`` Linears at the qkv shape and ``int8`` at linear2's, at M = 1, 17 and
    4608 rows: the int32 product (``torch._int_mm``) equal to an exact fp64 product,
@@ -31,7 +36,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 9. tiers: ``configs/config-dev-int8.json`` and ``configs/config-dev-gigaquant.json``
    (int4 flow with its embedders, wo_int4 T5 and CLIP, weight-only fp8 VAE) at full
    width and depth, each calibrated and warmed by ``compile()`` and serving one
-   1024×1024, 28-step request, 57 attention launches per model evaluation;
+   1024×1024, 28-step request, 57 K1 and 57 rope-pass launches per model evaluation;
 10. checkpoints: (a) phase 7's calibrated pipeline saved prequantized, reloaded through
     a copy of ``configs/config-dev-prequant.json`` with ``ckpt_path`` set: no
     calibration trial, and phase 7's 512×512 request served again with identical
@@ -42,7 +47,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     flag as the loader's detection says.
 
 The last lines are the card line, one JSON object describing each kernel build (its
-launches counted in the path of phase 7 or 4, its time and error from phase 3 or 4),
+launches counted in the path of phase 7 or 4; its time, plain time, bound, library
+time and error at L = 4608 from phase 3 or 4),
 and ``{"ok": true, "device": {...}}``. Phases 7-10 free their pipelines before the
 next (phase 7's lives until phase 10 has saved it).
 """
@@ -74,6 +80,9 @@ K1S_MAX_RTOL = 1e-3
 K1A_REL_TOL = 1e-2
 # bare two-dot: max|out − plain| / max|plain|; bf16 logits and output on both sides.
 K2_REL_TOL = 1e-2
+# published peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core and
+# fp32 non-tensor rates, HBM3 bandwidth. A card below its 700 W power limit is slower.
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # fp8 linear: max|out − plain| / max|plain|; fast accumulation and the bf16 output
 # each cost about 2^-8.
 FP8_REL_TOL = 2e-2
@@ -97,11 +106,18 @@ def fail(phase: str, msg: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` over ``iters`` back-to-back calls after a warm one.
+    The card sleeps first while the host enqueues the calls, so a call shorter than its
+    own host overhead is still timed on the device (CUDA events), not at the host's
+    launch rate."""
     import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention import SLEEP_CYCLES_PER_CALL
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -123,10 +139,61 @@ def rope_tables(h_img: int, w_img: int):
     return cos[0].contiguous(), sin[0].contiguous()
 
 
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(ms, "operations" or "bytes"): the least time the card could take for work of
+    ``flops`` operations that must move ``nbytes``, against its published peaks."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def attention_bound(h: int, l: int, d: int = 128):
+    """K1's and K2's bound at Lq = Lkv = l: 4·H·L²·D bf16 tensor-core operations; q, k,
+    v read and the output written once, bf16."""
+    return bound(4 * h * l * l * d, 4 * h * l * d * 2)
+
+
+def rope_bound(h: int, l: int, d: int = 128):
+    """The rope pass's bound at Lq = Lkv = l: 3 fp32 operations per element (two
+    products, one sum); q and k read and written once in bf16, and the one pair of fp32
+    tables they share."""
+    return bound(3 * h * d * 2 * l, 2 * 2 * h * d * 2 * l + 2 * 4 * d * l, PEAK_F32_FLOPS)
+
+
+def library_attention(card: str, q, k, v, scale: float, ref):
+    """The yardstick: one ``F.scaled_dot_product_attention`` call on the same rotated
+    (1, H, L, D) inputs under each backend that runs here. Prints each backend's time
+    and its max|lib − plain| / max|plain|; → the fastest time, or None. The port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = q[None], k[None], v[None]
+    r = ref.float()
+    best = None
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        call = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
+        with sdpa_kernel(backend):
+            try:
+                out = call()[0].float()
+            except RuntimeError as e:  # a backend that does not take these inputs here
+                print(f"[{card}]   library {backend.name}: does not run ({str(e).splitlines()[0][:120]})", flush=True)
+                continue
+            ms = cuda_time_ms(call, 20)
+        rel = float((out - r).abs().max() / r.abs().max())
+        print(f"[{card}]   library {backend.name}: {ms:.4f} ms, max|lib - plain| / max|plain| {rel:.3e}", flush=True)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
 def phase_kernel(card: str):
+    """The rope pass and K1 against their plain versions at the three serving lengths,
+    each timed beside its plain version, its bound and (K1) the library call."""
     import torch
 
-    from flux_fp8_api_tpu_torch.ops.attention_kernel import qknorm_attention, qknorm_attention_ref
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import (
+        qknorm_attention, qknorm_attention_ref, rope_rotate, rope_rotate_ref,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -139,36 +206,58 @@ def phase_kernel(card: str):
         return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
 
     worst = 0.0
-    times = {}
+    k1, rope = {}, {}  # L → {"ms", "plain_ms", "bound_ms", "bound_by", ...}
 
-    def check(name, q, k, v, sm_scale, **rope):
+    def check(name, q, k, v, sm_scale, **tables):
         nonlocal worst
-        out = qknorm_attention(q, k, v, sm_scale, **rope)
-        ref = qknorm_attention_ref(q, k, v, sm_scale, **rope)
+        out = qknorm_attention(q, k, v, sm_scale, **tables)
+        ref = qknorm_attention_ref(q, k, v, sm_scale, **tables)
         torch.cuda.synchronize()
         o, r = out.float(), ref.float()
         if not torch.isfinite(o).all():
             fail("kernel", f"{name}: non-finite output")
         err = float((o - r).abs().max())
-        bad = (o - r).abs() > K1_ATOL + K1_RTOL * r.abs()
+        used = (o - r).abs() / (K1_ATOL + K1_RTOL * r.abs())
+        bad = used > 1
         print(f"[{card}] K1 {name}: shape {tuple(q.shape)}x{tuple(k.shape)} max_abs_err {err:.3e} "
-              f"(tol {K1_ATOL} + {K1_RTOL}*|plain|) max|plain| {float(r.abs().max()):.3e}", flush=True)
+              f"(tol {K1_ATOL} + {K1_RTOL}*|plain|; the worst element uses {float(used.max()):.3f} of its "
+              f"tolerance) max|plain| {float(r.abs().max()):.3e}", flush=True)
         if bool(bad.any()):
             fail("kernel", f"{name}: {int(bad.sum())} elements outside tolerance, max_abs_err {err}")
         worst = max(worst, err)
-        return out
+        return out, ref
 
-    for h_img, w_img in ((1024, 1024), (720, 1024)):
+    for h_img, w_img in ((1024, 1024), (720, 1024), (512, 512)):
         l = 512 + (h_img // 16) * (w_img // 16)
         q, k, v = normed(heads, l, d), normed(heads, l, d), torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
         cos, sin = rope_tables(h_img, w_img)
+
+        qr, kr = rope_rotate(q, k, cos, sin)
+        qp, kp = rope_rotate_ref(q, cos, sin), rope_rotate_ref(k, cos, sin)
+        rope_err = max(float((qr.float() - qp.float()).abs().max()), float((kr.float() - kp.float()).abs().max()))
+        if not (torch.equal(qr, qp) and torch.equal(kr, kp)):
+            fail("kernel", f"L={l}: the rope pass differs from its plain version (max_abs_err {rope_err})")
+        b_ms, b_by = rope_bound(heads, l)
+        rope[l] = {"max_abs_err": rope_err, "ms": cuda_time_ms(lambda: rope_rotate(q, k, cos, sin), 50),
+                   "plain_ms": cuda_time_ms(lambda: (rope_rotate_ref(q, cos, sin), rope_rotate_ref(k, cos, sin)), 10),
+                   "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[{card}] rope pass L={l}: bit-identical to its plain version (max_abs_err {rope_err}); {rope[l]['ms']:.4f} ms "
+              f"({100 * b_ms / rope[l]['ms']:.1f}% of its {b_ms:.4f} ms bound, {b_by}), plain "
+              f"{rope[l]['plain_ms']:.4f} ms", flush=True)
+
         check(f"L={l} rope", q, k, v, scale, cos=cos, sin=sin)
-        ms = cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, cos=cos, sin=sin), 20)
-        plain_ms = cuda_time_ms(lambda: qknorm_attention_ref(q, k, v, scale, cos=cos, sin=sin), 5)
-        flops = 4 * heads * l * l * d
-        times[l] = (ms, plain_ms)
-        print(f"[{card}] K1 L={l}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-              f"plain {plain_ms:.4f} ms", flush=True)
+        _, ref = check(f"L={l} pre-rotated", qr, kr, v, scale)
+        b_ms, b_by = attention_bound(heads, l)
+        k1[l] = {"ms": cuda_time_ms(lambda: qknorm_attention(qr, kr, v, scale), 20),
+                 "with_rope_ms": cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, cos=cos, sin=sin), 20),
+                 "plain_ms": cuda_time_ms(lambda: qknorm_attention_ref(qr, kr, v, scale), 5),
+                 "bound_ms": b_ms, "bound_by": b_by}
+        k1[l]["library_ms"] = library_attention(card, qr, kr, v, scale, ref)
+        t = k1[l]
+        lib = "none ran" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"[{card}] K1 L={l}: kernel {t['ms']:.4f} ms on rotated q/k ({4 * heads * l * l * d / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s, {100 * b_ms / t['ms']:.1f}% of its {b_ms:.4f} ms bound, {b_by}); rope pass + kernel "
+              f"{t['with_rope_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; library {lib}", flush=True)
         if l == 4608:
             # Lq != Lkv: a q shard of 1536 rows against the full sequence
             check("Lq=1536 Lkv=4608 rope", q[:, :1536], k, v, scale, cos=cos, sin=sin,
@@ -179,10 +268,10 @@ def phase_kernel(card: str):
     q = torch.ones(heads, l, d, device=dev, dtype=torch.bfloat16)
     k = torch.full((heads, l, d), -90.0 / d, device=dev, dtype=torch.bfloat16)
     v = torch.ones(heads, l, d, device=dev, dtype=torch.bfloat16)
-    out = check("all-underflow", q, k, v, 1.0)
+    out, _ = check("all-underflow", q, k, v, 1.0)
     if bool(out.float().abs().max() != 0):
         fail("kernel", "all-underflow rows must be exactly 0")
-    return worst, times
+    return worst, k1, rope
 
 
 def phase_guard_ablation(card: str):
@@ -193,7 +282,7 @@ def phase_guard_ablation(card: str):
     from flux_fp8_api_tpu_torch import ablate_attention
     from flux_fp8_api_tpu_torch.ablate_attention import bare_two_dot, bare_two_dot_ref
     from flux_fp8_api_tpu_torch.ops.attention_kernel import (
-        LAUNCHES, qknorm_attention, qknorm_attention_checked, qknorm_attention_ref,
+        LAUNCHES, qknorm_attention, qknorm_attention_checked, qknorm_attention_ref, rope_rotate,
     )
 
     dev = torch.device("cuda")
@@ -201,23 +290,26 @@ def phase_guard_ablation(card: str):
     gen.manual_seed(3)
     heads, d = 24, 128
     scale = d**-0.5
-    results = {}  # build → {"max_abs_err", "ms", "plain_ms"} at L = 4608
+    results = {}  # build → L → {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"}
 
     def normed(*shape):
         x = torch.randn(shape, generator=gen, device=dev)
         return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
 
     def record(build, l, err, ms, plain_ms, what):
-        print(f"[{card}] {build} L={l}: {what}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        if l == 4608:
-            results[build] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        b_ms, b_by = attention_bound(heads, l)
+        print(f"[{card}] {build} L={l}: {what}; kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its "
+              f"{b_ms:.4f} ms bound, {b_by}), plain {plain_ms:.4f} ms", flush=True)
+        results.setdefault(build, {})[l] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                            "bound_ms": b_ms, "bound_by": b_by}
 
-    for h_img, w_img in ((1024, 1024), (720, 1024)):
+    for h_img, w_img in ((1024, 1024), (720, 1024), (512, 512)):
         l = 512 + (h_img // 16) * (w_img // 16)
         q, k = normed(heads, l, d), normed(heads, l, d)
         v = torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
         cos, sin = rope_tables(h_img, w_img)
         rope = dict(cos=cos, sin=sin)
+        qr, kr = rope_rotate(q, k, cos, sin)  # the builds are timed on rotated q/k, as K1 is
 
         out, m = qknorm_attention(q, k, v, scale, return_max_logit=True, **rope)
         serving = qknorm_attention(q, k, v, scale, **rope)
@@ -233,8 +325,8 @@ def phase_guard_ablation(card: str):
         if bool(((o - r).abs() > K1_ATOL + K1_RTOL * r.abs()).any()):
             fail("guard", f"L={l}: stats build outside tolerance, max_abs_err {err}")
         record("qknorm_attention_stats", l, err,
-               cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, return_max_logit=True, **rope), 20),
-               cuda_time_ms(lambda: qknorm_attention_ref(q, k, v, scale, return_max_logit=True, **rope), 5),
+               cuda_time_ms(lambda: qknorm_attention(qr, kr, v, scale, return_max_logit=True), 20),
+               cuda_time_ms(lambda: qknorm_attention_ref(qr, kr, v, scale, return_max_logit=True), 5),
                f"output bit-identical to the serving build; max|logit| {float(m):.6f} vs plain "
                f"{float(ref_m):.6f} (rel {m_rel:.2e}, tol {K1S_MAX_RTOL}); max_abs_err {err:.3e}")
 
@@ -245,8 +337,8 @@ def phase_guard_ablation(card: str):
         if not (bool(torch.isfinite(o).all()) and rel <= K1A_REL_TOL):
             fail("guard", f"L={l}: ablate build relative error {rel}")
         record("qknorm_attention_ablate_exp", l, float((o - r).abs().max()),
-               cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, ablate_exp=True, **rope), 20),
-               cuda_time_ms(lambda: qknorm_attention_ref(q, k, v, scale, ablate_exp=True, **rope), 5),
+               cuda_time_ms(lambda: qknorm_attention(qr, kr, v, scale, ablate_exp=True), 20),
+               cuda_time_ms(lambda: qknorm_attention_ref(qr, kr, v, scale, ablate_exp=True), 5),
                f"norm_rel_err {rel:.3e} (tol {K1A_REL_TOL}) on outputs up to {float(r.abs().max()):.3e}")
 
         qb, kb, vb = (torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
@@ -377,16 +469,15 @@ def phase_server(card: str):
         ({"prompt": "a blue sky", "width": 512, "height": 512, "num_steps": 20, "seed": 13},
          (512, 512), 20),
     ]
-    LAUNCHES["qknorm_attention"] = 0
+    for key in LAUNCHES:  # the main path's run starts here
+        LAUNCHES[key] = 0
     t0 = time.perf_counter()
     pipe = FluxPipeline.load_pipeline_from_config_path(str(CONFIG))  # compile() runs here
     load_s = time.perf_counter() - t0
     cfg = pipe.model_cfg
     blocks = cfg.depth + cfg.depth_single_blocks
     warm_evals = pipe.config.num_scale_trials + (pipe.config.warmup_steps or 24)
-    if LAUNCHES["qknorm_attention"] != blocks * warm_evals:
-        fail("server", f"compile(): {LAUNCHES['qknorm_attention']} kernel launches, "
-                       f"expected {blocks} x {warm_evals}")
+    check_path_launches("server", "compile()", dict(LAUNCHES), blocks * warm_evals)
     print(f"[{card}] pipeline from {CONFIG.name}: hidden {cfg.hidden_size}, {cfg.depth}+"
           f"{cfg.depth_single_blocks} blocks, fp8; load + calibrate + warm {load_s:.1f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
@@ -397,7 +488,7 @@ def phase_server(card: str):
     last = None
     try:
         for body, (w, h), steps in requests:
-            before = LAUNCHES["qknorm_attention"]
+            before = dict(LAUNCHES)
             t = time.perf_counter()
             status, headers, payload = post(f"http://127.0.0.1:{server.port}/generate", body)
             dt = time.perf_counter() - t
@@ -413,20 +504,27 @@ def phase_server(card: str):
             lat = pipe.last_latents
             if lat is None or not bool(torch.isfinite(lat.float()).all()):
                 fail("server", f"{body}: non-finite latents")
-            launched = LAUNCHES["qknorm_attention"] - before
-            if launched != blocks * steps:
-                fail("server", f"{body}: {launched} kernel launches, expected {blocks} x {steps}")
+            launched = {key: n - before[key] for key, n in LAUNCHES.items()}
+            check_path_launches("server", str(body), launched, blocks * steps)
             its = pipe.timings["denoise_it_per_s"]
             print(f"[{card}] POST /generate {w}x{h} {steps} steps: {dt:.3f} s/request, "
                   f"denoise {its:.3f} it/s, decode {pipe.timings['decode_seconds']:.3f} s, "
-                  f"{launched} kernel launches", flush=True)
+                  f"{launched['qknorm_attention']} K1 and {launched['rope_rotate']} rope-pass launches", flush=True)
             last = (body, lat.clone())
     finally:
         server.shutdown()
-    launches = LAUNCHES["qknorm_attention"]
-    if launches != blocks * evals:
-        fail("server", f"{launches} kernel launches in the run, expected {blocks} x {evals}")
+    launches = dict(LAUNCHES)  # read just after the main path's run
+    check_path_launches("server", "the run", launches, blocks * evals)
     return launches, pipe, last
+
+
+def check_path_launches(phase: str, what: str, launched: dict, expected: int) -> None:
+    """The serving path launches K1 and the rope pass once per block and model
+    evaluation each, and no other kernel build."""
+    want = {"qknorm_attention": expected, "rope_rotate": expected}
+    got = {key: n for key, n in launched.items() if n}
+    if got != want:
+        fail(phase, f"{what}: launches {got}, expected {want}")
 
 
 def release() -> None:
@@ -510,7 +608,7 @@ def serve_one(card: str, pipe, body: dict, size):
     server = PipelineServer(pipe, host="127.0.0.1", port=0)
     server.start_background()
     try:
-        before = LAUNCHES["qknorm_attention"]
+        before = dict(LAUNCHES)
         t = time.perf_counter()
         status, _, payload = post(f"http://127.0.0.1:{server.port}/generate", body)
         dt = time.perf_counter() - t
@@ -520,7 +618,7 @@ def serve_one(card: str, pipe, body: dict, size):
     im.load()
     if status != 200 or im.format != "JPEG" or im.size != size:
         fail("serve", f"{body}: status {status}, {im.format} {im.size}, expected JPEG {size}")
-    return dt, LAUNCHES["qknorm_attention"] - before
+    return dt, {key: n - before[key] for key, n in LAUNCHES.items()}
 
 
 def phase_tiers(card: str):
@@ -535,7 +633,8 @@ def phase_tiers(card: str):
         t_phase = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()  # phase 7's pipeline, kept for phase 10
-        LAUNCHES["qknorm_attention"] = 0
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
         pipe = FluxPipeline.load_pipeline_from_config_path(str(ROOT / "configs" / name))  # compile() runs here
         setup_s = time.perf_counter() - t_phase
         model, cfg = pipe.model_params, pipe.model_cfg
@@ -551,22 +650,21 @@ def phase_tiers(card: str):
             fail("tiers", f"{name}: leaf kinds {kinds}")
         blocks = cfg.depth + cfg.depth_single_blocks
         warm = pipe.config.num_scale_trials + (pipe.config.warmup_steps or 24)
-        if LAUNCHES["qknorm_attention"] != blocks * warm:
-            fail("tiers", f"{name}: compile() launched K1 {LAUNCHES['qknorm_attention']} times, expected {blocks} x {warm}")
+        check_path_launches("tiers", f"{name}: compile()", dict(LAUNCHES), blocks * warm)
         body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
                 "num_steps": 28, "seed": 21}
         dt, launched = serve_one(card, pipe, body, (1024, 1024))
         lat = pipe.last_latents
         if lat is None or not bool(torch.isfinite(lat.float()).all()):
             fail("tiers", f"{name}: non-finite latents")
-        if launched != blocks * 28:
-            fail("tiers", f"{name}: {launched} K1 launches, expected {blocks} x 28")
+        check_path_launches("tiers", f"{name}: POST /generate", launched, blocks * 28)
         print(f"[{card}] {name}: leaf kinds {kinds}; set-up (load + 12-step calibration + "
               f"{pipe.config.warmup_steps or 24}-step warm) {setup_s:.1f} s, peak device memory "
               f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.1f} GiB above the "
               f"{resident / 2**30:.1f} GiB already resident; POST /generate 1024x1024 28 steps: "
               f"{dt:.3f} s/request, denoise {pipe.timings['denoise_it_per_s']:.3f} it/s, "
-              f"{launched} K1 launches = {blocks} x 28; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+              f"{launched['qknorm_attention']} K1 and {launched['rope_rotate']} rope-pass launches = {blocks} x 28 "
+              f"each; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
         del pipe, model
         release()
 
@@ -738,7 +836,7 @@ def main() -> int:
     print(f"[{card_line}] build: {lib.relative_to(ROOT)} in {time.perf_counter() - t:.1f} s", flush=True)
     print((lib.parent / "ptxas.log").read_text().strip(), flush=True)
 
-    max_err, times = phase_kernel(card_line)
+    max_err, k1, rope = phase_kernel(card_line)
     builds, path_launches = phase_guard_ablation(card_line)
     phase_fp8_linear(card_line)
     phase_model(card_line)
@@ -749,24 +847,26 @@ def main() -> int:
     phase_tiers(card_line)
     phase_checkpoints(card_line, held)
 
+    def row(name, source, replaces, n, err, t):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+
     k1_source = "flux_fp8_api_tpu_torch/csrc/qknorm_attention.cu"
-    kernels = [{
-        "name": "qknorm_attention",
-        "route": "cuda",
-        "source": k1_source,
-        "replaces": "flux_fp8_api_tpu/ops/attention_kernel.py:183",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": times[4608][0],
-        "plain_ms": times[4608][1],
-    }]
+    kernels = [
+        row("qknorm_attention", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:183",
+            launches["qknorm_attention"], max_err, k1[4608]),
+        row("rope_rotate", "flux_fp8_api_tpu_torch/csrc/rope_rotate.cu",
+            "flux_fp8_api_tpu/ops/attention_kernel.py:51", launches["rope_rotate"],
+            rope[4608]["max_abs_err"], rope[4608]),
+    ]
     for build, source, replaces in (
         ("qknorm_attention_stats", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:109"),
         ("qknorm_attention_ablate_exp", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:115"),
         ("bare_two_dot", "flux_fp8_api_tpu_torch/csrc/bare_two_dot.cu", "ablate_attention.py:75"),
     ):
-        kernels.append({"name": build, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": path_launches[build], **builds[build]})
+        t = builds[build][4608]
+        kernels.append(row(build, source, replaces, path_launches[build], t["max_abs_err"], t))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,19 +1,19 @@
-"""Attention ceiling ablation on the card: how the attention kernel's time splits
-between the exp, the fused rope and the two products, at the serving shapes.
+"""Attention ceiling ablation on the card: how the attention call's time splits
+between the exp, the rope and the two products, at the serving shapes.
 
     python -m flux_fp8_api_tpu_torch.ablate_attention [L ...]   # default 2816 3392 4608
 
-JAX counterpart: the root ``ablate_attention.py``. Four builds of the same CUDA
-kernel are timed per joint sequence length (``ops.attention.benchmark_blocks``):
+JAX counterpart: the root ``ablate_attention.py``. Four variants of the attention call
+are timed per joint sequence length (``ops.attention.benchmark_blocks``):
 
-    full        — serving build: rope fused, exp softmax
-    no_exp      — exp dropped, rope fused         (full − no_exp = exp cost)
-    no_rope     — exp softmax, rope not fused     (full − no_rope = rope cost)
+    full        — serving: the rope pass, then K1 with the exp softmax
+    no_exp      — the rope pass, then K1's build without the exp   (full − no_exp = exp cost)
+    no_rope     — K1 alone, no tables, so no rope pass             (full − no_rope = rope cost)
     matmul_only — both off: the two products, mask, den and epilogue
 
 and set against two ceilings: the bare two-dot kernel (``csrc/bare_two_dot.cu``, the
-two products alone with the same tiles) and the analytic time of 4·H·L²·D FLOP at the
-card's bf16 matmul rate, measured at the start of the run with a large
+two products alone, ``mma.sync`` on 64-row tiles) and the analytic time of 4·H·L²·D
+FLOP at the card's bf16 matmul rate, measured at the start of the run with a large
 ``torch.matmul`` (a yardstick, not a kernel of this repository). Prints the card line
 and the rate on stderr, one JSON line per L, then a markdown table.
 """
@@ -28,11 +28,12 @@ from typing import Dict, Optional
 import torch
 
 from .ops.attention import benchmark_blocks, cuda_device, fed_back_seconds
-from .ops.attention_kernel import LAUNCHES, check_heads, head_strides, load_library
+from .ops.attention_kernel import BLOCKS, LAUNCHES, check_heads, head_strides, load_library
 
 HEADS, HEAD_DIM = 24, 128
 CALLS_PER_STEP = 19 + 38  # one joint attention per double + single block
-BLOCKS = (64, 64)  # the CUDA kernels' one compiled tile: (q rows, kv rows)
+# BLOCKS, imported above, is K1's one compiled tile (q rows per CTA, kv rows per stage)
+BARE_BLOCKS = (64, 64)  # the bare two-dot's one compiled tile: (q rows, kv rows)
 
 
 def bare_two_dot_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -45,13 +46,13 @@ def bare_two_dot_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 
 def bare_two_dot(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The bare two-dot kernel (JAX: ``ablate_attention._bare_two_dot``). Lq and Lkv
-    must be multiples of the 64-row tile (ValueError otherwise: the kernel has no
-    tail mask). CPU tensors run :func:`bare_two_dot_ref`; CUDA tensors launch the
+    must be multiples of its 64-row tile, ``BARE_BLOCKS`` (ValueError otherwise: the
+    kernel has no tail mask). CPU tensors run :func:`bare_two_dot_ref`; CUDA tensors launch the
     kernel, which takes what the attention kernel takes (bf16, D = 128, contiguous
     last dimension), or raise."""
     lq, lkv = q.shape[1], k.shape[1]
-    if lq % BLOCKS[0] or lkv % BLOCKS[1]:
-        raise ValueError(f"Lq={lq} and Lkv={lkv} must be multiples of the {BLOCKS} tile")
+    if lq % BARE_BLOCKS[0] or lkv % BARE_BLOCKS[1]:
+        raise ValueError(f"Lq={lq} and Lkv={lkv} must be multiples of the {BARE_BLOCKS} tile")
     if not q.is_cuda:
         return bare_two_dot_ref(q, k, v)
     check_heads(q, k, v)
@@ -95,7 +96,8 @@ def ablation_row(l: int, timings: Dict[str, float], bare_ms: Optional[float],
     """The derived fields of one ablation row (those of the JAX tool's ``ablate``):
     ``timings`` maps full / no_exp / no_rope / matmul_only to seconds per call,
     ``bare_ms`` is the bare two-dot's ms per call (None where L is not a multiple of
-    the tile), ``bf16_tflops`` the matmul rate the analytic roofline uses."""
+    its tile), ``bf16_tflops`` the matmul rate the analytic roofline uses. ``blocks``
+    is K1's tile."""
     t = timings
     flops = 4 * HEADS * l * l * HEAD_DIM
     roofline = flops / (bf16_tflops * 1e12)
@@ -118,7 +120,7 @@ def ablation_row(l: int, timings: Dict[str, float], bare_ms: Optional[float],
 
 
 def ablate(l: int, bf16_tflops: float, iters: int = 24) -> dict:
-    """Time the four attention builds and the bare two-dot at L = ``l`` on the card."""
+    """Time the four attention variants and the bare two-dot at L = ``l`` on the card."""
     kw = dict(folded_heads=HEADS, head_dim=HEAD_DIM, iters=iters)
     t = {
         "full": benchmark_blocks(l, **kw),
@@ -126,7 +128,7 @@ def ablate(l: int, bf16_tflops: float, iters: int = 24) -> dict:
         "no_rope": benchmark_blocks(l, fuse_rope=False, **kw),
         "matmul_only": benchmark_blocks(l, fuse_rope=False, ablate_exp=True, **kw),
     }
-    divides = l % BLOCKS[0] == 0 and l % BLOCKS[1] == 0
+    divides = l % BARE_BLOCKS[0] == 0 and l % BARE_BLOCKS[1] == 0
     bare_ms = bare_two_dot_ms(l, iters=iters) if divides else None
     return ablation_row(l, t, bare_ms, bf16_tflops)
 

@@ -9,11 +9,11 @@
 // there is no tail masking.
 //
 // What bounds it: the same 4 * H * Lq * Lkv * 128 FLOP as the attention kernel on the
-// same data, so the tensor cores. It has exactly the attention kernel's block shape
-// (one block per (head, 64-row q tile), four warps of 16 q rows, a loop over 64-row kv
-// tiles staged into shared memory, mma.sync m16n8k16 with the QK^T accumulators fed
-// straight into the PV A-fragments), so the attention kernel's time over this one's is
-// what the exp, the mask, den and the rope cost on top of the products.
+// same data, so the tensor cores. One block per (head, 64-row q tile), four warps of
+// 16 q rows, a loop over 64-row kv tiles staged into shared memory, mma.sync m16n8k16
+// with the QK^T accumulators fed straight into the PV A-fragments. The attention
+// kernel runs TMA and wgmma on 128-row tiles and is faster than this one, so this one
+// is no ceiling for it until it is built the same way.
 
 #include "tile_mma.cuh"
 
@@ -42,7 +42,7 @@ bare_two_dot_kernel(const BareArgs args) {
   const int g = lane / 4;
   const int t = lane % 4;
 
-  stage_tile(sq, args.q + head * args.q_sh, args.q_sl, q0, args.lq, nullptr, nullptr);
+  stage_tile(sq, args.q + head * args.q_sh, args.q_sl, q0, args.lq);
   __syncthreads();
   uint32_t qa[kD / 16][4];
   load_a_fragments(qa, sq, warp, lane);
@@ -55,8 +55,8 @@ bare_two_dot_kernel(const BareArgs args) {
   const __nv_bfloat16* vh = args.v + head * args.v_sh;
   for (int kv0 = 0; kv0 < args.lkv; kv0 += kBlockKV) {
     __syncthreads();  // the previous tile's k/v reads are done
-    stage_tile(sk, kh, args.k_sl, kv0, args.lkv, nullptr, nullptr);
-    stage_tile(sv, vh, args.v_sl, kv0, args.lkv, nullptr, nullptr);
+    stage_tile(sk, kh, args.k_sl, kv0, args.lkv);
+    stage_tile(sv, vh, args.v_sl, kv0, args.lkv);
     __syncthreads();
     float s[kBlockKV / 8][4];
     qk_tile(s, qa, sk, lane);

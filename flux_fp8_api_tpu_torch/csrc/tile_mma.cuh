@@ -1,6 +1,7 @@
-// Tile shape and warp-level helpers shared by the attention kernels of this directory:
+// Tile shape and warp-level helpers of the bare two-dot kernel (bare_two_dot.cu):
 // 64-row tiles of 128-wide bf16 heads in padded shared memory, ldmatrix fragment
-// loads and mma.sync m16n8k16 (bf16 operands, f32 accumulators).
+// loads and mma.sync m16n8k16 (bf16 operands, f32 accumulators). The attention kernel
+// (qknorm_attention.cu) does not use them: it runs wgmma on TMA-loaded tiles.
 
 #pragma once
 
@@ -50,13 +51,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Stage a 64 x 128 tile (rows row0.. of one head) into shared memory as bf16, rotating
-// it with the half-split rope tables when cos != nullptr. Rows at or past `len` are
-// zero. Each thread moves 8 channels of the first half together with the matching 8 of
-// the second half, since rotation pairs channel j with j + 64.
+// Stage a 64 x 128 tile (rows row0.. of one head) into shared memory as bf16. Rows at
+// or past `len` are zero. Each thread moves two 8-channel chunks, one of each half row.
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* smem, const __nv_bfloat16* src,
-                                           int64_t row_stride, int row0, int len,
-                                           const float* cos, const float* sin) {
+                                           int64_t row_stride, int row0, int len) {
   constexpr int kChunks = kD / 2 / 8;  // 8-channel chunks per half row
   for (int idx = threadIdx.x; idx < kBlockQ * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
@@ -67,34 +65,6 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* smem, const __nv_bfloa
       const __nv_bfloat16* p = src + row * row_stride;
       lo = *reinterpret_cast<const uint4*>(p + c);
       hi = *reinterpret_cast<const uint4*>(p + c + kD / 2);
-      if (cos != nullptr) {
-        const float* cr = cos + static_cast<int64_t>(row) * kD;
-        const float* sr = sin + static_cast<int64_t>(row) * kD;
-        const __nv_bfloat16* xl = reinterpret_cast<const __nv_bfloat16*>(&lo);
-        const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(&hi);
-        float cl[8], sl[8], ch[8], sh[8];
-        *reinterpret_cast<float4*>(cl) = *reinterpret_cast<const float4*>(cr + c);
-        *reinterpret_cast<float4*>(cl + 4) = *reinterpret_cast<const float4*>(cr + c + 4);
-        *reinterpret_cast<float4*>(sl) = *reinterpret_cast<const float4*>(sr + c);
-        *reinterpret_cast<float4*>(sl + 4) = *reinterpret_cast<const float4*>(sr + c + 4);
-        *reinterpret_cast<float4*>(ch) = *reinterpret_cast<const float4*>(cr + c + kD / 2);
-        *reinterpret_cast<float4*>(ch + 4) = *reinterpret_cast<const float4*>(cr + c + kD / 2 + 4);
-        *reinterpret_cast<float4*>(sh) = *reinterpret_cast<const float4*>(sr + c + kD / 2);
-        *reinterpret_cast<float4*>(sh + 4) = *reinterpret_cast<const float4*>(sr + c + kD / 2 + 4);
-        uint4 olo, ohi;
-        uint32_t* ol = reinterpret_cast<uint32_t*>(&olo);
-        uint32_t* oh = reinterpret_cast<uint32_t*>(&ohi);
-#pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          const float a0 = __bfloat162float(xl[e]), a1 = __bfloat162float(xl[e + 1]);
-          const float b0 = __bfloat162float(xh[e]), b1 = __bfloat162float(xh[e + 1]);
-          // out[j] = x[j] cos[j] - x[j+64] sin[j];  out[j+64] = x[j+64] cos[j+64] + x[j] sin[j+64]
-          ol[e / 2] = pack_bf16(a0 * cl[e] - b0 * sl[e], a1 * cl[e + 1] - b1 * sl[e + 1]);
-          oh[e / 2] = pack_bf16(b0 * ch[e] + a0 * sh[e], b1 * ch[e + 1] + a1 * sh[e + 1]);
-        }
-        lo = olo;
-        hi = ohi;
-      }
     }
     *reinterpret_cast<uint4*>(smem + r * kLd + c) = lo;
     *reinterpret_cast<uint4*>(smem + r * kLd + c + kD / 2) = hi;

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import Linear, linear_apply, quantize_blocks_weight_only
+from ..utils.config import into_device
 from ..utils.tree import ParamTree
 
 
@@ -132,8 +133,11 @@ def load_clip_checkpoint(sd_get, cfg: CLIPConfig, dtype=torch.bfloat16, report=N
                          device=None) -> ParamTree:
     """HF CLIPTextModel state dict → the encoder's tree, each tensor moved to
     ``device`` as it is read. With a ``report`` (utils.checkpoint.LoadReport) missing
-    tensors zero-fill (norm weights with ones) and are recorded instead of raising."""
+    tensors zero-fill (norm weights with ones) and are recorded instead of raising.
+    ``device`` defaults to cuda:0 (``into_device``)."""
     from ..utils.checkpoint import LoadReport
+
+    device = into_device(device)
 
     def fetch(name, shape, fill=0.0):
         return LoadReport.fetch(sd_get, name, shape, fill, report).to(device, dtype)

@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..utils.config import into_dtype
+from ..utils.config import into_device, into_dtype
 from ..utils.safetensors_io import SafetensorsFile
 from ..utils.tree import ParamTree
 from .clip import CLIPConfig, clip_encode, load_clip_checkpoint, quantize_clip_params
@@ -79,7 +79,7 @@ class TextEncoder:
         self.tokenizer = tokenizer
         self.max_length = max_length
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = into_device(device)  # None → cuda:0; "cpu" for the host
         self.params = params.to(self.device)
 
     def encode_ids(self, input_ids) -> torch.Tensor:
@@ -114,11 +114,13 @@ class TextEncoder:
         moved to ``device`` as it is read, then the tier applied there) and its
         tokenizer through ``transformers.AutoTokenizer``. The load is tolerant like
         the reference's strict=False one (util.py:225-237): missing tensors fill and
-        extra keys are ignored, each with a warning naming them."""
+        extra keys are ignored, each with a warning naming them. ``device`` defaults
+        to cuda:0 (``into_device``); pass ``"cpu"`` for the host."""
         from transformers import AutoTokenizer
 
         from ..utils.checkpoint import LoadReport
 
+        device = into_device(device)
         model_dir = Path(model_path)
         hf_cfg = json.loads((model_dir / "config.json").read_text())
         # CLIP ships CLIPTextConfig top-level or under "text_config"

@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 
 from ..ops.quant import Linear, linear_apply, quantize_blocks_weight_only
+from ..utils.config import into_device
 from ..utils.tree import ParamTree
 
 
@@ -156,8 +157,11 @@ def load_t5_checkpoint(sd_get, cfg: T5Config, dtype=torch.bfloat16, report=None,
     …layer.0.layer_norm.weight, …layer.1.DenseReluDense.{wi_0,wi_1,wo}.weight,
     …layer.1.layer_norm.weight, encoder.final_layer_norm.weight, and block 0's
     relative_attention_bias. With a ``report`` (utils.checkpoint.LoadReport) missing
-    tensors zero-fill (norms with ones) and are recorded instead of raising."""
+    tensors zero-fill (norms with ones) and are recorded instead of raising.
+    ``device`` defaults to cuda:0 (``into_device``)."""
     from ..utils.checkpoint import LoadReport
+
+    device = into_device(device)
 
     def fetch(name, shape, fill=0.0):
         return LoadReport.fetch(sd_get, name, shape, fill, report).to(device, dtype)

@@ -2,8 +2,8 @@
 (JAX counterpart: ``flux_fp8_api_tpu.ops.attention``).
 
 Dispatch is by device only, inside :func:`~.attention_kernel.qknorm_attention`: CUDA
-tensors run the hand-written kernel with the rope rotation fused in, CPU tensors run
-its plain PyTorch version. :func:`benchmark_blocks` times the kernel on the card.
+tensors run the rope pass and then the hand-written attention kernel, CPU tensors run
+their plain PyTorch versions. :func:`benchmark_blocks` times the kernel on the card.
 """
 
 from __future__ import annotations
@@ -13,6 +13,13 @@ from typing import Optional
 import torch
 
 from .attention_kernel import qknorm_attention
+
+
+def fold_heads(x: torch.Tensor) -> torch.Tensor:
+    """Batch folded into heads: (B, L, N, H) → (B·N, L, H). A strided view when B == 1
+    (the kernels read it in place), a copy otherwise."""
+    b, l, n, h = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * n, l, h)
 
 
 def attention_core(
@@ -35,8 +42,7 @@ def attention_core(
       (B, L, N, H) in q's dtype.
     """
     b, l, n, h = q.shape
-    # fold batch into heads: (B, L, N, H) → (B·N, L, H); a view when B == 1
-    qh, kh, vh = (x.permute(0, 2, 1, 3).reshape(b * n, x.shape[1], h) for x in (q, k, v))
+    qh, kh, vh = fold_heads(q), fold_heads(k), fold_heads(v)
     cos2d = sin2d = None
     if cos is not None:
         cos2d = (cos[0, :, 0, :] if cos.dim() == 4 else cos).float().contiguous()
@@ -60,6 +66,9 @@ def attention(
 
 # --------------------------------------------------------------------- measurement
 
+# GPU cycles slept per timed call before a timing, to cover the host's enqueue (~0.5 ms)
+SLEEP_CYCLES_PER_CALL = 1_000_000
+
 
 def cuda_device() -> torch.device:
     """The current CUDA device, or a RuntimeError where there is none: the
@@ -72,10 +81,12 @@ def cuda_device() -> torch.device:
 def fed_back_seconds(call, x: torch.Tensor, iters: int) -> float:
     """Per-call seconds of ``x = call(x)`` repeated ``iters`` times after one warm call,
     timed with CUDA events on the current stream. Each output is the next input, so
-    no call can be skipped or overlapped with the next."""
+    no call can be skipped or overlapped with the next. The card sleeps first while the
+    host enqueues the calls, so what is timed is the device, not the launch rate."""
     x = call(x)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         x = call(x)
@@ -93,8 +104,9 @@ def benchmark_blocks(
     fuse_rope: bool = True,
     ablate_exp: bool = False,
 ) -> float:
-    """Per-call seconds of the attention kernel at joint seq ``l``, measured the way
-    the model calls it: folded batch·head axis, rope fused unless ``fuse_rope=False``.
+    """Per-call seconds of the attention call at joint seq ``l``, measured the way the
+    model calls it: folded batch·head axis, the rope pass in front unless
+    ``fuse_rope=False`` (the JAX name: there the rope is fused into the kernel).
     ``lkv`` (default ``l``) makes the call rectangular, the shape a sequence-parallel
     shard sees; ``ablate_exp=True`` times the build without the exp (the ceiling
     measurement of ``flux_fp8_api_tpu_torch.ablate_attention``).

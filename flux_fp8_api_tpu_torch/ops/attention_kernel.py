@@ -1,16 +1,20 @@
 """Max-free qk-norm attention: the hand-written CUDA kernel in its three builds
-(serving, stats, ablate), their plain PyTorch version, the wrapper that picks between
-them by device, the guard rail built on the stats build, and the kernels' build.
+(serving, stats, ablate) and the rope pass in front of it, their plain PyTorch
+versions, the wrappers that pick between them by device, the guard rail built on the
+stats build, and the kernels' build.
 
 JAX counterpart: ``flux_fp8_api_tpu.ops.attention_kernel`` (the Pallas TPU kernel),
 whose docstring argues why FLUX's qk-RMSNorm makes a constant-shift softmax safe:
-``p = exp(s - SHIFT)``, ``out = Σp·v / Σp``.
+``p = exp(s - SHIFT)``, ``out = Σp·v / Σp``. The Pallas kernel rotates q and k inside
+the kernel; on the card the rope pass (``csrc/rope_rotate.cu``) rotates them once per
+call and the attention kernel (``csrc/qknorm_attention.cu``: TMA loads, ``wgmma``,
+warp-specialised) reads the rotated copies.
 
-The CUDA sources are in ``csrc/``: ``qknorm_attention.cu`` and ``bare_two_dot.cu``
-(the measurement kernel of ``flux_fp8_api_tpu_torch.ablate_attention``). Each is
-compiled with ``nvcc`` for ``sm_90a`` at first use, all at once, and linked into one
-shared library with a plain C interface in ``build/kernels/<hash of the sources>/`` at
-the repository root, loaded with ``ctypes``.
+The CUDA sources are in ``csrc/``: those two and ``bare_two_dot.cu`` (the measurement
+kernel of ``flux_fp8_api_tpu_torch.ablate_attention``). Each is compiled with ``nvcc``
+for ``sm_90a`` at first use, all at once, and linked into one shared library with a
+plain C interface in ``build/kernels/<hash of the sources>/`` at the repository root,
+loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -29,9 +33,11 @@ import torch
 SHIFT = 20.0
 MAX_SAFE_LOGIT = 100.0
 HEAD_DIM = 128  # the only head dim the CUDA kernels take
+BLOCKS = (128, 128)  # the attention kernel's tile: (q rows per CTA, kv rows per stage)
+BOX_COLS = 64  # head columns per TMA box: 128 bytes, the span of the 128-byte swizzle
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("qknorm_attention.cu", "bare_two_dot.cu")
+_SOURCES = ("qknorm_attention.cu", "rope_rotate.cu", "bare_two_dot.cu")
 _HEADERS = ("tile_mma.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -43,6 +49,7 @@ LAUNCHES = {
     "qknorm_attention": 0,
     "qknorm_attention_stats": 0,
     "qknorm_attention_ablate_exp": 0,
+    "rope_rotate": 0,
     "bare_two_dot": 0,
 }
 
@@ -105,10 +112,15 @@ def load_library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         fn = lib.qknorm_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] * 3 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
+        fn.restype = ctypes.c_int
+        fn = lib.rope_rotate_bf16
+        job = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        fn.argtypes = job + job + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.bare_two_dot_bf16
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [
@@ -117,6 +129,16 @@ def load_library():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def rope_rotate_ref(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Plain version of the rope pass: half-split RoPE of x (..., L, D) with (L, D)
+    tables, in fp32 (each product and the sum rounded on their own), cast back to x's
+    dtype once. The JAX kernel's ``_rope_rotate``."""
+    x32 = x.float()
+    half = x32.shape[-1] // 2
+    rotated = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
+    return (x32 * cos.float() + rotated * sin.float()).to(x.dtype)
 
 
 def qknorm_attention_ref(
@@ -133,8 +155,9 @@ def qknorm_attention_ref(
     ablate_exp: bool = False,
 ):
     """Plain PyTorch version of the kernel: the same function with the same roundings
-    — rope in fp32 cast back to q's dtype, fp32 logits, ``exp(s·scale − SHIFT)``,
-    ``bf16(p)`` before ``P·V``, den from the unrounded p, den clamped at 1e-30.
+    — rope in fp32 cast back to q's dtype (:func:`rope_rotate_ref`), fp32 logits,
+    ``exp(s·scale − SHIFT)``, ``bf16(p)`` before ``P·V``, den from the unrounded p, den
+    clamped at 1e-30.
 
     q (H, Lq, D), k/v (H, Lkv, D); cos/sin (Lkv, D) fp32, cos_q/sin_q (Lq, D)
     defaulting to cos/sin. Returns (H, Lq, D) in q's dtype; with ``return_max_logit``
@@ -145,8 +168,8 @@ def qknorm_attention_ref(
     if cos is not None:
         cos_q = cos if cos_q is None else cos_q
         sin_q = sin if sin_q is None else sin_q
-        q = _rotate(q, cos_q, sin_q)
-        k = _rotate(k, cos, sin)
+        q = rope_rotate_ref(q, cos_q, sin_q)
+        k = rope_rotate_ref(k, cos, sin)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     p = s * sm_scale - SHIFT
     if not ablate_exp:
@@ -159,16 +182,11 @@ def qknorm_attention_ref(
     return out
 
 
-def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    x32 = x.float()
-    half = x32.shape[-1] // 2
-    rotated = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
-    return (x32 * cos.float() + rotated * sin.float()).to(x.dtype)
-
-
-def _check_table(t: torch.Tensor, rows: int, name: str) -> None:
-    if t.shape != (rows, HEAD_DIM) or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous ({rows}, {HEAD_DIM}) float32 table")
+def _check_table(t: torch.Tensor, rows: int, name: str, device: torch.device) -> None:
+    if t.shape != (rows, HEAD_DIM) or t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned ({rows}, {HEAD_DIM}) float32 table")
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}")
 
 
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -191,6 +209,72 @@ def head_strides(*tensors: torch.Tensor):
     return [s for t in tensors for s in (t.stride(0), t.stride(1))]
 
 
+def tma_params(t: torch.Tensor) -> tuple:
+    """The parameters of the 3-D TMA tensor map over an (H, L, 128) bf16 view, as
+    ``csrc/qknorm_attention.cu`` encodes them: dims (head dim, L, H), innermost first;
+    byte strides of the row and head axes (the caller's, so head-folded strided views
+    need no copy); the box (``BOX_COLS`` columns, ``BLOCKS[1]`` rows, one head), whose
+    128-byte rows are what the 128-byte swizzle spans. A 3-D map, not an (H·L, D) one:
+    rows past L read as zeros instead of the next head's rows.
+
+    Raises ValueError on what TMA cannot take: another dtype or head dim, a
+    non-contiguous last dimension, a base that is not 16-byte aligned, or a stride that
+    is not a positive multiple of 16 bytes (below 2^40). The stride of an axis of size 1
+    is never followed and is given as the packed one."""
+    if t.dtype != torch.bfloat16 or t.dim() != 3 or t.shape[2] != HEAD_DIM:
+        raise ValueError(f"a TMA map takes a bfloat16 (H, L, {HEAD_DIM}) view, got {t.dtype} {tuple(t.shape)}")
+    h, l, d = t.shape
+    es = t.element_size()
+    if t.stride(2) != 1 or t.data_ptr() % 16:
+        raise ValueError("a TMA map needs a contiguous last dimension and a 16-byte aligned base")
+    row = t.stride(1) * es if l > 1 else d * es
+    head = t.stride(0) * es if h > 1 else l * d * es
+    for name, stride in (("row", row), ("head", head)):
+        if stride <= 0 or stride % 16 or stride >= 2**40:
+            raise ValueError(f"a TMA map needs 16-byte multiple strides, got a {name} stride of {stride} bytes")
+    if not 0 < l < 2**31 or not 0 < h < 2**31:
+        raise ValueError(f"a TMA map takes 1 <= L, H < 2^31, got {tuple(t.shape)}")
+    return (d, l, h, row, head, BOX_COLS, BLOCKS[1], 1)
+
+
+def rope_rotate(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cos_q: Optional[torch.Tensor] = None,
+    sin_q: Optional[torch.Tensor] = None,
+):
+    """The rope pass: (q rotated with ``cos_q``/``sin_q``, k rotated with ``cos``/``sin``),
+    each a contiguous (H, L, D) tensor. ``cos_q``/``sin_q`` default to ``cos``/``sin``.
+
+    CPU tensors run :func:`rope_rotate_ref`. CUDA tensors launch the kernel
+    (``csrc/rope_rotate.cu``, one launch for both), which takes bf16 (H, L, 128) with a
+    contiguous last dimension and contiguous (L, 128) float32 tables, and gives what
+    the plain version gives, bit for bit; anything else raises.
+    """
+    cos_q = cos if cos_q is None else cos_q
+    sin_q = sin if sin_q is None else sin_q
+    if not q.is_cuda:
+        return rope_rotate_ref(q, cos_q, sin_q), rope_rotate_ref(k, cos, sin)
+    check_heads(q, k, k)
+    h, lq, d = q.shape
+    lkv = k.shape[1]
+    for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq), ("cos", cos, lkv), ("sin", sin, lkv)):
+        _check_table(t, rows, name, q.device)
+    q_out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
+    k_out = torch.empty((h, lkv, d), dtype=k.dtype, device=k.device)
+    err = load_library().rope_rotate_bf16(
+        q.data_ptr(), q.stride(0), q.stride(1), q_out.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), lq,
+        k.data_ptr(), k.stride(0), k.stride(1), k_out.data_ptr(), cos.data_ptr(), sin.data_ptr(), lkv,
+        h, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"rope_rotate kernel launch failed: cudaError {err}")
+    LAUNCHES["rope_rotate"] += 1
+    return q_out, k_out
+
+
 def qknorm_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -204,17 +288,19 @@ def qknorm_attention(
     return_max_logit: bool = False,
     ablate_exp: bool = False,
 ):
-    """(H, Lq, D) q × (H, Lkv, D) k/v → (H, Lq, D), with the rope rotation fused in
-    when ``cos``/``sin`` are given (see :func:`qknorm_attention_ref` for the function).
+    """(H, Lq, D) q × (H, Lkv, D) k/v → (H, Lq, D), q and k rotated first when
+    ``cos``/``sin`` are given (see :func:`qknorm_attention_ref` for the function).
 
     ``return_max_logit=True`` selects the stats build and returns ``(out, max_logit)``,
     ``max_logit`` a 0-d fp32 tensor on q's device (no host sync here): the input of
     :func:`qknorm_attention_checked`. ``ablate_exp=True`` selects the measurement build
     without the exp. The two do not combine.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel, which takes bf16
-    with D = 128 and a contiguous last dimension; anything else raises. The output is
-    allocated token-major, (Lq, H, D), and returned as its (H, Lq, D) view.
+    CPU tensors run the plain version. CUDA tensors launch the rope pass
+    (:func:`rope_rotate`, when there are tables) and then the attention kernel, which
+    takes bf16 with D = 128, a contiguous last dimension and 16-byte aligned strides
+    (:func:`tma_params`); anything else raises. The output is allocated token-major,
+    (Lq, H, D), and returned as its (H, Lq, D) view.
     """
     if return_max_logit and ablate_exp:
         raise ValueError("the stats and ablate_exp builds do not combine")
@@ -225,23 +311,16 @@ def qknorm_attention(
     h, lq, d = q.shape
     lkv = k.shape[1]
     check_heads(q, k, v)
-    tables = [None] * 4
     if cos is not None:
-        cos_q = cos if cos_q is None else cos_q
-        sin_q = sin if sin_q is None else sin_q
-        for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq), ("cos", cos, lkv), ("sin", sin, lkv)):
-            _check_table(t, rows, name)
-            if t.device != q.device:
-                raise ValueError(f"{name} must be on {q.device}")
-        tables = [cos_q.data_ptr(), sin_q.data_ptr(), cos.data_ptr(), sin.data_ptr()]
-
+        q, k = rope_rotate(q, k, cos, sin, cos_q, sin_q)
+    maps = [(ctypes.c_int64 * 8)(*tma_params(t)) for t in (q, k, v)]
     out = torch.empty((lq, h, d), dtype=q.dtype, device=q.device).transpose(0, 1)
     # a fresh zero on the launch stream: the stats build atomicMax-es into it
     max_logit = torch.zeros((), dtype=torch.float32, device=q.device) if return_max_logit else None
     err = load_library().qknorm_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tables,
-        *head_strides(q, k, v, out),
-        h, lq, lkv, float(sm_scale), None if max_logit is None else max_logit.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *maps,
+        out.stride(0), out.stride(1), h, lq, lkv, float(sm_scale),
+        None if max_logit is None else max_logit.data_ptr(),
         int(ablate_exp), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build = ("qknorm_attention_stats" if return_max_logit

@@ -28,7 +28,7 @@ import torch
 from ..models.flux import FluxStatic, LeafFn
 from ..ops.quant import Linear, dequantize_kernel, with_kernel
 from ..ops.rope import deinterleave_permutation
-from .config import AutoEncoderParams
+from .config import AutoEncoderParams, into_device
 from .safetensors_io import SafetensorsFile, save_safetensors
 from .tree import ParamTree
 
@@ -250,7 +250,9 @@ def load_flux_checkpoint(
 
     Tolerant like the reference (``strict=False`` + ``print_load_warning``): missing
     linears and biases zero-fill, missing qk-norm scales are identity, extra keys are
-    ignored, each with a warning naming the keys; ``strict=True`` raises instead."""
+    ignored, each with a warning naming the keys; ``strict=True`` raises instead.
+    ``device`` defaults to cuda:0 (``into_device``); pass ``"cpu"`` for the host."""
+    device = into_device(device)
     dtype = dtype or cfg.dtype
     sd = _as_stf(path_or_file)
     report = LoadReport(f"flux checkpoint {sd.path}")
@@ -367,7 +369,9 @@ def load_ae_checkpoint(path: str, cfg: AutoEncoderParams, dtype=torch.bfloat16,
     util.py:278-295), encoder and decoder, conv weights OIHW as stored. Structure
     follows key presence. Missing biases and norm affines degrade to identity with a
     warning and extra keys are ignored; missing conv weights (shape unknown) raise one
-    KeyError naming every absent tensor."""
+    KeyError naming every absent tensor. ``device`` defaults to cuda:0
+    (``into_device``)."""
+    device = into_device(device)
     sd = SafetensorsFile(path)
     report = LoadReport(f"ae checkpoint {path}")
     fatal: list = []
@@ -496,7 +500,9 @@ def save_prequantized(path, model: ParamTree, extra_meta: Optional[Dict[str, str
 
 def load_prequantized(path_or_file, cfg: FluxStatic, device=None) -> ParamTree:
     """Reload a ``flux-fp8-api-tpu/prequant-v1`` file, written by either package,
-    into the port's model on ``device``, one block slice at a time."""
+    into the port's model on ``device`` (default cuda:0, ``into_device``), one block
+    slice at a time."""
+    device = into_device(device)
     f = _as_stf(path_or_file)
     if f.metadata.get("format") != PREQUANT_FORMAT:
         raise ValueError(f"{f.path} is not a {PREQUANT_FORMAT} checkpoint")

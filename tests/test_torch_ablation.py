@@ -66,10 +66,10 @@ def _timings(l):
 @pytest.mark.parametrize("l", [4608, 3392, 2816, 200])
 def test_ablation_row_matches_jax_ablate(monkeypatch, l):
     """Both tools fed the same timings and the same bf16 rate give the same derived
-    fields; only the tile differs (the CUDA kernels' one 64 × 64 tile against the
-    Pallas kernel's blocks). L = 200 divides no tile: no bare two-dot time."""
+    fields; only the tile differs (K1's one 128 × 128 tile against the Pallas kernel's
+    blocks). L = 200 divides no bare two-dot tile (64 rows): no bare two-dot time."""
     tm = _timings(l)
-    bare_ms = 1.2345 * (l / 4608) ** 2 if l % 64 == 0 else None
+    bare_ms = 1.2345 * (l / 4608) ** 2 if l % tablate.BARE_BLOCKS[0] == 0 else None
 
     def fake_benchmark(l_, blocks, fuse_rope=True, ablate_exp=False, **kw):
         return tm[(fuse_rope, ablate_exp)]
@@ -81,7 +81,8 @@ def test_ablation_row_matches_jax_ablate(monkeypatch, l):
     timings = {"full": tm[(True, False)], "no_exp": tm[(True, True)],
                "no_rope": tm[(False, False)], "matmul_only": tm[(False, True)]}
     got = tablate.ablation_row(l, timings, bare_ms, 181.0)
-    assert got["blocks"] == [64, 64] and got["const_tables"] is False
+    assert got["blocks"] == list(tablate.BLOCKS) == [128, 128] and got["const_tables"] is False
+    assert tablate.BARE_BLOCKS == (64, 64)
     for key in ("blocks", "const_tables"):
         got.pop(key), want.pop(key)
     assert got == want

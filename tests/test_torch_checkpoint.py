@@ -159,7 +159,7 @@ def test_bfl_file_loads_like_jax(tmp_path):
     path = str(tmp_path / "flux.safetensors")
     _synthetic_bfl_checkpoint(path)
     jtree = jckpt.load_flux_checkpoint(path, jcfg())
-    model = tckpt.load_flux_checkpoint(path, pcfg())
+    model = tckpt.load_flux_checkpoint(path, pcfg(), device="cpu")
     assert_same_model(model, to_torch(jtree))
     a, b = forwards(jtree, model)
     assert _rel(b, a) < 1e-4
@@ -172,7 +172,7 @@ def test_bfl_writer_round_trips_through_both_loaders(tmp_path):
     src = to_torch(numpy_flux_params(cfg, seed=4))
     path = tmp_path / "written.safetensors"
     write_bfl_checkpoint(path, src, pcfg())
-    assert_same_model(tckpt.load_flux_checkpoint(path, pcfg()), src)
+    assert_same_model(tckpt.load_flux_checkpoint(path, pcfg(), device="cpu"), src)
     assert_same_model(to_torch(jckpt.load_flux_checkpoint(str(path), cfg)), src)
 
 
@@ -237,7 +237,7 @@ def test_reference_prequantized_file_loads_like_jax(tmp_path, with_input_scales)
     assert tckpt.is_prequantized_reference_file(path)
     assert tckpt.reference_prequant_has_input_scales(path) == with_input_scales
     jtree = jckpt.load_flux_checkpoint(path, jcfg())
-    model = tckpt.load_flux_checkpoint(path, pcfg())
+    model = tckpt.load_flux_checkpoint(path, pcfg(), device="cpu")
     assert_same_model(model, to_torch(jtree))
     assert model["double_blocks"][0]["img_attn_qkv"].kind == "fp8" and model["img_in"].kind == "float"
     # the prequantized flag: the file's detection, as the JAX loader sets it
@@ -295,7 +295,7 @@ def test_prequant_file_saved_by_jax_loads_in_the_port(tmp_path, kind):
     q = _calibrated_jax(kind)
     path = str(tmp_path / "jax.safetensors")
     jckpt.save_prequantized(path, q, extra_meta={"quantize_modulation": "True"})
-    model = tckpt.load_prequantized(path, pcfg())
+    model = tckpt.load_prequantized(path, pcfg(), device="cpu")
     # the tree the converter gives, bit for bit: its forward is held against JAX's by
     # tests/test_torch_flux.py (fp8) and tests/test_torch_quant_tiers.py (int8, int4)
     assert_same_model(model, to_torch(q))
@@ -326,7 +326,7 @@ def test_load_prequantized_refuses_other_files(tmp_path):
     path = str(tmp_path / "flux.safetensors")
     _synthetic_bfl_checkpoint(path)
     with pytest.raises(ValueError, match="prequant-v1"):
-        tckpt.load_prequantized(path, pcfg())
+        tckpt.load_prequantized(path, pcfg(), device="cpu")
 
 
 # ------------------------------------------------------------ tolerant loads, reports
@@ -340,11 +340,39 @@ def test_flux_missing_and_extra_keys_fill_like_jax(tmp_path):
     del sd["final_layer.linear.weight"]
     sd["ema.shadow.0"] = np.zeros(4, np.float32)
     jst.save_safetensors(path, sd)
-    model = tckpt.load_flux_checkpoint(path, pcfg())
+    model = tckpt.load_flux_checkpoint(path, pcfg(), device="cpu")
     assert_same_model(model, to_torch(jckpt.load_flux_checkpoint(path, jcfg())))
     assert torch.equal(model["double_blocks"][0]["img_attn_qkv"].bias, torch.zeros(192))
     with pytest.raises(KeyError, match="img_attn.qkv.bias"):
-        tckpt.load_flux_checkpoint(path, pcfg(), strict=True)
+        tckpt.load_flux_checkpoint(path, pcfg(), strict=True, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["load_flux_checkpoint", "load_ae_checkpoint", "load_prequantized",
+                                   "load_clip_checkpoint", "load_t5_checkpoint", "TextEncoder",
+                                   "TextEncoder.from_pretrained"])
+def test_loaders_default_to_the_card(entry, tmp_path):
+    """With no ``device`` the loaders and encoders build on cuda:0 (``into_device``),
+    and raise where there is no CUDA, before reading anything: none of them falls
+    back to the host. The CPU tests above pass ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is cuda:0 there")
+    from flux_fp8_api_tpu_torch.models.clip import CLIPConfig, load_clip_checkpoint
+    from flux_fp8_api_tpu_torch.models.conditioner import TextEncoder
+    from flux_fp8_api_tpu_torch.models.t5 import T5Config, load_t5_checkpoint
+    from flux_fp8_api_tpu_torch.utils.tree import ParamTree
+
+    missing = str(tmp_path / "absent.safetensors")
+    call = {
+        "load_flux_checkpoint": lambda: tckpt.load_flux_checkpoint(missing, pcfg()),
+        "load_ae_checkpoint": lambda: tckpt.load_ae_checkpoint(missing, TINY_AE_PARAMS),
+        "load_prequantized": lambda: tckpt.load_prequantized(missing, pcfg()),
+        "load_clip_checkpoint": lambda: load_clip_checkpoint(None, CLIPConfig()),
+        "load_t5_checkpoint": lambda: load_t5_checkpoint(None, T5Config()),
+        "TextEncoder": lambda: TextEncoder("clip", ParamTree({}), CLIPConfig(), None, 77),
+        "TextEncoder.from_pretrained": lambda: TextEncoder.from_pretrained("t5", str(tmp_path), 16),
+    }[entry]
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        call()
 
 
 def test_load_report_fills_and_formats():
@@ -371,7 +399,7 @@ def test_ae_file_loads_like_jax(tmp_path):
     _synthetic_ae_checkpoint(path, TINY_AE_PARAMS, drop=("decoder.conv_out.bias", "encoder.norm_out.weight"),
                              extra=("loss.logvar",))
     jtree = jckpt.load_ae_checkpoint(path, TINY_AE_PARAMS, jnp.float32)
-    tree = tckpt.load_ae_checkpoint(path, TINY_AE_PARAMS, torch.float32)
+    tree = tckpt.load_ae_checkpoint(path, TINY_AE_PARAMS, torch.float32, device="cpu")
     assert_same_model(tree, to_torch(jtree))
     assert "bias" not in tree["decoder"]["conv_out"]
     assert "downsample" in tree["encoder"]["down"][0] and "downsample" not in tree["encoder"]["down"][-1]
@@ -381,7 +409,7 @@ def test_ae_missing_conv_weights_raise_one_aggregate_error(tmp_path):
     path = str(tmp_path / "ae.sft")
     _synthetic_ae_checkpoint(path, TINY_AE_PARAMS, drop=("decoder.conv_in.weight", "encoder.conv_out.weight"))
     with pytest.raises(KeyError) as e:
-        tckpt.load_ae_checkpoint(path, TINY_AE_PARAMS)
+        tckpt.load_ae_checkpoint(path, TINY_AE_PARAMS, device="cpu")
     assert "decoder.conv_in.weight" in str(e.value) and "encoder.conv_out.weight" in str(e.value)
 
 
@@ -396,7 +424,7 @@ def test_ae_checkpoint_decodes_like_jax(tmp_path):
     port = to_torch(params)
     tst.save_safetensors(tmp_path / "ae.sft", dict(port.named_buffers()))  # module paths are ae.sft's names
     jtree = jckpt.load_ae_checkpoint(str(tmp_path / "ae.sft"), TINY_AE_PARAMS, jnp.float32)
-    tree = tckpt.load_ae_checkpoint(tmp_path / "ae.sft", TINY_AE_PARAMS, torch.float32)
+    tree = tckpt.load_ae_checkpoint(tmp_path / "ae.sft", TINY_AE_PARAMS, torch.float32, device="cpu")
     assert_same_model(tree, port)
     z = np.random.default_rng(5).normal(size=(1, 8, 6, TINY_AE_PARAMS.z_channels)).astype(np.float32)
     a = np.asarray(jax.jit(lambda p, z: jae.ae_decode(p, TINY_AE_PARAMS, z))(jtree, jnp.asarray(z)))
@@ -473,7 +501,8 @@ def test_text_encoder_from_pretrained_matches_jax(tmp_path, kind, tier):
     _write_hf_dir(d, kind, seed=1)
     max_length = 77 if kind == "clip" else 16
     a = JaxTextEncoder.from_pretrained(kind, str(d), max_length, dtype="float32", quantization_dtype=tier)
-    b = TextEncoder.from_pretrained(kind, str(d), max_length, dtype="float32", quantization_dtype=tier)
+    b = TextEncoder.from_pretrained(kind, str(d), max_length, dtype="float32", quantization_dtype=tier,
+                                  device="cpu")
     assert b.config == type(b.config)(**{f: getattr(a.config, f) for f in a.config.__dataclass_fields__})
     prompts = ["a photo of a red cat on the hill", "a dog"]
     ids_a = a.tokenizer(prompts, truncation=True, max_length=max_length, padding="max_length", return_tensors="np")

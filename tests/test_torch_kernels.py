@@ -28,6 +28,8 @@ from flux_fp8_api_tpu_torch.ops.attention_kernel import (
     qknorm_attention,
     qknorm_attention_checked,
     qknorm_attention_ref,
+    rope_rotate,
+    rope_rotate_ref,
 )
 from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
 from flux_fp8_api_tpu_torch.ops.quant import (
@@ -87,18 +89,82 @@ def test_kernel_matches_plain_version(dev, h_latent, w_latent, rope, lq):
             kw.update(cos_q=cos[:lq].contiguous(), sin_q=sin[:lq].contiguous())
     if lq:
         q = q[:, :lq]
-    before = LAUNCHES["qknorm_attention"]
+    before = dict(LAUNCHES)
     out = qknorm_attention(q, k, v, d**-0.5, **kw)
-    assert LAUNCHES["qknorm_attention"] == before + 1
+    assert _launched(before) == {"qknorm_attention": 1, **({"rope_rotate": 1} if rope else {})}
     ref = qknorm_attention_ref(q, k, v, d**-0.5, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
 
 
-def test_all_underflow_rows_are_zero(dev):
-    q = torch.ones(2, 200, 128, device=dev, dtype=torch.bfloat16)
-    k = torch.full((2, 200, 128), -90.0 / 128, device=dev, dtype=torch.bfloat16)
+def _l(h_latent, w_latent, txt=512):
+    """The joint sequence of an image of h_latent × w_latent latents and 512 text tokens."""
+    return txt + (h_latent // 2) * (w_latent // 2)
+
+
+@pytest.mark.parametrize("h_latent,w_latent,lq", [(128, 128, None), (90, 128, None), (128, 128, 1536)])
+def test_rope_pass_is_its_plain_version_bit_for_bit(dev, h_latent, w_latent, lq):
+    """The rope pass on strided q/k views (a row stride of 3·24·128, as a packed qkv
+    gives) equals rope_rotate_ref exactly, into contiguous outputs."""
+    l = _l(h_latent, w_latent)
+    gen = torch.Generator(device=dev).manual_seed(l + (lq or 0))
+    qkv = _normed(gen, l, 3, 24, 128).permute(1, 2, 0, 3)  # (3, H, L, D) view
+    q, k = qkv[0], qkv[1]
+    cos, sin = _tables(dev, h_latent, w_latent)
+    cos_q, sin_q = cos, sin
+    if lq:
+        q, cos_q, sin_q = q[:, :lq], cos[:lq].contiguous(), sin[:lq].contiguous()
+    before = dict(LAUNCHES)
+    qr, kr = rope_rotate(q, k, cos, sin, cos_q, sin_q)
+    assert _launched(before) == {"rope_rotate": 1}
+    assert qr.is_contiguous() and kr.is_contiguous()
+    assert torch.equal(qr, rope_rotate_ref(q, cos_q, sin_q))
+    assert torch.equal(kr, rope_rotate_ref(k, cos, sin))
+
+
+@pytest.mark.parametrize("l", [200, 3392])
+def test_all_underflow_rows_are_zero(dev, l):
+    q = torch.ones(2, l, 128, device=dev, dtype=torch.bfloat16)
+    k = torch.full((2, l, 128), -90.0 / 128, device=dev, dtype=torch.bfloat16)
     out = qknorm_attention(q, k, q, 1.0)
     assert torch.equal(out.float(), torch.zeros_like(out, dtype=torch.float32))
+
+
+def test_rows_past_the_sequence_are_never_read(dev):
+    """A 3-D tensor map zero-fills the rows past Lkv, and p is masked there: an inf
+    just past the end of v (the next head's rows, were the map flat) cannot reach the
+    output."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h, l = 4, 1000
+    buf = torch.randn(h * l + 128, 128, generator=gen, device=dev).to(torch.bfloat16)
+    buf[h * l:] = float("inf")
+    v = buf[: h * l].view(h, l, 128)
+    q, k = _normed(gen, h, l, 128), _normed(gen, h, l, 128)
+    out = qknorm_attention(q, k, v, 128**-0.5)
+    assert bool(torch.isfinite(out.float()).all())
+    ref = qknorm_attention_ref(q, k, v, 128**-0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("block", ["double", "single"])
+def test_kernel_on_the_blocks_strided_views(dev, block):
+    """The views models/flux.py hands attention_core at B = 1: the double block's
+    torch.cat outputs, and the single block's q/k/v sliced out of linear1's output
+    (row stride 3·3072 + 12288 = 21504 elements), read in place by the tensor maps."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    l, n, d = _l(64, 64), 24, 128
+    if block == "double":
+        txt, img = _normed(gen, 1, 512, 3, n, d), _normed(gen, 1, l - 512, 3, n, d)
+        q, k, v = (torch.cat([txt[:, :, i], img[:, :, i]], dim=1) for i in range(3))
+    else:
+        lin1 = _normed(gen, 1, l, 7 * n * d)
+        q, k, v = lin1[..., : 3 * n * d].unflatten(-1, (3, n, d)).unbind(2)
+        assert q.stride(1) == 21504
+    cos, sin = _tables(dev, 64, 64)
+    out = attention_core(q, k, v, cos=cos, sin=sin)
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(n, l, d)  # noqa: E731
+    ref = qknorm_attention_ref(fold(q), fold(k), fold(v), d**-0.5, cos=cos, sin=sin)
+    torch.testing.assert_close(out.float(), ref.reshape(1, n, l, d).permute(0, 2, 1, 3).float(),
+                               atol=1e-3, rtol=1e-2)
 
 
 @pytest.mark.parametrize("batch", [1, 2])
@@ -131,15 +197,16 @@ def _launched(before):
     return {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
 
 
-@pytest.mark.parametrize("l,rope", [(4608, True), (1000, False)])  # 1000: a tail kv tile
+@pytest.mark.parametrize("l,rope", [(4608, True), (3392, True), (1536, True), (1000, False)])  # 1000: a tail kv tile
 def test_stats_build_matches_serving_build_and_plain_version(dev, l, rope):
     gen = torch.Generator(device=dev).manual_seed(l)
     q, k = _normed(gen, 24, l, 128), _normed(gen, 24, l, 128)
     v = torch.randn(24, l, 128, generator=gen, device=dev).to(torch.bfloat16)
-    kw = dict(zip(("cos", "sin"), _tables(dev, 128, 128))) if rope else {}
+    cos, sin = _tables(dev, 128, 128)
+    kw = dict(cos=cos[:l].contiguous(), sin=sin[:l].contiguous()) if rope else {}
     before = dict(LAUNCHES)
     out, m = qknorm_attention(q, k, v, 128**-0.5, return_max_logit=True, **kw)
-    assert _launched(before) == {"qknorm_attention_stats": 1}
+    assert _launched(before) == {"qknorm_attention_stats": 1, **({"rope_rotate": 1} if rope else {})}
     assert m.shape == () and m.dtype == torch.float32 and m.is_cuda
     assert torch.equal(out, qknorm_attention(q, k, v, 128**-0.5, **kw))
     ref, ref_m = qknorm_attention_ref(q, k, v, 128**-0.5, return_max_logit=True, **kw)
@@ -175,7 +242,7 @@ def test_ablate_build_matches_plain_version(dev, l, rope):
     kw = dict(zip(("cos", "sin"), _tables(dev, 128, 128))) if rope else {}
     before = dict(LAUNCHES)
     out = qknorm_attention(q, k, v, 128**-0.5, ablate_exp=True, **kw)
-    assert _launched(before) == {"qknorm_attention_ablate_exp": 1}
+    assert _launched(before) == {"qknorm_attention_ablate_exp": 1, **({"rope_rotate": 1} if rope else {})}
     ref = qknorm_attention_ref(q, k, v, 128**-0.5, ablate_exp=True, **kw)
     o, r = out.double(), ref.double()
     assert bool(torch.isfinite(o).all())
@@ -200,7 +267,7 @@ def test_benchmark_blocks_launches_what_it_times(dev):
     before = dict(LAUNCHES)
     seconds = benchmark_blocks(1536, iters=3, ablate_exp=True)
     assert seconds > 0
-    assert _launched(before) == {"qknorm_attention_ablate_exp": 4}  # one warm + 3 timed
+    assert _launched(before) == {"qknorm_attention_ablate_exp": 4, "rope_rotate": 4}  # one warm + 3 timed
 
 
 @pytest.mark.parametrize("m,k,n", [(4608, 3072, 9216), (1, 3072, 18432), (512, 15360, 3072)])

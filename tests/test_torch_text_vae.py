@@ -106,9 +106,9 @@ def test_weighted_text_embeddings_match_jax(t5_pair, clip_pair, prompt):
     jclip_enc = JaxTextEncoder("clip", clip_params, clip_cfg, toy_tokenizer("clip"), 77, jnp.float32)
     jt5_enc = JaxTextEncoder("t5", t5_params, t5_cfg, toy_tokenizer("t5"), 32, jnp.float32)
     tclip_enc = TextEncoder("clip", to_torch(clip_params), tclip.CLIPConfig(**CLIP_CFG),
-                            toy_tokenizer("clip"), 77, torch.float32)
+                            toy_tokenizer("clip"), 77, torch.float32, device="cpu")
     tt5_enc = TextEncoder("t5", to_torch(t5_params), tt5.T5Config(**T5_CFG),
-                          toy_tokenizer("t5"), 32, torch.float32)
+                          toy_tokenizer("t5"), 32, torch.float32, device="cpu")
     a_vec, a_txt = jemph.get_weighted_text_embeddings(jclip_enc, jt5_enc, prompt, 2, t5_length=32)
     b_vec, b_txt = temph.get_weighted_text_embeddings(tclip_enc, tt5_enc, prompt, 2, t5_length=32)
     assert b_vec.shape == (2, 32) and b_txt.shape == (2, 32, 48)
