@@ -14,13 +14,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bandwidth, whichever bounds it), and K1 beside ``F.scaled_dot_product_attention`` on
    the same rotated inputs under each backend that runs (a yardstick the port never
    calls);
-4. guard rail and ablation: K1's stats and ablate builds and the bare two-dot kernel
-   against their plain versions at L = 4608, 3392 and 1536, with their times (the
-   stats build's output must equal the serving build's bit for bit); then,
-   with the launch counts at 0, the path itself: ``qknorm_attention_checked`` passing
-   qk-normed inputs and raising on inputs scaled ×60 and on a NaN, and
+4. guard rail and ablation: K1's stats and ablate builds and the bare two-dot (K2, a
+   fourth build of K1's body) against their plain versions at L = 4608, 3392 and 1536,
+   with their times (the stats build's output must equal the serving build's bit for
+   bit), and beside K2 at L = 4608 the two-call library yardstick (``torch.bmm`` to a
+   bf16 S, then ``torch.bmm`` by v; the port never calls it); then, with the launch
+   counts at 0, the path itself: ``qknorm_attention_checked`` passing qk-normed inputs
+   and raising on inputs scaled ×60 and on a NaN, and
    ``python -m flux_fp8_api_tpu_torch.ablate_attention 4608 3392 2816`` run in this
-   process, whose rows are printed;
+   process, whose rows are printed (K2 must come in under the whole attention call);
 5. fp8 linear: ``torch._scaled_mm`` against its plain fp32 version at the qkv shape;
 6. model: a small flux model (two heads of 128) on the card against the same model
    on the CPU, where every op takes its plain version;
@@ -44,7 +46,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
     by ``flux_from_pretrained``: the tree and its forward identical to the source's;
     (c) the same model as reference-prequantized files, with and without input scales:
     fp8 leaves equal to ``quantize_linear_fp8`` of the source, and the prequantized
-    flag as the loader's detection says.
+    flag as the loader's detection says;
+11. high logit bound: a flux-dev-width bf16 model (2 double + 2 single blocks, random
+    weights) with one channel of its last block's k-norm scale raised until
+    ``max_logit_bound`` is above ``MAX_SAFE_LOGIT``. The
+    ``FluxPipeline`` built from it must log the bound and serve with
+    ``model_cfg.use_pallas`` False; with every launch count set to 0 just before, one
+    1024×1024 request through ``PipelineServer`` launches the rope pass 4 times per
+    model evaluation and no build of K1, with finite latents; then one 512×512 forward
+    of the same weights on the card against the CPU in fp32.
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7 or 4; its time, plain time, bound, library
@@ -55,6 +65,7 @@ next (phase 7's lives until phase 10 has saved it).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import io
 import json
@@ -351,6 +362,12 @@ def phase_guard_ablation(card: str):
                cuda_time_ms(lambda: bare_two_dot(qb, kb, vb), 20),
                cuda_time_ms(lambda: bare_two_dot_ref(qb, kb, vb), 5),
                f"max_abs_err {err:.3e} = {rel:.2e} of max|plain| (tol {K2_REL_TOL})")
+        if l == 4608:
+            # the yardstick: two library calls, the bf16 S through device memory between them
+            kt = kb.transpose(1, 2)
+            bmm_ms = cuda_time_ms(lambda: torch.bmm(torch.bmm(qb, kt), vb), 10)
+            print(f"[{card}] bare_two_dot L={l}: library yardstick torch.bmm(q, k^T) -> bf16, then "
+                  f"torch.bmm(., v): {bmm_ms:.4f} ms (the port never calls it)", flush=True)
 
     # the path: the guard rail a user calls after loading weights, and the ablation tool
     for key in LAUNCHES:
@@ -379,6 +396,11 @@ def phase_guard_ablation(card: str):
     for r in rows:
         if not all(x > 0 for x in (*r["ms"].values(), r["bare_two_dot_ms"])):
             fail("guard", f"ablation row with a non-positive time: {r}")
+        if not r["attained_vs_bare_pct"] < 100:
+            fail("guard", f"L={r['L']}: the bare two-dot is no ceiling for the attention call: {r}")
+        print(f"[{card}] L={r['L']}: bare two-dot {r['bare_two_dot_ms']} ms = "
+              f"{r['bare_two_dot_ms'] / r['ms']['matmul_only']:.3f} x K1's matmul_only build "
+              f"({r['ms']['matmul_only']} ms)", flush=True)
     print(f"[{card}] guard-rail and ablation path launches: {launches}", flush=True)
     return results, launches
 
@@ -813,6 +835,93 @@ def phase_checkpoints(card: str, held: dict):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_high_bound(card: str):
+    """Weights whose logit bound the max-free kernel cannot take, served at full width
+    through ``use_pallas=False``: the rope pass, then F.scaled_dot_product_attention."""
+    import logging
+
+    import torch
+
+    from flux_fp8_api_tpu_torch.models.flux import flux_apply, max_logit_bound
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES, MAX_SAFE_LOGIT
+    from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.utils.loader import load_models_from_config
+
+    t_phase = time.perf_counter()
+    params = {**_spec().params.model_dump(), "depth": 2, "depth_single_blocks": 2}
+    # a bf16 flow: the path under test is the attention, and e5m2 activations would put
+    # card and CPU apart by more than the attention does (on an H100 the fp8 tier's
+    # forward differs from the CPU's by 0.043-0.046 relative in norm at this size)
+    config = _spec(params=params, compile_blocks=False, compile_extras=False, flow_quantization_dtype=None)
+    models = load_models_from_config(config)  # flow from a seed, 2-layer text towers, the VAE
+    flow, cfg = models.flow, models.flow_cfg
+    # One channel of the last block's k-norm scale raised: the bound follows the largest
+    # scale of any block. Raising every scale makes the softmax nearly an argmax, where
+    # the two sides' roundings pick other keys (0.20 relative in norm on an H100 at fp8).
+    factor = 1.5 * MAX_SAFE_LOGIT / max_logit_bound(flow, cfg)
+    last = flow["single_blocks"][-1]
+    last.knorm = last.knorm.clone()
+    last.knorm[0] *= factor
+    bound = max_logit_bound(flow, cfg)
+
+    warned = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warned.append(record.getMessage())
+    log = logging.getLogger("flux_fp8_api_tpu_torch.pipeline")
+    log.addHandler(handler)
+    try:
+        pipe = FluxPipeline(name=str(config.version), clip=models.clip, t5=models.t5, model=flow,
+                            model_cfg=cfg, ae=models.ae, config=config)
+    finally:
+        log.removeHandler(handler)
+    del models, flow
+    if not (cfg.use_pallas and pipe.model_cfg.use_pallas is False and any("use_pallas=False" in w for w in warned)):
+        fail("high-bound", f"bound {bound:.1f}: use_pallas {pipe.model_cfg.use_pallas}, warnings {warned}")
+    print(f"[{card}] high-bound pipeline: hidden {cfg.hidden_size}, 2+2 blocks, bf16; channel 0 of the last "
+          f"block's k-norm scale x{factor:.2f} gives max_logit_bound {bound:.1f} > {MAX_SAFE_LOGIT}; logged: "
+          f"{warned[0]}", flush=True)
+
+    steps = 28
+    body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
+            "num_steps": steps, "seed": 31}
+    for key in LAUNCHES:  # the high-bound path's run starts here
+        LAUNCHES[key] = 0
+    dt, launched = serve_one(card, pipe, body, (1024, 1024))
+    launched = {key: n for key, n in launched.items() if n}
+    lat = pipe.last_latents
+    if lat is None or not bool(torch.isfinite(lat.float()).all()):
+        fail("high-bound", "non-finite latents")
+    blocks = cfg.depth + cfg.depth_single_blocks
+    if launched != {"rope_rotate": blocks * steps}:
+        fail("high-bound", f"launches {launched}, expected {{'rope_rotate': {blocks * steps}}} and no K1 build")
+    print(f"[{card}] high-bound POST /generate 1024x1024 {steps} steps: {dt:.3f} s/request, "
+          f"denoise {pipe.timings['denoise_it_per_s']:.3f} it/s, launches {launched} "
+          f"({blocks} rope-pass launches per evaluation, 0 K1)", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    x = dict(img=torch.randn(1, 1024, 64, generator=gen, device="cuda").to(torch.bfloat16),
+             img_ids=make_img_ids(64, 64, 1, "cuda"),
+             txt=torch.randn(1, 512, 4096, generator=gen, device="cuda").to(torch.bfloat16),
+             txt_ids=make_txt_ids(512, 1, "cuda"), timesteps=torch.full((1,), 0.6, device="cuda"),
+             y=torch.randn(1, 768, generator=gen, device="cuda").to(torch.bfloat16),
+             guidance=torch.full((1,), 3.5, device="cuda"))
+    model, run_cfg = pipe.model_params, pipe.model_cfg
+    del pipe
+    out = flux_apply(model, run_cfg, **x).float().cpu()
+    model.to("cpu", torch.float32)  # in place: the same weights in fp32, every op on its plain version
+    ref = flux_apply(model, dataclasses.replace(run_cfg, compute_dtype="float32"),
+                     **{k: v.cpu().float() for k, v in x.items()}).float()
+    rel = float((out - ref).norm() / ref.norm())
+    print(f"[{card}] high-bound 512x512 forward (L=1536), card (bf16) vs CPU (fp32): norm_rel_err {rel:.3e} "
+          f"(tol {MODEL_REL_TOL}); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not (bool(torch.isfinite(out).all()) and rel <= MODEL_REL_TOL):
+        fail("high-bound", f"card vs CPU relative error {rel}")
+    del model
+    release()
+
+
 def main() -> int:
     try:
         import torch
@@ -846,6 +955,7 @@ def main() -> int:
     phase_int_linears(card_line)
     phase_tiers(card_line)
     phase_checkpoints(card_line, held)
+    phase_high_bound(card_line)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
@@ -863,7 +973,7 @@ def main() -> int:
     for build, source, replaces in (
         ("qknorm_attention_stats", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:109"),
         ("qknorm_attention_ablate_exp", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:115"),
-        ("bare_two_dot", "flux_fp8_api_tpu_torch/csrc/bare_two_dot.cu", "ablate_attention.py:75"),
+        ("bare_two_dot", k1_source, "ablate_attention.py:75"),
     ):
         t = builds[build][4608]
         kernels.append(row(build, source, replaces, path_launches[build], t["max_abs_err"], t))

@@ -11,15 +11,17 @@ are timed per joint sequence length (``ops.attention.benchmark_blocks``):
     no_rope     — K1 alone, no tables, so no rope pass             (full − no_rope = rope cost)
     matmul_only — both off: the two products, mask, den and epilogue
 
-and set against two ceilings: the bare two-dot kernel (``csrc/bare_two_dot.cu``, the
-two products alone, ``mma.sync`` on 64-row tiles) and the analytic time of 4·H·L²·D
-FLOP at the card's bf16 matmul rate, measured at the start of the run with a large
+and set against two ceilings: the bare two-dot (the two products alone, a fourth build
+of K1's body in ``csrc/qknorm_attention.cu``: the same TMA pipeline and ``wgmma``
+products with no softmax between them) and the analytic time of 4·H·L²·D FLOP at the
+card's bf16 matmul rate, measured at the start of the run with a large
 ``torch.matmul`` (a yardstick, not a kernel of this repository). Prints the card line
 and the rate on stderr, one JSON line per L, then a markdown table.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -28,12 +30,15 @@ from typing import Dict, Optional
 import torch
 
 from .ops.attention import benchmark_blocks, cuda_device, fed_back_seconds
-from .ops.attention_kernel import BLOCKS, LAUNCHES, check_heads, head_strides, load_library
+from .ops.attention_kernel import BLOCKS, LAUNCHES, check_heads, load_library, tma_params
 
 HEADS, HEAD_DIM = 24, 128
 CALLS_PER_STEP = 19 + 38  # one joint attention per double + single block
 # BLOCKS, imported above, is K1's one compiled tile (q rows per CTA, kv rows per stage)
-BARE_BLOCKS = (64, 64)  # the bare two-dot's one compiled tile: (q rows, kv rows)
+# Lq and Lkv of the bare two-dot must be multiples of this: the JAX kernel's
+# exact-division rule, at the port's admission granularity (the build itself runs
+# K1's 128-row tiles and takes a half tile at the end)
+BARE_MULTIPLE = 64
 
 
 def bare_two_dot_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -46,20 +51,22 @@ def bare_two_dot_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 
 def bare_two_dot(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The bare two-dot kernel (JAX: ``ablate_attention._bare_two_dot``). Lq and Lkv
-    must be multiples of its 64-row tile, ``BARE_BLOCKS`` (ValueError otherwise: the
-    kernel has no tail mask). CPU tensors run :func:`bare_two_dot_ref`; CUDA tensors launch the
-    kernel, which takes what the attention kernel takes (bf16, D = 128, contiguous
-    last dimension), or raise."""
+    must be multiples of ``BARE_MULTIPLE`` (ValueError otherwise). CPU tensors run
+    :func:`bare_two_dot_ref`; CUDA tensors launch the bare build of
+    ``csrc/qknorm_attention.cu``, which takes what the attention kernel takes (bf16,
+    D = 128, a contiguous last dimension, 16-byte aligned strides: :func:`tma_params`),
+    or raise."""
     lq, lkv = q.shape[1], k.shape[1]
-    if lq % BARE_BLOCKS[0] or lkv % BARE_BLOCKS[1]:
-        raise ValueError(f"Lq={lq} and Lkv={lkv} must be multiples of the {BARE_BLOCKS} tile")
+    if lq % BARE_MULTIPLE or lkv % BARE_MULTIPLE:
+        raise ValueError(f"Lq={lq} and Lkv={lkv} must be multiples of {BARE_MULTIPLE}")
     if not q.is_cuda:
         return bare_two_dot_ref(q, k, v)
     check_heads(q, k, v)
     h, _, d = q.shape
+    maps = [(ctypes.c_int64 * 8)(*tma_params(t)) for t in (q, k, v)]
     out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
     err = load_library().bare_two_dot_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *head_strides(q, k, v, out),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *maps, out.stride(0), out.stride(1),
         h, lq, lkv, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -96,8 +103,8 @@ def ablation_row(l: int, timings: Dict[str, float], bare_ms: Optional[float],
     """The derived fields of one ablation row (those of the JAX tool's ``ablate``):
     ``timings`` maps full / no_exp / no_rope / matmul_only to seconds per call,
     ``bare_ms`` is the bare two-dot's ms per call (None where L is not a multiple of
-    its tile), ``bf16_tflops`` the matmul rate the analytic roofline uses. ``blocks``
-    is K1's tile."""
+    ``BARE_MULTIPLE``), ``bf16_tflops`` the matmul rate the analytic roofline uses.
+    ``blocks`` is K1's tile."""
     t = timings
     flops = 4 * HEADS * l * l * HEAD_DIM
     roofline = flops / (bf16_tflops * 1e12)
@@ -128,8 +135,7 @@ def ablate(l: int, bf16_tflops: float, iters: int = 24) -> dict:
         "no_rope": benchmark_blocks(l, fuse_rope=False, **kw),
         "matmul_only": benchmark_blocks(l, fuse_rope=False, ablate_exp=True, **kw),
     }
-    divides = l % BARE_BLOCKS[0] == 0 and l % BARE_BLOCKS[1] == 0
-    bare_ms = bare_two_dot_ms(l, iters=iters) if divides else None
+    bare_ms = bare_two_dot_ms(l, iters=iters) if l % BARE_MULTIPLE == 0 else None
     return ablation_row(l, t, bare_ms, bf16_tflops)
 
 

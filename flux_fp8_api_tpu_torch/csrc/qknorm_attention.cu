@@ -1,8 +1,9 @@
 // Max-free qk-norm attention for Hopper (sm_90a): TMA-fed, warp-specialised wgmma.
 //
 // Replaces the TPU Pallas kernel flux_fp8_api_tpu/ops/attention_kernel.py:qknorm_attention
-// in its three builds. Same function, on q and k that the rope pass (rope_rotate.cu) has
-// already rotated:
+// in its three builds, and the measurement kernel ablate_attention.py:_bare_two_dot as a
+// fourth. Same function, on q and k that the rope pass (rope_rotate.cu) has already
+// rotated:
 //   s   = q . k^T                         f32 accumulate of bf16 operands
 //   p   = exp2(s * sm_scale * log2e - SHIFT * log2e)
 //                                         f32; kv columns >= Lkv masked to 0
@@ -14,12 +15,20 @@
 // softmax (FlashAttention-3's included).
 //
 // Builds (one template body, each build its own __global__ kernel):
-//   serving  <false, false>  the function above;
-//   stats    <true,  false>  also max |s| * |sm_scale| over the whole call into one f32
-//                            (the guard rail's input; masked columns count as 0, a NaN
-//                            logit makes the max NaN);
-//   ablate   <false, true>   p = s * sm_scale - SHIFT with no exp, for measuring the exp's
-//                            cost; everything else unchanged. Not a softmax.
+//   serving  Build::kServing  the function above;
+//   stats    Build::kStats    also max |s| * |sm_scale| over the whole call into one f32
+//                             (the guard rail's input; masked columns count as 0, a NaN
+//                             logit makes the max NaN);
+//   ablate   Build::kAblate   p = s * sm_scale - SHIFT with no exp, for measuring the exp's
+//                             cost; everything else unchanged. Not a softmax;
+//   bare     Build::kBare     the two products alone, the ceiling the others are measured
+//                             against (JAX ablate_attention.py:_bare_two_dot):
+//                               out = bf16(sum_kv bf16(q . k^T) . v)
+//                             no scale, exp, mask, den or division: the f32 S fragments
+//                             are packed to bf16 A fragments as they stand. It needs no
+//                             mask past Lkv: TMA fills k and v rows past the sequence
+//                             with zeros, so those s are exactly 0 and multiply zero v
+//                             rows. Same CTA, pipeline and products as the serving build.
 //
 // What bounds it on the H100: at L = 4608 with 24 heads of 128 a call does
 // 4 * 24 * 4608^2 * 128 = 261 GFLOP and moves about 113 MB (q, k, v in, out written), so
@@ -216,9 +225,14 @@ __device__ __forceinline__ float nan_max(float a, float b) { return (b > a || b 
 
 // ---------------------------------------------------------------- the body
 
-template <bool kTrackMax, bool kAblateExp>
+enum class Build { kServing, kStats, kAblate, kBare };
+
+template <Build kBuild>
 __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorMap* km,
                                           const CUtensorMap* vm, const Args& args) {
+  constexpr bool kTrackMax = kBuild == Build::kStats;
+  constexpr bool kAblateExp = kBuild == Build::kAblate;
+  constexpr bool kBare = kBuild == Build::kBare;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
@@ -302,26 +316,29 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
 
       // p = exp2(s * scale * log2e - SHIFT * log2e), masked past lkv; den from the f32 p.
       // sacc[4j + e]: row g + 8 * (e / 2), column kv0 + 8j + 2t + (e % 2).
-      const bool tail = kv0 + kBlockKV > args.lkv;
+      // The bare build keeps p = s.
+      if constexpr (!kBare) {
+        const bool tail = kv0 + kBlockKV > args.lkv;
 #pragma unroll
-      for (int j = 0; j < kBlockKV / 8; ++j) {
+        for (int j = 0; j < kBlockKV / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p;
-          if constexpr (kAblateExp) {
-            p = __fmaf_rn(sacc[4 * j + e], args.scale, -kShift);
-          } else {
-            p = exp2f(__fmaf_rn(sacc[4 * j + e], args.scale_log2, -shift_log2));
+          for (int e = 0; e < 4; ++e) {
+            float p;
+            if constexpr (kAblateExp) {
+              p = __fmaf_rn(sacc[4 * j + e], args.scale, -kShift);
+            } else {
+              p = exp2f(__fmaf_rn(sacc[4 * j + e], args.scale_log2, -shift_log2));
+            }
+            if (tail && kv0 + j * 8 + 2 * t + (e & 1) >= args.lkv) {
+              p = 0.f;
+            } else if constexpr (kTrackMax) {
+              amax = fmaxf(amax, fabsf(sacc[4 * j + e]));
+            }
+            sacc[4 * j + e] = p;
           }
-          if (tail && kv0 + j * 8 + 2 * t + (e & 1) >= args.lkv) {
-            p = 0.f;
-          } else if constexpr (kTrackMax) {
-            amax = fmaxf(amax, fabsf(sacc[4 * j + e]));
-          }
-          sacc[4 * j + e] = p;
+          den0 = __fadd_rn(den0, __fadd_rn(sacc[4 * j], sacc[4 * j + 1]));
+          den1 = __fadd_rn(den1, __fadd_rn(sacc[4 * j + 2], sacc[4 * j + 3]));
         }
-        den0 = __fadd_rn(den0, __fadd_rn(sacc[4 * j], sacc[4 * j + 1]));
-        den1 = __fadd_rn(den1, __fadd_rn(sacc[4 * j + 2], sacc[4 * j + 3]));
       }
 
       // O += bf16(P) V: k-step j covers kv rows 16j .. +15 (2 KB into each v box); the
@@ -346,42 +363,53 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
       if (lane == 0) mbar_arrive(&sm.empty[s]);
     }
 
-    // den: sum the four partials of each row (lanes 4g .. 4g+3)
-    den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 1));
-    den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 2));
-    den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 1));
-    den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 2));
-
-    if constexpr (kTrackMax) {
-      if (den0 != den0 || den1 != den1) amax = __int_as_float(0x7fc00000);  // a NaN logit
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      if (lane == 0) sm.warp_max[cw * 4 + warp] = amax;
-      asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers * 128) : "memory");  // consumers only
-      if (threadIdx.x == 128) {
-        float m = sm.warp_max[0];
-#pragma unroll
-        for (int w = 1; w < kConsumers * 4; ++w) m = nan_max(m, sm.warp_max[w]);
-        // max(x_i) * c == max(x_i * c) for c >= 0, so scaling once per CTA is exact
-        atomicMax(reinterpret_cast<int*>(args.max_logit), __float_as_int(m * fabsf(args.scale)));
-      }
-    }
-
-    const float inv0 = __frcp_rn(fmaxf(den0, 1e-30f));
-    const float inv1 = __frcp_rn(fmaxf(den1, 1e-30f));
     const int row0 = q0 + cw * 64 + warp * 16 + lane / 4;
     const int row1 = row0 + 8;
     __nv_bfloat16* oh = args.o + head * args.o_sh;
+    if constexpr (kBare) {  // out = bf16(acc), rows past lq not written
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      const int c = j * 8 + 2 * t;
-      if (row0 < args.lq)
-        *reinterpret_cast<uint32_t*>(oh + row0 * args.o_sl + c) =
-            pack_bf16(__fmul_rn(acc[4 * j], inv0), __fmul_rn(acc[4 * j + 1], inv0));
-      if (row1 < args.lq)
-        *reinterpret_cast<uint32_t*>(oh + row1 * args.o_sl + c) =
-            pack_bf16(__fmul_rn(acc[4 * j + 2], inv1), __fmul_rn(acc[4 * j + 3], inv1));
+      for (int j = 0; j < kD / 8; ++j) {
+        const int c = j * 8 + 2 * t;
+        if (row0 < args.lq)
+          *reinterpret_cast<uint32_t*>(oh + row0 * args.o_sl + c) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        if (row1 < args.lq)
+          *reinterpret_cast<uint32_t*>(oh + row1 * args.o_sl + c) = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    } else {
+      // den: sum the four partials of each row (lanes 4g .. 4g+3)
+      den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 1));
+      den0 = __fadd_rn(den0, __shfl_xor_sync(0xffffffffu, den0, 2));
+      den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 1));
+      den1 = __fadd_rn(den1, __shfl_xor_sync(0xffffffffu, den1, 2));
+
+      if constexpr (kTrackMax) {
+        if (den0 != den0 || den1 != den1) amax = __int_as_float(0x7fc00000);  // a NaN logit
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2)
+          amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+        if (lane == 0) sm.warp_max[cw * 4 + warp] = amax;
+        asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers * 128) : "memory");  // consumers only
+        if (threadIdx.x == 128) {
+          float m = sm.warp_max[0];
+#pragma unroll
+          for (int w = 1; w < kConsumers * 4; ++w) m = nan_max(m, sm.warp_max[w]);
+          // max(x_i) * c == max(x_i * c) for c >= 0, so scaling once per CTA is exact
+          atomicMax(reinterpret_cast<int*>(args.max_logit), __float_as_int(m * fabsf(args.scale)));
+        }
+      }
+
+      const float inv0 = __frcp_rn(fmaxf(den0, 1e-30f));
+      const float inv1 = __frcp_rn(fmaxf(den1, 1e-30f));
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int c = j * 8 + 2 * t;
+        if (row0 < args.lq)
+          *reinterpret_cast<uint32_t*>(oh + row0 * args.o_sl + c) =
+              pack_bf16(__fmul_rn(acc[4 * j], inv0), __fmul_rn(acc[4 * j + 1], inv0));
+        if (row1 < args.lq)
+          *reinterpret_cast<uint32_t*>(oh + row1 * args.o_sl + c) =
+              pack_bf16(__fmul_rn(acc[4 * j + 2], inv1), __fmul_rn(acc[4 * j + 3], inv1));
+      }
     }
   }
 }
@@ -389,19 +417,25 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
 __global__ void __launch_bounds__(kThreads, 1)
     qknorm_attention_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                             const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<false, false>(&qm, &km, &vm, args);
+  attention<Build::kServing>(&qm, &km, &vm, args);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
     qknorm_attention_stats_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                                   const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<true, false>(&qm, &km, &vm, args);
+  attention<Build::kStats>(&qm, &km, &vm, args);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
     qknorm_attention_ablate_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                                    const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<false, true>(&qm, &km, &vm, args);
+  attention<Build::kAblate>(&qm, &km, &vm, args);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    bare_two_dot_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                        const __grid_constant__ CUtensorMap vm, const Args args) {
+  attention<Build::kBare>(&qm, &km, &vm, args);
 }
 
 // ---------------------------------------------------------------- host side
@@ -490,4 +524,23 @@ extern "C" int qknorm_attention_bf16(
   if (max_logit != nullptr) return launch(qknorm_attention_stats_kernel, configured[1], qm, km, vm, args, heads, s);
   if (ablate_exp) return launch(qknorm_attention_ablate_kernel, configured[2], qm, km, vm, args, heads, s);
   return launch(qknorm_attention_kernel, configured[0], qm, km, vm, args, heads, s);
+}
+
+// The bare build (the ablation's ceiling): o = bf16(bf16(q k^T) v) per head, written at
+// (head, row) strides o_sh, o_sl (elements). Maps and return value as above.
+extern "C" int bare_two_dot_bf16(
+    const void* q, const void* k, const void* v, void* o,
+    const int64_t* q_map, const int64_t* k_map, const int64_t* v_map,
+    int64_t o_sh, int64_t o_sl, int heads, int lq, int lkv, void* stream) {
+  CUtensorMap qm, km, vm;
+  if (!encode_map(&qm, q, q_map) || !encode_map(&km, k, k_map) || !encode_map(&vm, v, v_map))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args args = {};
+  args.o = static_cast<__nv_bfloat16*>(o);
+  args.o_sh = o_sh;
+  args.o_sl = o_sl;
+  args.lq = lq;
+  args.lkv = lkv;
+  static bool configured = false;
+  return launch(bare_two_dot_kernel, configured, qm, km, vm, args, heads, static_cast<cudaStream_t>(stream));
 }

@@ -54,10 +54,14 @@ class FluxStatic:
     compute_dtype: str = "bfloat16"  # "float16" turns on the ±32000 clamps
     # torch._scaled_mm use_fast_accum for fp8 linears (ModelSpec.fp8_fast_accum)
     fp8_fast_accum: bool = True
+    # the attention path (ModelSpec.use_pallas): the max-free kernel, or
+    # F.scaled_dot_product_attention (ops/attention.py:attention_core)
+    use_pallas: bool = True
 
     @classmethod
     def from_params(
-        cls, p: FluxParams, compute_dtype: str = "bfloat16", fp8_fast_accum: bool = True
+        cls, p: FluxParams, compute_dtype: str = "bfloat16", fp8_fast_accum: bool = True,
+        use_pallas: bool = True,
     ) -> "FluxStatic":
         head_dim = p.hidden_size // p.num_heads
         if p.hidden_size % p.num_heads != 0:
@@ -81,6 +85,7 @@ class FluxStatic:
             guidance_embed=p.guidance_embed,
             compute_dtype=compute_dtype,
             fp8_fast_accum=fp8_fast_accum,
+            use_pallas=use_pallas,
         )
 
     @property
@@ -292,7 +297,7 @@ def _double_block(cfg: FluxStatic, blk, img, txt, vec_silu, cos, sin, tape: _Tap
     q = torch.cat([txt_q, img_q], dim=1)
     k = torch.cat([txt_k, img_k], dim=1)
     v = torch.cat([txt_v, img_v], dim=1)
-    attn = attention(q, k, v, cos, sin)
+    attn = attention(q, k, v, cos, sin, use_pallas=cfg.use_pallas)
     txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
 
     img = img + i_gate1 * tape.lin("img_attn_proj", blk["img_attn_proj"], img_attn, dtype)
@@ -327,7 +332,7 @@ def _single_block(cfg: FluxStatic, blk, x, vec_silu, cos, sin, tape: _Tape):
     mlp = lin1[..., 3 * hs:]
     q = rms_norm(q, blk["qnorm"])
     k = rms_norm(k, blk["knorm"])
-    attn = attention(q, k, v, cos, sin)
+    attn = attention(q, k, v, cos, sin, use_pallas=cfg.use_pallas)
 
     out = tape.lin("linear2", blk["linear2"], torch.cat([attn, gelu_tanh(mlp)], dim=-1), dtype)
     return clamp_policy(x + gate * out, cfg.do_clamp)

@@ -1,9 +1,14 @@
 """Joint-sequence attention for the FLUX DiT, BTNH layout at the public functions
 (JAX counterpart: ``flux_fp8_api_tpu.ops.attention``).
 
-Dispatch is by device only, inside :func:`~.attention_kernel.qknorm_attention`: CUDA
-tensors run the rope pass and then the hand-written attention kernel, CPU tensors run
-their plain PyTorch versions. :func:`benchmark_blocks` times the kernel on the card.
+Two paths, chosen by ``use_pallas`` (``FluxStatic.use_pallas``, the JAX package's
+name): True runs :func:`~.attention_kernel.qknorm_attention`, the max-free kernel that
+the JAX package runs in Pallas; False runs the rope pass and then
+``F.scaled_dot_product_attention``, the counterpart of the JAX package's XLA attention
+(``_sdpa_xla``), for weights whose qk-norm scales would overflow the max-free softmax.
+Within a path, dispatch is by device: CUDA tensors launch the hand-written kernels,
+CPU tensors run their plain PyTorch versions. :func:`benchmark_blocks` times the kernel
+on the card.
 """
 
 from __future__ import annotations
@@ -11,8 +16,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from .attention_kernel import qknorm_attention
+from .attention_kernel import qknorm_attention, rope_rotate
 
 
 def fold_heads(x: torch.Tensor) -> torch.Tensor:
@@ -22,22 +28,36 @@ def fold_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b * n, l, h)
 
 
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention of folded (B·N, L, H) q/k/v through
+    ``F.scaled_dot_product_attention``, in q's dtype; float16 is upcast to fp32 first,
+    as the JAX package's ``_sdpa_xla`` does. The leading axis of 1 makes the inputs
+    4-D, which the fused backends on the card require."""
+    dtype = q.dtype
+    if dtype == torch.float16:
+        q, k, v = q.float(), k.float(), v.float()
+    return F.scaled_dot_product_attention(q[None], k[None], v[None])[0].to(dtype)
+
+
 def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     cos: Optional[torch.Tensor] = None,
     sin: Optional[torch.Tensor] = None,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
     """Softmax attention over the joint (txt + img) sequence, optionally with rope.
 
-    ROPE CONTRACT: the tables of batch row 0 are applied to every batch row, which is
-    valid because FLUX builds one shared position grid per batch (as in the JAX
-    package's fused path).
+    ROPE CONTRACT: the tables of batch row 0 are applied to every batch row, on both
+    paths, which is valid because FLUX builds one shared position grid per batch (as
+    in the JAX package's fused path).
 
     Args:
       q, k, v: (B, L, N, H).
       cos, sin: optional rope tables, (B, L, 1, H) as the model builds them, or (L, H).
+      use_pallas: True runs the max-free kernel (the rope pass in front when there are
+        tables); False rotates q and k with the rope pass and runs :func:`_sdpa`.
     Returns:
       (B, L, N, H) in q's dtype.
     """
@@ -47,7 +67,12 @@ def attention_core(
     if cos is not None:
         cos2d = (cos[0, :, 0, :] if cos.dim() == 4 else cos).float().contiguous()
         sin2d = (sin[0, :, 0, :] if sin.dim() == 4 else sin).float().contiguous()
-    out = qknorm_attention(qh, kh, vh, 1.0 / (h**0.5), cos=cos2d, sin=sin2d)
+    if use_pallas:
+        out = qknorm_attention(qh, kh, vh, 1.0 / (h**0.5), cos=cos2d, sin=sin2d)
+    else:
+        if cos2d is not None:
+            qh, kh = rope_rotate(qh, kh, cos2d, sin2d)
+        out = _sdpa(qh, kh, vh)
     return out.reshape(b, n, l, h).permute(0, 2, 1, 3)
 
 
@@ -57,11 +82,12 @@ def attention(
     v: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
     """RoPE + attention + head merge (reference ``attention``, flux_model.py:41-45):
     (B, L, N, H) q/k/v → (B, L, N·H)."""
     b, l, n, h = q.shape
-    return attention_core(q, k, v, cos=cos, sin=sin).reshape(b, l, n * h)
+    return attention_core(q, k, v, cos=cos, sin=sin, use_pallas=use_pallas).reshape(b, l, n * h)
 
 
 # --------------------------------------------------------------------- measurement

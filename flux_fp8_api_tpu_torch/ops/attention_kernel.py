@@ -10,11 +10,12 @@ the kernel; on the card the rope pass (``csrc/rope_rotate.cu``) rotates them onc
 call and the attention kernel (``csrc/qknorm_attention.cu``: TMA loads, ``wgmma``,
 warp-specialised) reads the rotated copies.
 
-The CUDA sources are in ``csrc/``: those two and ``bare_two_dot.cu`` (the measurement
-kernel of ``flux_fp8_api_tpu_torch.ablate_attention``). Each is compiled with ``nvcc``
-for ``sm_90a`` at first use, all at once, and linked into one shared library with a
-plain C interface in ``build/kernels/<hash of the sources>/`` at the repository root,
-loaded with ``ctypes``.
+The CUDA sources are those two files in ``csrc/``; ``qknorm_attention.cu`` also holds a
+fourth build of the same body, the bare two products that
+``flux_fp8_api_tpu_torch.ablate_attention`` measures as the ceiling. Each source is
+compiled with ``nvcc`` for ``sm_90a`` at first use, all at once, and linked into one
+shared library with a plain C interface in ``build/kernels/<hash of the sources>/`` at
+the repository root, loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -37,8 +38,7 @@ BLOCKS = (128, 128)  # the attention kernel's tile: (q rows per CTA, kv rows per
 BOX_COLS = 64  # head columns per TMA box: 128 bytes, the span of the 128-byte swizzle
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("qknorm_attention.cu", "rope_rotate.cu", "bare_two_dot.cu")
-_HEADERS = ("tile_mma.cuh",)
+_SOURCES = ("qknorm_attention.cu", "rope_rotate.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -70,7 +70,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the built library lives: keyed by a hash of the kernel sources."""
     h = hashlib.sha256()
-    for name in _SOURCES + _HEADERS:
+    for name in _SOURCES:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libflux_kernels.so"
@@ -123,8 +123,8 @@ def load_library():
         fn.argtypes = job + job + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.bare_two_dot_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] * 3 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -202,11 +202,6 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned last dimension")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
-
-
-def head_strides(*tensors: torch.Tensor):
-    """(head, row) strides of each (H, L, D) tensor, flattened, as the kernels take them."""
-    return [s for t in tensors for s in (t.stride(0), t.stride(1))]
 
 
 def tma_params(t: torch.Tensor) -> tuple:
@@ -354,6 +349,7 @@ def qknorm_attention_checked(
         raise FloatingPointError(
             f"qk-norm attention logits reached |{m_val:.1f}| > safe bound "
             f"{MAX_SAFE_LOGIT}: the max-free softmax would overflow. Check qk-norm "
-            "scale weights (LoRA fuse / checkpoint)."
+            "scale weights (LoRA fuse / checkpoint), or fall back to "
+            "ops.attention.attention_core with use_pallas=False."
         )
     return out

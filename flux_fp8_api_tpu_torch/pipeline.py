@@ -12,7 +12,9 @@ images (img2img), LoRA, offload and multi-device meshes.
 
 from __future__ import annotations
 
+import dataclasses
 import io
+import logging
 import math
 import time
 from collections import OrderedDict
@@ -36,6 +38,8 @@ from .utils.loader import load_models_from_config
 from .utils.tree import ParamTree
 
 MAX_RAND = 2**32 - 1
+
+logger = logging.getLogger(__name__)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -86,16 +90,21 @@ class FluxPipeline:
         self.model_cfg = model_cfg
         self.img_encoder = ImageEncoder()
 
-        if model is not None and model_cfg is not None:
-            # The attention kernel's max-free softmax is safe only while qk-norm bounds
-            # |logit| below MAX_SAFE_LOGIT. The card has no other attention path, so
-            # an unsafe checkpoint is refused (the JAX package switches to XLA attention).
+        if model is not None and model_cfg is not None and model_cfg.use_pallas:
+            # The max-free kernel is safe only while qk-norm keeps |logit| under
+            # MAX_SAFE_LOGIT; the bound is static in the norm scales, so it is decided
+            # once per set of weights: above it, this pipeline serves through the rope
+            # pass and F.scaled_dot_product_attention (use_pallas=False), as the JAX
+            # package serves through XLA attention.
             bound = max_logit_bound(model, model_cfg)
             if bound > MAX_SAFE_LOGIT:
-                raise ValueError(
-                    f"qk-norm scales give an attention |logit| bound of {bound:.0f} > "
-                    f"{MAX_SAFE_LOGIT:.0f}: the max-free attention kernel could overflow"
+                logger.warning(
+                    "qk-norm scales give an attention |logit| bound of %.0f > %.0f: the "
+                    "max-free attention kernel could overflow exp — serving these weights "
+                    "with use_pallas=False (rope pass + scaled_dot_product_attention)",
+                    bound, MAX_SAFE_LOGIT,
                 )
+                self.model_cfg = dataclasses.replace(model_cfg, use_pallas=False)
         self.model_params = model
         self.ae_params = ae
 
@@ -281,10 +290,10 @@ class FluxPipeline:
         width = 16 * (width // 16)
         generator, seed = self.set_seed(seed)
 
-        t_prepare = time.perf_counter()
         img, timesteps = self.preprocess_latent(
             init_image, height, width, num_steps, strength, generator, num_images
         )
+        t_prepare = time.perf_counter()
         img, img_ids, vec, txt, txt_ids = self.prepare(img, prompt)
         self.timings["prepare_seconds"] = time.perf_counter() - t_prepare
 

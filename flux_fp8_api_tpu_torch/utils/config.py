@@ -120,6 +120,12 @@ class ModelSpec(BaseModel):
     # the reference's use_fast_accum flag of its torch._scaled_mm call
     # (float8_quantize.py:284-292)
     fp8_fast_accum: bool = True
+    # the attention path on the card: True runs the rope pass and then the max-free
+    # attention kernel (K1); False runs the rope pass and then
+    # F.scaled_dot_product_attention, the counterpart of the JAX package's XLA
+    # attention. The pipeline also turns it off, at load, for weights whose
+    # max_logit_bound exceeds MAX_SAFE_LOGIT.
+    use_pallas: bool = True
     # LRU size of the prompt→(CLIP vec, T5 txt) conditioning cache; 0 disables
     cond_cache_size: int = 8
 

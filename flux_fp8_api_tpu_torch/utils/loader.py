@@ -96,7 +96,8 @@ def load_flow_model(config: ModelSpec):
     quantize-on-load step, float8_quantize.py:395-496). ``prequantized`` is True when
     the file carries tuned input scales, so calibration can be skipped."""
     cfg = FluxStatic.from_params(
-        config.params, compute_dtype=config.flow_dtype, fp8_fast_accum=config.fp8_fast_accum
+        config.params, compute_dtype=config.flow_dtype, fp8_fast_accum=config.fp8_fast_accum,
+        use_pallas=config.use_pallas,
     )
     kind = flow_quant_kind(config)
     leaf_fn = None

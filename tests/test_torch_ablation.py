@@ -67,9 +67,10 @@ def _timings(l):
 def test_ablation_row_matches_jax_ablate(monkeypatch, l):
     """Both tools fed the same timings and the same bf16 rate give the same derived
     fields; only the tile differs (K1's one 128 × 128 tile against the Pallas kernel's
-    blocks). L = 200 divides no bare two-dot tile (64 rows): no bare two-dot time."""
+    blocks). L = 200 is no multiple of 64, the bare two-dot's admitted lengths: no bare
+    two-dot time."""
     tm = _timings(l)
-    bare_ms = 1.2345 * (l / 4608) ** 2 if l % tablate.BARE_BLOCKS[0] == 0 else None
+    bare_ms = 1.2345 * (l / 4608) ** 2 if l % tablate.BARE_MULTIPLE == 0 else None
 
     def fake_benchmark(l_, blocks, fuse_rope=True, ablate_exp=False, **kw):
         return tm[(fuse_rope, ablate_exp)]
@@ -82,7 +83,7 @@ def test_ablation_row_matches_jax_ablate(monkeypatch, l):
                "no_rope": tm[(False, False)], "matmul_only": tm[(False, True)]}
     got = tablate.ablation_row(l, timings, bare_ms, 181.0)
     assert got["blocks"] == list(tablate.BLOCKS) == [128, 128] and got["const_tables"] is False
-    assert tablate.BARE_BLOCKS == (64, 64)
+    assert tablate.BARE_MULTIPLE == 64
     for key in ("blocks", "const_tables"):
         got.pop(key), want.pop(key)
     assert got == want

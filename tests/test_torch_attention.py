@@ -1,7 +1,8 @@
 """The attention kernel's plain version against the JAX Pallas kernel (interpret mode,
 as the JAX package's own tests run it on the CPU) in its serving, stats and ablate
 builds, the guard rail in both packages, and attention_core against the JAX package's
-XLA path. The CUDA kernel itself runs only on the card (tests/test_torch_kernels.py).
+XLA path, with each package's kernel path and with both on ``use_pallas=False``. The
+CUDA kernel itself runs only on the card (tests/test_torch_kernels.py).
 
 Tolerances: the plain version and the Pallas kernel compute the same function with
 the same roundings (bf16 p before P·V), in fp32 otherwise, so they agree to fp32
@@ -195,6 +196,44 @@ def test_attention_core_matches_jax_xla_path(batch):
     core = tattn.attention_core(t(q), t(k), t(v))
     a_core = np.asarray(jattn.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_pallas=False))
     assert np.linalg.norm(core.numpy() - a_core) / np.linalg.norm(a_core) < 5e-3
+
+
+@pytest.mark.parametrize("batch,rope", [(1, True), (2, True), (1, False), (2, False)])
+def test_use_pallas_false_matches_jax_xla_attention(batch, rope):
+    """use_pallas=False in both packages: JAX rotates with apply_rope and runs XLA
+    attention; the port rotates with the rope pass (batch row 0's tables, the rope
+    contract; the position rows here are identical) and runs
+    F.scaled_dot_product_attention. Both are exact fp32 softmaxes, so they agree to
+    fp32 summation order: 1e-5 relative in norm, elements to 1e-5."""
+    r = np.random.default_rng(10 + batch)
+    b, l, n, d = batch, 40, 2, 16
+    q, k = _normed(r, (b, l, n, d)), _normed(r, (b, l, n, d))
+    v = r.normal(size=(b, l, n, d)).astype(np.float32)
+    cos, sin = _tables(l, d)
+    cos4 = np.broadcast_to(cos[None, :, None, :], (b, l, 1, d)).copy()
+    sin4 = np.broadcast_to(sin[None, :, None, :], (b, l, 1, d)).copy()
+    jkw = dict(cos=jnp.asarray(cos4), sin=jnp.asarray(sin4)) if rope else {}
+    tkw = dict(cos=t(cos4), sin=t(sin4)) if rope else {}
+    a = np.asarray(jattn.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_pallas=False, **jkw))
+    before = dict(LAUNCHES)
+    out = tattn.attention_core(t(q), t(k), t(v), use_pallas=False, **tkw)
+    assert LAUNCHES == before and out.shape == (b, l, n, d) and out.dtype == torch.float32
+    assert np.linalg.norm(out.numpy() - a) / np.linalg.norm(a) < 1e-5
+    np.testing.assert_allclose(out.numpy(), a, rtol=1e-5, atol=1e-5)
+    if rope:
+        merged = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), use_pallas=False, **jkw))
+        out = tattn.attention(t(q), t(k), t(v), use_pallas=False, **tkw)
+        assert out.shape == (b, l, n * d)
+        np.testing.assert_allclose(out.numpy(), merged, rtol=1e-5, atol=1e-5)
+
+
+def test_checked_guard_rail_advises_use_pallas_false():
+    """The guard rail's message names the other attention path, as the JAX package's
+    does."""
+    r = np.random.default_rng(4)
+    q = t(_normed(r, (1, 128, 32)) * 60.0)
+    with pytest.raises(FloatingPointError, match=r"attention_core with use_pallas=False"):
+        qknorm_attention_checked(q, q, q, 32**-0.5)
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():

@@ -1,6 +1,8 @@
 """The port's flux model against the JAX package's, through the converter, on the CPU:
 float and fp8 forwards, the calibration amax tree and scale write, the fp8 tier rules,
-the logit bound and the random-init path.
+the logit bound, the random-init path, and the float forward with ``use_pallas=False``
+(the attention path for weights whose logit bound is too high) and the key's way from
+the configs to ``FluxStatic``.
 
 Both sides run in fp32 and through the same attention function: the JAX side takes
 the Pallas kernel in interpret mode (FORCE_PALLAS_INTERPRET, as tests/test_parallel.py
@@ -219,6 +221,47 @@ def test_max_logit_bound_matches_jax(jax_model, port_cfg):
     a = jflux.max_logit_bound(params, cfg)
     b = tflux.max_logit_bound(to_torch(params), port_cfg)
     assert b == pytest.approx(a, rel=1e-6)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_from_params_carries_use_pallas(compute_dtype):
+    for use_pallas in (True, False):
+        a = jflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype=compute_dtype, use_pallas=use_pallas)
+        b = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype=compute_dtype, use_pallas=use_pallas)
+        assert b.use_pallas is a.use_pallas is use_pallas and b.compute_dtype == a.compute_dtype
+    assert tflux.FluxStatic.from_params(TINY_FLUX_PARAMS).use_pallas is True
+
+
+def test_float_forward_with_use_pallas_off_matches_jax(jax_model):
+    """FluxStatic(use_pallas=False) on both sides: apply_rope and XLA attention in JAX,
+    the rope pass and F.scaled_dot_product_attention in the port. Neither rounds p to
+    bf16, so what is left is fp32 summation order through five blocks: relative norm
+    1e-5, elements 1e-4."""
+    cfg, params = jax_model
+    jcfg = jflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32", use_pallas=False)
+    pcfg = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32", use_pallas=False)
+    x = make_inputs(3)
+    a = np.asarray(run_jax(params, jcfg, x))
+    b = run_port(to_torch(params), pcfg, x).numpy()
+    assert b.shape == a.shape == (1, 12, TINY_FLUX_PARAMS.in_channels)
+    assert _rel(b, a) < 1e-5
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_loader_passes_use_pallas_to_flux_static(use_pallas):
+    """The configs' use_pallas key is read (config-tiny-cpu.json sets it false,
+    config-dev.json true), and load_flow_model hands it to FluxStatic."""
+    from flux_fp8_api_tpu_torch.utils.config import load_config_from_path
+    from flux_fp8_api_tpu_torch.utils.loader import load_flow_model
+
+    tiny = load_config_from_path("configs/config-tiny-cpu.json")
+    assert tiny.use_pallas is False
+    assert load_config_from_path("configs/config-dev.json").use_pallas is True
+    spec = tiny.model_copy(update={"use_pallas": use_pallas})
+    model, cfg, prequantized = load_flow_model(spec)
+    assert cfg.use_pallas is use_pallas and not prequantized
+    assert len(model["single_blocks"]) == spec.params.depth_single_blocks
 
 
 def test_merge_amax_matches_jax():

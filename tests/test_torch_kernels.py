@@ -10,8 +10,8 @@ fp32 summation order and the final bf16 rounding of the output (2^-8 relative), 
 build's, bit for bit, and its max |logit| is the plain version's to 1e-3 relative (the
 logits differ by summation order). The ablate build's output is acc·1e30 (den < 0 is
 clamped) with elements near 0 wherever Σ p·v cancels, so it is compared relative in
-norm, in fp64, to 1e-2. The bare two-dot: bf16 logits and output on both sides, so
-max|kernel − plain| ≤ 1e-2·max|plain|. The fp8 GEMM: fast accumulation and the bf16
+norm, in fp64, to 1e-2. The bare two-dot (a build of the same body): bf16 logits and
+output on both sides, so max|kernel − plain| ≤ 1e-2·max|plain|. The fp8 GEMM: fast accumulation and the bf16
 output each cost about 2^-8, so max|out − plain| ≤ 2e-2·max|plain|. The int linears:
 the int32 product equals the exact one (fp64, |sum| < 2^53), and the bf16 output is
 the plain epilogue's to one bf16 rounding, |out − plain| ≤ 2^-8·|plain| + 1e-6.
@@ -249,7 +249,7 @@ def test_ablate_build_matches_plain_version(dev, l, rope):
     assert float((o - r).norm() / r.norm()) <= 1e-2
 
 
-@pytest.mark.parametrize("lq,lkv", [(4608, 4608), (1536, 4608)])
+@pytest.mark.parametrize("lq,lkv", [(4608, 4608), (3392, 3392), (1536, 4608), (3392, 1536)])  # 3392: half tiles
 def test_bare_two_dot_matches_plain_version(dev, lq, lkv):
     gen = torch.Generator(device=dev).manual_seed(lq + lkv)
     q = torch.randn(24, lq, 128, generator=gen, device=dev).to(torch.bfloat16)
@@ -261,6 +261,29 @@ def test_bare_two_dot_matches_plain_version(dev, lq, lkv):
     assert float((out.float() - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
     with pytest.raises(ValueError, match="multiples"):
         bare_two_dot(q[:, :1000], k, v)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_attention_core_without_pallas(dev, batch):
+    """use_pallas=False on the card: the rope pass (one launch), then
+    F.scaled_dot_product_attention, and no build of the attention kernel. It matches
+    the same call on the CPU (the rope pass's plain version, then the math backend)
+    on the same inputs to 1e-2 relative in norm: the backends differ in bf16 rounding
+    and summation order."""
+    gen = torch.Generator(device=dev).manual_seed(20 + batch)
+    l, n, d = 1536, 24, 128
+    qkv = _normed(gen, batch, l, 3, n, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    cos, sin = _tables(dev, 64, 64)
+    before = dict(LAUNCHES)
+    out = attention_core(q, k, v, cos=cos, sin=sin, use_pallas=False)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"rope_rotate": 1}
+    assert out.shape == (batch, l, n, d) and out.dtype == torch.bfloat16
+    ref = attention_core(q.cpu(), k.cpu(), v.cpu(), cos=cos.cpu(), sin=sin.cpu(), use_pallas=False)
+    o, r = out.float().cpu(), ref.float()
+    assert bool(torch.isfinite(o).all())
+    assert float((o - r).norm() / r.norm()) <= 1e-2
 
 
 def test_benchmark_blocks_launches_what_it_times(dev):

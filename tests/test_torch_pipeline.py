@@ -1,6 +1,7 @@
 """The slice end to end on the CPU: the port's denoise loop, calibration protocol and
-VAE decode against the JAX package's from shared noise, the pipeline's refusals, and
-the HTTP server built from configs/config-tiny-cpu.json.
+VAE decode against the JAX package's from shared noise, the switch to
+``use_pallas=False`` at load for weights whose logit bound is too high, the pipeline's
+refusals and timings, and the HTTP server built from configs/config-tiny-cpu.json.
 
 Tolerances: the float slice (two Euler steps, unpack, VAE decode) in fp32 agrees to a
 relative norm of 1e-4 and elements to 1e-3 — the flux forward's own tolerance (see
@@ -14,6 +15,7 @@ functions, bit for bit.
 
 import io
 import json
+import time
 import urllib.error
 import urllib.request
 
@@ -162,12 +164,72 @@ def test_pipeline_refuses_what_is_not_ported(models):
         pipe.generate("a cat", 64, 64, 2, init_image=np.zeros((64, 64, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="ROADMAP: step cache"):
         pipe.generate("a cat", 64, 64, 2, cache={"mode": "interval"})
-    # the max-free kernel's logit bound: raised, not worked around
-    model = to_torch(params)
-    for blk in model["single_blocks"]:
-        blk.knorm = blk.knorm * 40.0
-    with pytest.raises(ValueError, match="max-free attention kernel"):
-        FluxPipeline("flux-dev", model=model, model_cfg=pcfg, ae=to_torch(ae), config=tiny_spec())
+
+
+def _fixed_inputs(pipe, noise, timesteps, vec, txt, to):
+    """Make ``pipe`` draw ``noise`` and ``timesteps`` and encode every prompt to
+    (``vec``, ``txt``), each converted by ``to``: shared inputs for two pipelines whose
+    generators and random text encoders differ."""
+    pipe.preprocess_latent = lambda *a, **kw: (to(noise), timesteps)
+    pipe._encode_prompts = lambda prompts: {p: (to(vec), to(txt)) for p in prompts}
+
+
+def test_high_logit_bound_serves_through_sdpa_and_matches_jax(models, caplog):
+    """k-norm scales ×40 put max_logit_bound above MAX_SAFE_LOGIT. Both pipelines
+    decide at load to serve with use_pallas=False (the port logs the bound) and
+    generate; from the same noise and text their latents agree as the float slice
+    does in test_two_steps_and_decode_match_jax: relative norm 1e-4."""
+    from flux_fp8_api_tpu import pipeline as jpipeline
+
+    cfg, params, ae = models
+    params = dict(params, single_blocks=dict(params["single_blocks"], knorm=params["single_blocks"]["knorm"] * 40.0))
+    spec = tiny_spec(flow_dtype="float32")
+    jpipe = jpipeline.FluxPipeline("flux-dev", model=params, model_cfg=cfg, ae=ae, config=spec)
+    pcfg = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32")
+    with caplog.at_level("WARNING", logger="flux_fp8_api_tpu_torch.pipeline"):
+        pipe = FluxPipeline("flux-dev", model=to_torch(params), model_cfg=pcfg, ae=to_torch(ae), config=spec)
+    assert cfg.use_pallas and pcfg.use_pallas
+    assert jpipe.model_cfg.use_pallas is False and pipe.model_cfg.use_pallas is False
+    assert any("bound of 246 > 100" in r.getMessage() and "use_pallas=False" in r.getMessage()
+               for r in caplog.records)
+
+    r = np.random.default_rng(21)
+    noise = r.normal(size=(1, TINY_FLUX_PARAMS.in_channels // 4, 8, 8)).astype(np.float32)
+    vec = r.normal(size=(1, TINY_FLUX_PARAMS.vec_in_dim)).astype(np.float32)
+    txt = r.normal(size=(1, 6, TINY_FLUX_PARAMS.context_in_dim)).astype(np.float32)
+    timesteps = get_schedule(2, 16, shift=True)
+    _fixed_inputs(jpipe, noise, timesteps, vec, txt, jnp.asarray)
+    _fixed_inputs(pipe, noise, timesteps, vec, txt, t)
+    seen = []
+    decode = jpipe.vae_decode
+    jpipe.vae_decode = lambda lat, h, w: (seen.append(np.asarray(lat)), decode(lat, h, w))[1]
+    jpipe.generate("a cat", 64, 64, 2, seed=1, silent=True)
+    pipe.generate("a cat", 64, 64, 2, seed=1, silent=True)
+    b = pipe.last_latents.numpy()
+    assert np.isfinite(b).all() and b.shape == seen[0].shape == (1, 16, TINY_FLUX_PARAMS.in_channels)
+    assert _rel(b, seen[0]) < 1e-4
+
+
+def test_prepare_seconds_excludes_preprocess_latent(models):
+    """As in the JAX pipeline, prepare_seconds starts after preprocess_latent (noise
+    and schedule; with img2img, the VAE encode) and times prepare alone."""
+    cfg, params, ae = models
+    pcfg = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32")
+    pipe = FluxPipeline("flux-dev", model=to_torch(params), model_cfg=pcfg, ae=to_torch(ae),
+                        config=tiny_spec(flow_dtype="float32"))
+    x = shared_inputs()
+    pipe._encode_prompts = lambda prompts: {p: (t(x["vec"]), t(x["txt"])) for p in prompts}
+    draw = pipe.preprocess_latent
+
+    def slow_preprocess(*a, **kw):
+        time.sleep(0.5)
+        return draw(*a, **kw)
+
+    pipe.preprocess_latent = slow_preprocess
+    start = time.perf_counter()
+    pipe.generate("a cat", 64, 64, 2, seed=1, silent=True)
+    assert time.perf_counter() - start >= 0.5
+    assert pipe.timings["prepare_seconds"] < 0.25
 
 
 def test_cache_config_validation():
