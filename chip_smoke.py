@@ -54,13 +54,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``model_cfg.use_pallas`` False; with every launch count set to 0 just before, one
     1024×1024 request through ``PipelineServer`` launches the rope pass 4 times per
     model evaluation and no build of K1, with finite latents; then one 512×512 forward
-    of the same weights on the card against the CPU in fp32.
+    of the same weights on the card against the CPU in fp32;
+12. request surface, on phase 10(a)'s reloaded fp8 pipeline (calibrated, so no trial
+    is paid again), every launch count set to 0 just before and read just after:
+    (a) img2img: a 1024×1024, 28-step request through ``PipelineServer``, then the same
+    with its JPEG as a base64 ``init_image`` at strength 0.6: 17 evaluations of 57 K1
+    and 57 rope-pass launches, a 1024×1024 JPEG, finite latents; ``ae_encode`` on the
+    card (bf16) against the CPU (fp32) at 512×512 on the same weights;
+    (b) LoRA: a diffusers-format rank-16 LoRA drawn from a seed over every block's
+    attention and MLP linears, written to a file and fused by POST /lora: the fused
+    fp8 weights of ``double_blocks.0.img_attn_qkv`` and ``single_blocks.37.linear1``
+    within e4m3 rounding of dequant(W) + delta computed in fp64 on the CPU; a request
+    (57 K1 launches per evaluation, latents other than the unfused request's); a reload
+    at the same scale leaves the weights as they were; a new scale rescales; an unload
+    empties /health's list and the same request comes back near the unfused latents;
+    (c) FastAPI: ``api.app`` under uvicorn in a thread on a free port: GET /health and
+    GET /, one 512×512, 20-step POST /generate (JPEG and ``x-seed``), and POST /lora
+    load and unload.
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7 or 4; its time, plain time, bound, library
 time and error at L = 4608 from phase 3 or 4),
-and ``{"ok": true, "device": {...}}``. Phases 7-10 free their pipelines before the
-next (phase 7's lives until phase 10 has saved it).
+and ``{"ok": true, "device": {...}}``. Phases 7-11 free their pipelines before the
+next (phase 7's lives until phase 10 has saved it, and phase 10(a)'s reload until
+phase 12 has served it).
 """
 
 from __future__ import annotations
@@ -109,6 +126,18 @@ INT_RTOL, INT_ATOL = 2**-8, 1e-6
 # weight-only linear, card (bf16 weights, bf16 output, cuBLAS fp32 accumulation) vs an
 # fp32 product of the dequantized weight: max|out − plain| / max|plain|.
 WO_REL_TOL = 2e-2
+# VAE encode, card (bf16 activations and weights, fp32 GroupNorm) vs CPU (fp32):
+# ‖a − b‖ / ‖b‖ over the latent. Each bf16 rounding costs up to 2^-8 relative, and the
+# encoder chains about 30 convolutions, norms and adds.
+AE_ENCODE_REL_TOL = 3e-2
+# LoRA fuse of an fp8 Linear vs dequant(W) + delta in fp64: requantization to e4m3
+# rounds each element to the nearest step of its binade, at most 2^-4 of its scaled
+# magnitude, or half e4m3's subnormal spacing (2^-10) below 2^-6, times the fresh
+# weight scale's reciprocal; 2^-20 more covers the fp32 delta, sum and scale products.
+E4M3_HALF_STEP_REL, E4M3_HALF_SUBNORMAL = 2**-4 + 2**-20, 2**-10
+# diffusers LoRA of phase 12: rank 16, A ~ N(0, 1/in), B ~ N(0, LORA_B_STD²), so that
+# B·A has about LORA_B_STD·√16 = 0.25 of a weight's RMS (1/√in for the random init)
+LORA_RANK, LORA_B_STD = 16, 0.0625
 
 
 def fail(phase: str, msg: str) -> None:
@@ -700,8 +729,8 @@ def _spec(**overrides):
 
 def phase_checkpoints(card: str, held: dict):
     """(a) full-size prequant round trip of phase 7's pipeline (``held`` gives it up
-    once saved); (b) a BFL float file and (c) reference-prequantized files at full
-    width, 2 double + 2 single blocks."""
+    once saved, and takes the reloaded pipeline in its place); (b) a BFL float file
+    and (c) reference-prequantized files at full width, 2 double + 2 single blocks."""
     import torch
 
     from flux_fp8_api_tpu_torch.models.flux import FluxStatic, flux_apply, init_flux_params, max_logit_bound
@@ -753,8 +782,8 @@ def phase_checkpoints(card: str, held: dict):
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; 0 calibration trials; "
               f"{body['width']}x{body['height']} {body['num_steps']} steps seed {body['seed']} "
               f"in {dt:.3f} s, latents bit-identical to phase 7's; {time.perf_counter() - t_phase:.1f} s", flush=True)
+        held["pipe"] = pipe  # served again by phase 12
         del pipe
-        release()
         path.unlink()
 
         # (b) BFL float file, full width, 2 double + 2 single blocks
@@ -922,6 +951,262 @@ def phase_high_bound(card: str):
     release()
 
 
+def lora_state_dict(hidden: int, mlp_hidden: int, depth: int, depth_single: int, seed: int):
+    """A diffusers-format LoRA over every block's attention and MLP linears, drawn on
+    the card from ``seed`` and returned on the host in bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    sd = {}
+
+    def add(stub, in_f, out_f):
+        a = torch.randn(LORA_RANK, in_f, generator=gen, device="cuda") * in_f**-0.5
+        b = torch.randn(out_f, LORA_RANK, generator=gen, device="cuda") * LORA_B_STD
+        sd[f"transformer.{stub}.lora_A.weight"] = a.to(torch.bfloat16).cpu()
+        sd[f"transformer.{stub}.lora_B.weight"] = b.to(torch.bfloat16).cpu()
+
+    for i in range(depth):
+        bp = f"transformer_blocks.{i}"
+        for m in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0", "to_add_out"):
+            add(f"{bp}.attn.{m}", hidden, hidden)
+        for ff in ("ff", "ff_context"):
+            add(f"{bp}.{ff}.net.0.proj", hidden, mlp_hidden)
+            add(f"{bp}.{ff}.net.2", mlp_hidden, hidden)
+    for i in range(depth_single):
+        bp = f"single_transformer_blocks.{i}"
+        for m in ("attn.to_q", "attn.to_k", "attn.to_v"):
+            add(f"{bp}.{m}", hidden, hidden)
+        add(f"{bp}.proj_mlp", hidden, mlp_hidden)
+        add(f"{bp}.proj_out", hidden + mlp_hidden, hidden)
+    return sd
+
+
+def fused_reference(sd, members, before, perm):
+    """dequant(W) + delta in fp64 on the host, for a fused layer whose diffusers
+    members are ``members``: the factors concatenated, the uneven-rank chunk products
+    summed (B @ Σ chunks of A), the rows put into the runtime's rope layout."""
+    import torch
+
+    a = torch.cat([sd[f"transformer.{m}.lora_A.weight"] for m in members]).double()
+    b = torch.cat([sd[f"transformer.{m}.lora_B.weight"] for m in members]).double()
+    delta = b @ a.reshape(len(members), LORA_RANK, -1).sum(0)
+    return before + delta[torch.as_tensor(perm)]
+
+
+def check_fp8_fuse(name: str, lin, ref):
+    """The fused fp8 Linear's dequantized weight against the fp64 reference, within
+    e4m3 rounding at its fresh scale; → (max |err|, the share of the bound it uses)."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.quant import dequantize_kernel
+
+    if lin.kind != "fp8":
+        fail("surface", f"{name}: fused into kind {lin.kind}")
+    got = dequantize_kernel(lin).double().cpu()
+    s_inv = float(lin.w_scale_inv)
+    err = (got - ref).abs()
+    used = err / (E4M3_HALF_STEP_REL * ref.abs() + E4M3_HALF_SUBNORMAL * s_inv + 1e-12)
+    if bool((used > 1).any()):
+        fail("surface", f"{name}: {int((used > 1).sum())} fused elements outside e4m3 rounding, "
+                        f"max_abs_err {float(err.max())}")
+    return float(err.max()), float(used.max())
+
+
+def phase_request_surface(card: str, pipe):
+    """img2img, LoRA hot-load and the FastAPI app on a calibrated full-width pipeline."""
+    import base64
+    import copy
+    import socket
+    import threading
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from flux_fp8_api_tpu_torch.models.autoencoder import ae_encode
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.ops.quant import dequantize_kernel
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+    from flux_fp8_api_tpu_torch.utils.checkpoint import qkv_out_permutation
+    from flux_fp8_api_tpu_torch.utils.safetensors_io import save_safetensors
+
+    t_phase = time.perf_counter()
+    cfg = pipe.model_cfg
+    blocks = cfg.depth + cfg.depth_single_blocks
+    if pipe._needs_calibration:
+        fail("surface", "the pipeline is not calibrated")
+    server = PipelineServer(pipe, host="127.0.0.1", port=0)
+    server.start_background()
+    base = f"http://127.0.0.1:{server.port}"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_"))
+
+    def generate(what, body, size, steps):
+        before = dict(LAUNCHES)
+        t = time.perf_counter()
+        status, headers, payload = post(f"{base}/generate", body)
+        dt = time.perf_counter() - t
+        im = Image.open(io.BytesIO(payload))
+        im.load()
+        if status != 200 or im.format != "JPEG" or im.size != size or headers.get("x-seed") != str(body["seed"]):
+            fail("surface", f"{what}: status {status}, {im.format} {im.size}, x-seed {headers.get('x-seed')}")
+        lat = pipe.last_latents
+        if lat is None or not bool(torch.isfinite(lat.float()).all()):
+            fail("surface", f"{what}: non-finite latents")
+        check_path_launches("surface", what, {k: n - before[k] for k, n in LAUNCHES.items()}, blocks * steps)
+        return dt, payload, lat.clone()
+
+    def lora(body):
+        t = time.perf_counter()
+        status, _, payload = post(f"{base}/lora", body)
+        if status != 200:
+            fail("surface", f"POST /lora {body}: status {status} {payload!r}")
+        return time.perf_counter() - t
+
+    def health(url):
+        with urllib.request.urlopen(f"{url}/health", timeout=60) as resp:
+            return json.loads(resp.read())
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    try:
+        for key in LAUNCHES:  # the request surface's run starts here
+            LAUNCHES[key] = 0
+        body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
+                "num_steps": 28, "seed": 41}
+        dt, jpeg, unfused = generate("unfused 1024x1024/28", body, (1024, 1024), 28)
+        its_unfused = pipe.timings["denoise_it_per_s"]
+        print(f"[{card}] (surface) unfused POST /generate 1024x1024 28 steps: {dt:.3f} s/request, "
+              f"denoise {its_unfused:.3f} it/s", flush=True)
+
+        # (a) img2img: the JPEG just served, as base64, at strength 0.6
+        steps = 28 - int((1 - 0.6) * 28)
+        img_body = {"prompt": "a watercolour of a red house", "width": 1024, "height": 1024, "num_steps": 28,
+                    "seed": 42, "strength": 0.6, "init_image": base64.b64encode(jpeg).decode()}
+        dt, _, _ = generate("img2img 1024x1024 strength 0.6", img_body, (1024, 1024), steps)
+        print(f"[{card}] (a) img2img POST /generate 1024x1024, 28 steps at strength 0.6 = {steps} evaluations: "
+              f"{dt:.3f} s/request, encode {pipe.timings['encode_seconds']:.3f} s, denoise "
+              f"{pipe.timings['denoise_it_per_s']:.3f} it/s, decode {pipe.timings['decode_seconds']:.3f} s", flush=True)
+        gen = torch.Generator().manual_seed(43)
+        x = torch.rand(1, 512, 512, 3, generator=gen) * 2 - 1
+        card_z = ae_encode(pipe.ae_params, pipe.config.ae_params, x.cuda().to(pipe.ae_dtype)).float().cpu()
+        cpu_ae = copy.deepcopy(pipe.ae_params).to("cpu", torch.float32)
+        cpu_z = ae_encode(cpu_ae, pipe.config.ae_params, x)
+        del cpu_ae
+        enc_rel = rel(card_z, cpu_z)
+        print(f"[{card}] (a) ae_encode 512x512, card ({pipe.ae_dtype}) vs CPU (fp32): latent {tuple(cpu_z.shape)}, "
+              f"norm_rel_err {enc_rel:.3e} (tol {AE_ENCODE_REL_TOL})", flush=True)
+        if not (bool(torch.isfinite(card_z).all()) and enc_rel <= AE_ENCODE_REL_TOL):
+            fail("surface", f"ae_encode card vs CPU relative error {enc_rel}")
+
+        # (b) LoRA
+        model = pipe.model_params
+        sd = lora_state_dict(cfg.hidden_size, cfg.mlp_hidden, cfg.depth, cfg.depth_single_blocks, seed=44)
+        path = tmp / "smoke-lora.safetensors"
+        save_safetensors(path, sd)
+        leaves = {"double_blocks.0.img_attn_qkv": (model["double_blocks"][0], "img_attn_qkv",
+                                                   [f"transformer_blocks.0.attn.{m}" for m in ("to_q", "to_k", "to_v")],
+                                                   qkv_out_permutation(cfg.hidden_size, cfg.head_dim)),
+                  "single_blocks.37.linear1": (model["single_blocks"][37], "linear1",
+                                               [f"single_transformer_blocks.37.{m}" for m in
+                                                ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp")],
+                                               qkv_out_permutation(cfg.hidden_size, cfg.head_dim, extra=cfg.mlp_hidden))}
+        before = {k: dequantize_kernel(parent[name]).double().cpu() for k, (parent, name, _, _) in leaves.items()}
+        in_scales = {k: parent[name].in_scale.clone() for k, (parent, name, _, _) in leaves.items()}
+        load_s = lora({"action": "load", "path": str(path), "scale": 1.0, "name": "smoke"})
+        if health(base)["loras"] != ["smoke"]:
+            fail("surface", f"/health after the load: {health(base)}")
+        for k, (parent, name, members, perm) in leaves.items():
+            lin = parent[name]
+            if not torch.equal(lin.in_scale, in_scales[k]):
+                fail("surface", f"{k}: the fuse changed the calibrated input scale")
+            err, used = check_fp8_fuse(k, lin, fused_reference(sd, members, before[k], perm))
+            print(f"[{card}] (b) {k} fused: max_abs_err {err:.3e} vs dequant(W) + delta in fp64 (the worst "
+                  f"element uses {used:.3f} of its e4m3 rounding)", flush=True)
+        dt, _, fused = generate("LoRA-fused 1024x1024/28", body, (1024, 1024), 28)
+        its_fused = pipe.timings["denoise_it_per_s"]
+        fused_rel = rel(fused, unfused)
+        if not fused_rel > 1e-2:
+            fail("surface", f"the fused request's latents are the unfused ones (rel {fused_rel})")
+        q_before = {k: parent[name].q.clone() for k, (parent, name, _, _) in leaves.items()}
+        same_s = lora({"action": "load", "path": str(path), "scale": 1.0})
+        for k, (parent, name, _, _) in leaves.items():
+            if not torch.equal(parent[name].q.view(torch.uint8), q_before[k].view(torch.uint8)):
+                fail("surface", f"{k}: a reload at the same scale changed the weights")
+        rescale_s = lora({"action": "load", "path": str(path), "scale": 0.5})
+        if [e.scale for e in pipe.loras] != [0.5] or all(
+                torch.equal(parent[name].q.view(torch.uint8), q_before[k].view(torch.uint8))
+                for k, (parent, name, _, _) in leaves.items()):
+            fail("surface", f"the rescale did not rescale: {[(e.name, e.scale) for e in pipe.loras]}")
+        unload_s = lora({"action": "unload", "name": "smoke"})
+        if health(base)["loras"] != []:
+            fail("surface", f"/health after the unload: {health(base)}")
+        _, _, restored = generate("unloaded 1024x1024/28", body, (1024, 1024), 28)
+        restored_rel = rel(restored, unfused)
+        print(f"[{card}] (b) LoRA rank {LORA_RANK} on every block's attention and MLP linears "
+              f"({len(sd) // 2} factor pairs, {path.stat().st_size} bytes): POST /lora load {load_s:.3f} s, "
+              f"reload at the same scale {same_s:.3f} s (weights unchanged), rescale {rescale_s:.3f} s, unload "
+              f"{unload_s:.3f} s; fused 1024x1024/28 {dt:.3f} s/request, denoise {its_fused:.3f} it/s (unfused "
+              f"{its_unfused:.3f}); latents vs unfused: fused {fused_rel:.3e}, after load/rescale/unload "
+              f"{restored_rel:.3e} (must be under half the fused one)", flush=True)
+        if not restored_rel < 0.5 * fused_rel:
+            fail("surface", f"unloading did not bring the latents back: {restored_rel} vs fused {fused_rel}")
+    finally:
+        server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) the FastAPI app under uvicorn; a missing fastapi or uvicorn fails the phase
+    import uvicorn
+
+    from flux_fp8_api_tpu_torch import api
+
+    api.app.state.model = pipe
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    uv = uvicorn.Server(uvicorn.Config(api.app, host="127.0.0.1", port=port, log_level="warning"))
+    thread = threading.Thread(target=uv.run, daemon=True)
+    thread.start()
+    try:
+        deadline = time.perf_counter() + 60
+        while not uv.started:
+            if time.perf_counter() > deadline or not thread.is_alive():
+                fail("surface", "uvicorn did not start")
+            time.sleep(0.1)
+        url = f"http://127.0.0.1:{port}"
+        if health(url) != {"status": "ok", "model": pipe.name, "loras": []}:
+            fail("surface", f"FastAPI /health: {health(url)}")
+        with urllib.request.urlopen(f"{url}/", timeout=60) as resp:
+            page = resp.read().decode()
+            if resp.status != 200 or not page.startswith("<!doctype html>"):
+                fail("surface", f"FastAPI GET /: {resp.status}")
+        base = url
+        small = {"prompt": "a blue sky", "width": 512, "height": 512, "num_steps": 20, "seed": 45}
+        dt, _, _ = generate("FastAPI 512x512/20", small, (512, 512), 20)
+        lora_path = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_")) / "api-lora.safetensors"
+        try:
+            save_safetensors(lora_path, lora_state_dict(cfg.hidden_size, cfg.mlp_hidden, 1, 0, seed=46))
+            lora({"action": "load", "path": str(lora_path), "scale": 1.0})
+            names = health(url)["loras"]
+            lora({"action": "unload", "name": "api-lora.safetensors"})
+        finally:
+            shutil.rmtree(lora_path.parent, ignore_errors=True)
+        if names != ["api-lora.safetensors"] or health(url)["loras"] != []:
+            fail("surface", f"FastAPI /lora: loaded {names}, then {health(url)['loras']}")
+        print(f"[{card}] (c) FastAPI app under uvicorn {uvicorn.__version__}: GET /health, GET / ({len(page)} bytes), "
+              f"POST /generate 512x512 20 steps {dt:.3f} s/request (denoise {pipe.timings['denoise_it_per_s']:.3f} "
+              f"it/s), POST /lora load and unload", flush=True)
+    finally:
+        uv.should_exit = True
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail("surface", "uvicorn did not stop")
+    launches = dict(LAUNCHES)  # read just after the request surface's run
+    print(f"[{card}] request surface launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -956,6 +1241,7 @@ def main() -> int:
     phase_tiers(card_line)
     phase_checkpoints(card_line, held)
     phase_high_bound(card_line)
+    phase_request_surface(card_line, held.pop("pipe"))
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,

@@ -1,5 +1,7 @@
 """CLI server launcher (JAX counterpart: ``flux_fp8_api_tpu.main``; reference
-``main.py:1-199``): the same flags and defaults, served by the stdlib server.
+``main.py:1-199``): the same flags and defaults. It serves the FastAPI app
+(``api.app``) under uvicorn where both import, else the stdlib server, with the same
+endpoints.
 
     python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev.json
 """
@@ -73,7 +75,6 @@ def main(argv=None):
         raise NotImplementedError("--mesh is not ported yet (ROADMAP: multi-GPU)")
 
     from .pipeline import FluxPipeline
-    from .server import serve
     from .utils.config import ModelVersion, load_config
 
     if args.config_path:
@@ -114,7 +115,17 @@ def main(argv=None):
                     "--config-path configs/config-dev-prequant.json -f %s (ckpt_path, "
                     "prequantized_flow=true)", args.save_prequantized, args.save_prequantized)
         return
-    serve(pipeline, host=args.host, port=args.port)
+    try:
+        import uvicorn
+
+        from .api import app
+    except ImportError:  # no fastapi or uvicorn: the stdlib server, same endpoints
+        from .server import serve
+
+        serve(pipeline, host=args.host, port=args.port)
+    else:
+        app.state.model = pipeline
+        uvicorn.run(app, host=args.host, port=args.port)
 
 
 if __name__ == "__main__":

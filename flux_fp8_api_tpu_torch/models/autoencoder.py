@@ -1,15 +1,15 @@
-"""FLUX VAE, decode path (JAX counterpart: ``flux_fp8_api_tpu.models.autoencoder``;
+"""FLUX VAE, encode and decode (JAX counterpart: ``flux_fp8_api_tpu.models.autoencoder``;
 reference modules/autoencoder.py).
 
 The public functions keep the JAX package's NHWC layout; inside, activations are NCHW
-and conv weights OIHW, torch's native layouts. GroupNorm runs in fp32. The parameter
-tree holds the encoder half as the JAX one does (random init and ``ae.sft`` loads
-fill it), but encoding is not ported yet (ROADMAP: img2img).
+and conv weights OIHW, torch's native layouts. GroupNorm runs in fp32. The diagonal
+Gaussian draws from an explicit ``torch.Generator`` (the JAX package takes a PRNG key;
+the reference uses the global ``torch.randn_like``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,16 +19,17 @@ from ..utils.config import AutoEncoderParams
 from ..utils.tree import ParamTree
 
 
-def _conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def _conv(p, x: torch.Tensor, stride: int = 1, padding: Optional[int] = None) -> torch.Tensor:
     """Conv with an OIHW weight, which may be weight-only e4m3 (see
     :func:`quantize_ae_params`): it is dequantized in the compute dtype with its
-    per-out-channel scale, as the JAX ``_conv`` does. A checkpoint may omit a bias."""
+    per-out-channel scale, as the JAX ``_conv`` does. A checkpoint may omit a bias.
+    ``padding`` defaults to half the kernel on every side (JAX's "SAME" at stride 1)."""
     w = p["weight"]
     if w.dtype == torch.float8_e4m3fn:
         w = w.to(x.dtype) * p["kscale_inv"].to(x.dtype)[:, None, None, None]
     bias = p.get("bias")
     return F.conv2d(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype),
-                    stride=stride, padding=w.shape[-1] // 2)
+                    stride=stride, padding=w.shape[-1] // 2 if padding is None else padding)
 
 
 def _group_norm(p, x: torch.Tensor, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
@@ -70,9 +71,32 @@ def _attn_block(p, x: torch.Tensor) -> torch.Tensor:
     return x + _conv(p["proj_out"], out)
 
 
+def _downsample(p, x: torch.Tensor) -> torch.Tensor:
+    """stride-2 conv after the reference's asymmetric pad: one row at the bottom and one
+    column at the right, none before (autoencoder.py:95-107)."""
+    return _conv(p["conv"], F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+
+
 def _upsample(p, x: torch.Tensor) -> torch.Tensor:
     """nearest ×2 + 3×3 conv (autoencoder.py:110-120)."""
     return _conv(p["conv"], F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def encoder_apply(p, x: torch.Tensor, cfg: AutoEncoderParams) -> torch.Tensor:
+    """reference Encoder.forward (autoencoder.py:179-200): x (B, in_ch, H, W) NCHW →
+    (B, 2·z_ch, H/8, W/8)."""
+    h = _conv(p["conv_in"], x)
+    n_res = len(cfg.ch_mult)
+    for i_level in range(n_res):
+        down = p["down"][i_level]
+        for i_block in range(cfg.num_res_blocks):
+            h = _resnet_block(down["block"][i_block], h)
+        if i_level != n_res - 1:
+            h = _downsample(down["downsample"], h)
+    h = _resnet_block(p["mid"]["block_1"], h)
+    h = _attn_block(p["mid"]["attn_1"], h)
+    h = _resnet_block(p["mid"]["block_2"], h)
+    return _conv(p["conv_out"], _swish(_group_norm(p["norm_out"], h)))
 
 
 def decoder_apply(p, z: torch.Tensor, cfg: AutoEncoderParams) -> torch.Tensor:
@@ -89,6 +113,27 @@ def decoder_apply(p, z: torch.Tensor, cfg: AutoEncoderParams) -> torch.Tensor:
         if i_level != 0:
             h = _upsample(up["upsample"], h)
     return _conv(p["conv_out"], _swish(_group_norm(p["norm_out"], h)))
+
+
+def diagonal_gaussian_sample(z: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """reference DiagonalGaussian (autoencoder.py:286-298) on channels-last moments
+    (mean | logvar). ``generator=None`` returns the mean (a deterministic encode); else
+    one standard normal draw of the mean's shape on the generator's device."""
+    mean, logvar = z.chunk(2, dim=-1)
+    if generator is None:
+        return mean
+    std = torch.exp(0.5 * logvar.float()).to(mean.dtype)
+    noise = torch.randn(mean.shape, generator=generator, device=generator.device)
+    return mean + std * noise.to(mean.device, mean.dtype)
+
+
+def ae_encode(params: ParamTree, cfg: AutoEncoderParams, x: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """image (B, H, W, in_ch) NHWC in [-1, 1] → latent (B, H/8, W/8, z) NHWC, with the
+    scale/shift normalization (reference AutoEncoder.encode, autoencoder.py:326-328)."""
+    moments = encoder_apply(params["encoder"], x.permute(0, 3, 1, 2), cfg).permute(0, 2, 3, 1)
+    z = diagonal_gaussian_sample(moments, generator)
+    return cfg.scale_factor * (z - cfg.shift_factor)
 
 
 def ae_decode(params: ParamTree, cfg: AutoEncoderParams, z: torch.Tensor) -> torch.Tensor:

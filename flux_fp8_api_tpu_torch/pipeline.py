@@ -1,17 +1,19 @@
-"""FluxPipeline, txt2img (JAX counterpart: ``flux_fp8_api_tpu.pipeline``; reference
-``flux_pipeline.py:58-729``).
+"""FluxPipeline: txt2img, img2img and LoRA hot-load (JAX counterpart:
+``flux_fp8_api_tpu.pipeline``; reference ``flux_pipeline.py:58-729``).
 
 The same public surface and the same calibration protocol: the first
 ``num_scale_trials`` denoise steps after load collect per-layer input amaxes, and the
-input scales of the fp8, int8 and int4 linears freeze after them. Randomness comes from ``torch.Generator``s, so a
-seed gives other noise than the JAX package's threefry keys.
+input scales of the fp8, int8 and int4 linears freeze after them. Randomness comes from
+``torch.Generator``s, so a seed gives other noise than the JAX package's threefry keys;
+an init image's VAE sample is drawn from the same generator, after the noise.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item): init
-images (img2img), LoRA, offload and multi-device meshes.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item): offload
+and multi-device meshes.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import io
 import logging
@@ -22,11 +24,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from PIL import Image
 
+from . import lora as lora_mod
 from .calibration import apply_input_scales, merge_amax
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
-from .models.autoencoder import ae_decode
+from .models.autoencoder import ae_decode, ae_encode
 from .models.flux import FluxStatic, max_logit_bound
 from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
@@ -123,6 +127,7 @@ class FluxPipeline:
         self.timings: Dict[str, float] = {}
         self.last_latents: Optional[torch.Tensor] = None
         self._rng = np.random.default_rng()
+        self.loras: List[lora_mod.LoraWeights] = []  # fused LoRAs (reference flux_model.py:518)
 
         if config.compile_blocks or config.compile_extras:
             self.compile()
@@ -165,17 +170,56 @@ class FluxPipeline:
         )
         return torch.randn(shape, generator=generator, device=self.device_flux).to(self.dtype)
 
-    def preprocess_latent(self, init_image, height: int, width: int, num_steps: int,
-                          strength: float, generator: torch.Generator, num_images: int):
-        """Noise + schedule (reference flux_pipeline.py:459-523, txt2img)."""
-        if init_image is not None:
-            raise NotImplementedError("init images are not ported yet (ROADMAP: img2img)")
+    def load_init_image_if_needed(self, init_image) -> Optional[np.ndarray]:
+        """A path, base64 (or a data URL), PIL image or array → (H, W, 3) uint8
+        (reference flux_pipeline.py:399-420)."""
+        if init_image is None:
+            return None
+        if isinstance(init_image, str):
+            try:
+                init_image = Image.open(init_image)
+            except (OSError, ValueError):  # not a readable path: base64
+                init_image = Image.open(io.BytesIO(base64.b64decode(init_image.split(",")[-1])))
+        if isinstance(init_image, Image.Image):
+            init_image = np.array(init_image.convert("RGB"))
+        return np.asarray(init_image).astype(np.uint8)
+
+    def resize_center_crop(self, img: np.ndarray, height: int, width: int) -> np.ndarray:
+        """Resize the shorter side to min(width, height) (PIL bilinear), then crop the
+        centre (height, width) (reference flux_pipeline.py:450-457)."""
+        im = Image.fromarray(img)
+        w0, h0 = im.size
+        scale = min(width, height) / min(w0, h0)
+        im = im.resize((round(w0 * scale), round(h0 * scale)), Image.BILINEAR)
+        w1, h1 = im.size
+        left, top = (w1 - width) // 2, (h1 - height) // 2
+        return np.array(im.crop((left, top, left + width, top + height)))
+
+    def preprocess_latent(self, init_image: Optional[np.ndarray], height: int, width: int,
+                          num_steps: int, strength: float, generator: torch.Generator,
+                          num_images: int):
+        """Noise + schedule, and for an init image its VAE encode, the noise mixed in at
+        the schedule's step ``int((1 - strength) · num_steps)`` and the steps before it
+        dropped (reference flux_pipeline.py:459-523)."""
         x = self.get_noise(num_images, height, width, generator)
         timesteps = get_schedule(
             num_steps=num_steps,
             image_seq_len=x.shape[-1] * x.shape[-2] // 4,
             shift=(self.name != ModelVersion.flux_schnell.value),
         )
+        if init_image is not None:
+            arr = self.resize_center_crop(init_image, height, width)
+            nhwc = torch.from_numpy(arr.astype(np.float32) / 127.5 - 1.0)[None]
+            t_encode = time.perf_counter()
+            z = ae_encode(self.ae_params, self.config.ae_params,
+                          nhwc.to(self.device_ae, self.ae_dtype), generator)  # (1, h, w, z)
+            z = z.permute(0, 3, 1, 2).to(self.device_flux, self.dtype).repeat(num_images, 1, 1, 1)
+            _sync(z)
+            self.timings["encode_seconds"] = time.perf_counter() - t_encode
+            t_idx = int((1 - strength) * num_steps)
+            t = timesteps[t_idx]
+            timesteps = timesteps[t_idx:]
+            x = t * x + (1.0 - t) * z
         return x, timesteps
 
     def _encode_prompts(self, prompts: List[str]):
@@ -286,6 +330,8 @@ class FluxPipeline:
         ``cache`` is validated (sampling.CacheConfig); only mode "none" runs."""
         CacheConfig.parse(cache)
         num_steps = 4 if self.name == ModelVersion.flux_schnell.value else num_steps
+        init_image = self.load_init_image_if_needed(init_image)
+        self.timings.pop("encode_seconds", None)
         height = 16 * (height // 16)
         width = 16 * (width // 16)
         generator, seed = self.set_seed(seed)
@@ -337,10 +383,16 @@ class FluxPipeline:
     # -------------------------------------------------------------------------- LoRA
 
     def load_lora(self, lora_path, scale: float, name: Optional[str] = None):
-        raise NotImplementedError("LoRA is not ported yet (ROADMAP: LoRA)")
+        """Fuse a LoRA into the flow weights (reference flux_pipeline.py:151-168)."""
+        self.model_params, self.loras = lora_mod.pipeline_load_lora(
+            self.model_params, self.model_cfg, self.loras, lora_path, scale, name
+        )
 
     def unload_lora(self, path_or_identifier: str):
-        raise NotImplementedError("LoRA is not ported yet (ROADMAP: LoRA)")
+        """Unfuse a previously loaded LoRA (reference flux_pipeline.py:170-177)."""
+        self.model_params, self.loras = lora_mod.pipeline_unload_lora(
+            self.model_params, self.model_cfg, self.loras, path_or_identifier
+        )
 
     # -------------------------------------------------------------------- checkpoints
 

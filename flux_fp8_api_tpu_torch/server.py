@@ -4,17 +4,20 @@
 Endpoints and JSON shapes are the JAX server's:
 
 - POST /generate  {prompt, width, height, num_steps, guidance, seed, strength,
-                   init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used)
-- GET  /health, GET /metrics
-- POST /lora and GET / (web UI) answer 501 until their ROADMAP items land; so does a
-  request for a feature the pipeline has not ported (init_image, a step cache).
+                   init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used);
+                   a step-cache mode the pipeline has not ported answers 501
+- POST /lora      {action: load|unload, path, name, scale} → JSON status
+- GET  /          the browser UI (``webui.py``)
+- GET  /health (with the fused LoRAs' names), GET /metrics
 
-One lock serialises generate calls.
+One lock serialises generate and LoRA calls. ``api.py`` serves the same handlers
+under FastAPI.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -23,8 +26,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from .sampling import CacheConfig
+from .webui import render_index
 
 MAX_RAND = 2**32 - 1
+
+logger = logging.getLogger(__name__)
 
 GENERATE_DEFAULTS: Dict[str, Any] = {
     "width": 720,
@@ -81,12 +87,38 @@ class PipelineServer:
             self.last_timings = dict(getattr(self.pipeline, "timings", {}))
         return 200, "image/jpeg", out.getvalue(), {"x-seed": str(args["seed"])}
 
+    def handle_lora(self, body: Dict[str, Any]):
+        """→ (status, content_type, payload): the JAX server's envelopes and messages
+        (reference api.py:89-122)."""
+        action = body.get("action", "load")
+        try:
+            if action == "load":
+                if not body.get("path"):
+                    return _error(400, "Lora path is required")
+                with self.lock:
+                    self.pipeline.load_lora(lora_path=body["path"], scale=body.get("scale", 1.0),
+                                            name=body.get("name"))
+                msg = f"LoRA {body['path']} loaded successfully"
+            elif action == "unload":
+                ident = body.get("name") or body.get("path")
+                if not ident:
+                    return _error(400, "Lora path or name is required")
+                with self.lock:
+                    self.pipeline.unload_lora(ident)
+                msg = f"LoRA {ident} unloaded successfully"
+            else:
+                return _error(400, f"Invalid action {action}")
+        except Exception as e:  # reference api.py:105-121: the failure in the envelope
+            logger.exception("LoRA %s failed", action)
+            return _error(500, str(e))
+        return 200, "application/json", json.dumps({"status": "success", "message": msg}).encode()
+
     def handle_health(self):
         return 200, "application/json", json.dumps(
             {
                 "status": "ok" if self.pipeline is not None else "loading",
                 "model": getattr(self.pipeline, "name", None),
-                "loras": [],
+                "loras": [entry.name for entry in getattr(self.pipeline, "loras", [])],
             }
         ).encode()
 
@@ -120,7 +152,7 @@ class PipelineServer:
                 elif self.path == "/metrics":
                     self._send(*server.handle_metrics())
                 elif self.path in ("/", "/index.html"):
-                    self._send(*_error(501, "the web UI is not ported yet (ROADMAP: webui)"))
+                    self._send(200, "text/html; charset=utf-8", render_index(server.pipeline))
                 else:
                     self._send(404, "application/json", b'{"detail":"Not Found"}')
 
@@ -135,13 +167,14 @@ class PipelineServer:
                     if self.path == "/generate":
                         self._send(*server.handle_generate(body))
                     elif self.path == "/lora":
-                        self._send(*_error(501, "LoRA is not ported yet (ROADMAP: LoRA)"))
+                        self._send(*server.handle_lora(body))
                     else:
                         self._send(404, "application/json", b'{"detail":"Not Found"}')
                 except BrokenPipeError:
                     pass
                 except Exception as e:  # the boundary: report the failure, keep serving
-                    self._send(*_error(500, f"{type(e).__name__}: {e}"))
+                    logger.exception("POST %s failed", self.path)
+                    self._send(*_error(500, str(e)))
 
         return Handler
 

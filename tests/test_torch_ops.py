@@ -223,14 +223,22 @@ class TestConfig:
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, import with jax blocked."""
+    """Every module of the port, and chip_smoke.py, import with jax blocked. The FastAPI
+    app (``api``) needs fastapi: where it is missing, that module's import must raise
+    the ImportError that names the stdlib server, and nothing else."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flux_fp8_api_tpu'] = None\n"
         "import flux_fp8_api_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "for n in names: importlib.import_module(n)\n"
+        "has_fastapi = importlib.util.find_spec('fastapi') is not None\n"
+        "for n in names:\n"
+        "    try:\n"
+        "        importlib.import_module(n)\n"
+        "    except ImportError as e:\n"
+        "        if n != 'flux_fp8_api_tpu_torch.api' or has_fastapi or 'stdlib server' not in str(e):\n"
+        "            raise\n"
         "import chip_smoke\n"
         "assert len(names) >= 20, names\n"
         "print(len(names))\n"
