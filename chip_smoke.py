@@ -70,14 +70,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
     empties /health's list and the same request comes back near the unfused latents;
     (c) FastAPI: ``api.app`` under uvicorn in a thread on a free port: GET /health and
     GET /, one 512×512, 20-step POST /generate (JPEG and ``x-seed``), and POST /lora
-    load and unload.
+    load and unload;
+13. step cache, on the same pipeline, 1024×1024, 28 steps, one seed, through one
+    ``PipelineServer``, every launch count set to 0 just before each request and read
+    just after: (a) uncached, ``{"mode": "dynamic", "threshold": 0}`` and ``{"mode":
+    "interval", "interval": 1}``: 28 evaluations each, latents bit for bit equal; then
+    the cost of the dynamic mode's indicator and host sync per unforced step, from
+    eight ABBA groups of 4-step uncached and dynamic-0 denoise runs (mean and standard
+    error), beside the indicator's device time; (b) interval 3: 11 evaluations (steps 0, 1, 27 forced;
+    3, 6, …, 24), 627 K1 and 627 rope-pass launches; (c) interval 3 with ``"order": 1``:
+    11 evaluations, latents other than (b)'s; (d) ``{"mode": "dynamic", "threshold":
+    0.4}``: 3 to 28 evaluations of 57 K1 launches each; every request a 1024×1024 JPEG
+    and finite latents; then ``bench_cache.run`` on that pipeline's model at 1024×1024,
+    28 steps, whose rows are printed (57 K1 launches per evaluation);
+14. fidelity gate, once every earlier pipeline is freed: ``bench_fidelity.run`` at
+    flux-dev's full width and depth, 1024×1024, 28 steps (the bf16 ground truth
+    resident, then fp8, fp8_fast_accum, int8 and int4 each drawn again from the same
+    seed, calibrated and compared by SSIM and PSNR of the latent image), its JSON line
+    printed; the phase fails if the fp8_fast_accum SSIM is below 0.95.
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7 or 4; its time, plain time, bound, library
 time and error at L = 4608 from phase 3 or 4),
-and ``{"ok": true, "device": {...}}``. Phases 7-11 free their pipelines before the
+and ``{"ok": true, "device": {...}}``. Phases 7-13 free their pipelines before the
 next (phase 7's lives until phase 10 has saved it, and phase 10(a)'s reload until
-phase 12 has served it).
+phase 13 has served it).
 """
 
 from __future__ import annotations
@@ -138,6 +155,9 @@ E4M3_HALF_STEP_REL, E4M3_HALF_SUBNORMAL = 2**-4 + 2**-20, 2**-10
 # diffusers LoRA of phase 12: rank 16, A ~ N(0, 1/in), B ~ N(0, LORA_B_STD²), so that
 # B·A has about LORA_B_STD·√16 = 0.25 of a weight's RMS (1/√in for the random init)
 LORA_RANK, LORA_B_STD = 16, 0.0625
+# phase 14: the North star's gate, fp8 (fast accumulation, the serving default) against
+# bf16 by the SSIM of the latent image
+FIDELITY_GATE = 0.95
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1200,11 +1220,181 @@ def phase_request_surface(card: str, pipe):
     finally:
         uv.should_exit = True
         thread.join(timeout=30)
+        api.app.state.model = api.app.state.server.pipeline = None  # the app holds no pipeline after
     if thread.is_alive():
         fail("surface", "uvicorn did not stop")
     launches = dict(LAUNCHES)  # read just after the request surface's run
     print(f"[{card}] request surface launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def phase_step_cache(card: str, pipe):
+    """The step cache through POST /generate, each request's launches counted alone,
+    then the bench_cache sweep on the pipeline's model."""
+    import torch
+    from PIL import Image
+
+    from flux_fp8_api_tpu_torch import bench_cache
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+
+    t_phase = time.perf_counter()
+    cfg = pipe.model_cfg
+    blocks = cfg.depth + cfg.depth_single_blocks
+    steps = 28
+    body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
+            "num_steps": steps, "seed": 51}
+    server = PipelineServer(pipe, host="127.0.0.1", port=0)
+    server.start_background()
+
+    def request(name, cache):
+        for key in LAUNCHES:  # this request's run starts here
+            LAUNCHES[key] = 0
+        t = time.perf_counter()
+        status, _, payload = post(f"http://127.0.0.1:{server.port}/generate",
+                                  body if cache is None else {**body, "cache": cache})
+        dt = time.perf_counter() - t
+        launched = dict(LAUNCHES)  # read just after
+        im = Image.open(io.BytesIO(payload))
+        im.load()
+        if status != 200 or im.format != "JPEG" or im.size != (1024, 1024):
+            fail("step cache", f"{name}: status {status}, {im.format} {im.size}")
+        lat = pipe.last_latents
+        if lat is None or not bool(torch.isfinite(lat.float()).all()):
+            fail("step cache", f"{name}: non-finite latents")
+        evals = pipe.timings.get("cache_model_evals")
+        if (evals is None) != (cache is None):
+            fail("step cache", f"{name}: timings cache_model_evals {evals}")
+        evals = steps if evals is None else evals
+        check_path_launches("step cache", name, launched, blocks * evals)
+        its, denoise_s = pipe.timings["denoise_it_per_s"], pipe.timings["denoise_seconds"]
+        print(f"[{card}] (step cache) {name}: {evals} evaluations, {launched['qknorm_attention']} K1 and "
+              f"{launched['rope_rotate']} rope-pass launches; {dt:.3f} s/request, denoise {denoise_s:.3f} s "
+              f"= {its:.3f} it/s effective", flush=True)
+        return {"lat": lat.clone(), "evals": evals, "denoise_s": denoise_s}
+
+    try:
+        # (a) every step evaluated, three ways: the same latents bit for bit
+        full = [("uncached", None), ("dynamic threshold 0", {"mode": "dynamic", "threshold": 0}),
+                ("interval 1", {"mode": "interval", "interval": 1})]
+        runs = [(name, request(name, cache)) for name, cache in full]
+        for name, r in runs:
+            if r["evals"] != steps or not torch.equal(r["lat"], runs[0][1]["lat"]):
+                diff = float((r["lat"].float() - runs[0][1]["lat"].float()).abs().max())
+                fail("step cache", f"{name}: {r['evals']} evaluations, latents differ from uncached by {diff}")
+        print(f"[{card}] (a) uncached, dynamic threshold 0 and interval 1: {steps} evaluations each, latents bit "
+              f"for bit equal", flush=True)
+
+        # (b), (c) interval 3, order 0 and 1
+        b = request("interval 3", {"mode": "interval", "interval": 3})
+        c = request("interval 3 order 1", {"mode": "interval", "interval": 3, "order": 1})
+        if b["evals"] != 11 or c["evals"] != 11:
+            fail("step cache", f"interval 3: {b['evals']} and {c['evals']} evaluations, expected 11 (steps 0, 1, 27; "
+                               f"3, 6, ..., 24)")
+        if torch.equal(b["lat"], c["lat"]):
+            fail("step cache", "order 1 gave the latents of order 0")
+        rel = lambda x, y: float((x.float() - y.float()).norm() / y.float().norm())  # noqa: E731
+        print(f"[{card}] (b, c) interval 3: 11 evaluations = {blocks * 11} K1 and rope-pass launches each; "
+              f"latents vs uncached: order 0 {rel(b['lat'], runs[0][1]['lat']):.4e}, order 1 "
+              f"{rel(c['lat'], runs[0][1]['lat']):.4e} (relative norm)", flush=True)
+
+        # (d) dynamic at the web page's threshold
+        d = request("dynamic threshold 0.4", {"mode": "dynamic", "threshold": 0.4})
+        if not 3 <= d["evals"] <= steps:
+            fail("step cache", f"dynamic 0.4: {d['evals']} evaluations")
+    finally:
+        server.shutdown()
+
+    dynamic_sync_cost(card, pipe.model_params, cfg)
+
+    for key in LAUNCHES:  # the sweep's run starts here
+        LAUNCHES[key] = 0
+    summary = bench_cache.run(pipe.model_params, cfg, 1024, 1024, steps)
+    launches = dict(LAUNCHES)
+    print(json.dumps(summary), flush=True)
+    evals = 2 * steps + sum(r["evals"] for r in summary["detail"]["rows"])  # warm + timed uncached
+    check_path_launches("step cache", "bench_cache.run", launches, blocks * evals)
+    print(f"[{card}] (step cache) bench_cache.run: {evals} evaluations, {launches['qknorm_attention']} K1 launches; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def dynamic_sync_cost(card: str, model, cfg) -> None:
+    """What one unforced step of the dynamic mode adds at 1024², 512 text tokens: the
+    indicator, the drift bookkeeping and the host sync that reads the skip decision.
+    Short uncached and dynamic-threshold-0 denoise runs (every step evaluated, so the
+    model's work is the same) alternate in ABBA groups, which cancels the card's slow
+    drift; the mean of the groups' differences per unforced step, with its standard
+    error. The indicator and the drift arithmetic alone are timed on the device (CUDA
+    events); the rest of the difference is the card waiting on the host after the sync."""
+    import statistics
+
+    import torch
+
+    from flux_fp8_api_tpu_torch import bench_fidelity as bf
+    from flux_fp8_api_tpu_torch.models.flux import flux_cache_indicator
+    from flux_fp8_api_tpu_torch.sampling import CacheConfig
+
+    steps, groups = 4, 8
+    dynamic0 = CacheConfig(mode="dynamic", threshold=0.0, warmup=1, tail=0)  # steps 1-3 unforced
+    unforced = steps - 1
+    timesteps = bf.linear_schedule(steps)
+    with torch.inference_mode():
+        x, _, _ = bf.make_inputs(cfg, 1024, 1024, 512, torch.device("cuda"))
+        if bf.run_denoise(model, cfg, x, timesteps, dynamic0)[2] != steps:  # also the warm run
+            fail("step cache", "dynamic threshold 0 skipped a step")
+        diffs = []
+        for _ in range(groups):
+            a1 = bf.run_denoise(model, cfg, x, timesteps)[1]
+            b1 = bf.run_denoise(model, cfg, x, timesteps, dynamic0)[1]
+            b2 = bf.run_denoise(model, cfg, x, timesteps, dynamic0)[1]
+            a2 = bf.run_denoise(model, cfg, x, timesteps)[1]
+            diffs.append(1e3 * (b1 + b2 - a1 - a2) / 2 / unforced)
+
+        t_vec = torch.full((1,), 0.5, device=x["img"].device).to(cfg.dtype)
+        g_vec = torch.full((1,), bf.GUIDANCE, device=x["img"].device).to(cfg.dtype) if cfg.guidance_embed else None
+        prev = flux_cache_indicator(model, cfg, x["img"], t_vec, x["vec"], g_vec).float()
+
+        def indicator():  # sampling._denoise_cached's work on an unforced dynamic step, before the sync
+            ind = flux_cache_indicator(model, cfg, x["img"], t_vec, x["vec"], g_vec).float()
+            return ((ind - prev).abs().mean() / (prev.abs().mean() + 1e-8)).abs()
+
+        indicator_ms = cuda_time_ms(indicator, 20)
+    mean, se = statistics.mean(diffs), statistics.stdev(diffs) / len(diffs) ** 0.5
+    print(f"[{card}] (a) dynamic mode cost per unforced step, {groups} ABBA groups of {steps}-step runs: "
+          f"{mean:+.4f} ms, standard error {se:.4f} ms (groups: {', '.join(f'{d:+.3f}' for d in diffs)}); "
+          f"indicator and drift on the device {indicator_ms:.4f} ms", flush=True)
+
+
+def phase_fidelity(card: str):
+    """The fidelity gate at full size, from a seed; fails below FIDELITY_GATE."""
+    import math
+
+    import torch
+
+    from flux_fp8_api_tpu_torch import bench_fidelity
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+
+    t_phase = time.perf_counter()
+    steps, params = 28, bench_fidelity.FLUX_DEV
+    for key in LAUNCHES:  # the gate's run starts here
+        LAUNCHES[key] = 0
+    report = bench_fidelity.run(params, torch.device("cuda"), steps=steps)
+    launches = dict(LAUNCHES)
+    print(json.dumps(report), flush=True)
+    tiers = bench_fidelity.TIERS
+    # the ground truth's and each tier's steps, and each tier's calibration pass
+    evals = steps * (1 + len(tiers)) + len(tiers)
+    check_path_launches("fidelity", "bench_fidelity.run", launches,
+                        (params.depth + params.depth_single_blocks) * evals)
+    if sorted(report["detail"]) != sorted(tiers) or not all(math.isfinite(v) for v in report["detail"].values()):
+        fail("fidelity", f"SSIM per tier {report['detail']}")
+    value = report["detail"]["fp8_fast_accum"]
+    print(f"[{card}] fidelity gate: fp8_fast_accum SSIM {value:.6f} (gate >= {FIDELITY_GATE}); "
+          + ", ".join(f"{t} {report['detail'][t]:.6f} / {report['psnr'][t]:.2f} dB" for t in tiers)
+          + f"; peak memory {report['peak_memory_gib']:.1f} GiB; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not value >= FIDELITY_GATE:
+        fail("fidelity", f"fp8_fast_accum SSIM {value} is below the gate {FIDELITY_GATE}")
 
 
 def main() -> int:
@@ -1241,7 +1431,12 @@ def main() -> int:
     phase_tiers(card_line)
     phase_checkpoints(card_line, held)
     phase_high_bound(card_line)
-    phase_request_surface(card_line, held.pop("pipe"))
+    pipe = held.pop("pipe")
+    phase_request_surface(card_line, pipe)
+    phase_step_cache(card_line, pipe)
+    del pipe
+    release()
+    phase_fidelity(card_line)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,

@@ -368,6 +368,21 @@ def flux_cond_vec(model, cfg: FluxStatic, timesteps, y, guidance=None, tape: Opt
     return vec + _mlp_embedder(tape, "vector_in", model["vector_in"], y.to(dtype), dtype)
 
 
+def flux_cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance=None) -> torch.Tensor:
+    """The first double block's image-stream modulated input,
+    ``modulate(layer_norm(img_in(img)), shift1, scale1)``: the change indicator of the
+    step cache's dynamic mode (``sampling.CacheConfig``; JAX flux.py:525-552). Its
+    relative L1 drift between steps follows the drift of the model's output; it costs
+    img_in, the conditioning MLPs and one modulation linear, none of the 57 blocks."""
+    dtype = cfg.dtype
+    tape = _Tape(False, cfg.fp8_fast_accum)
+    h = tape.lin("img_in", model["img_in"], img.to(dtype), dtype)
+    vec = flux_cond_vec(model, cfg, timesteps, y, guidance, tape=tape)
+    img_mod = tape.lin("img_mod_lin", model["double_blocks"][0]["img_mod_lin"], silu(vec), dtype)[:, None, :]
+    shift1, scale1 = img_mod.chunk(6, dim=-1)[:2]
+    return modulate(layer_norm(h), shift1, scale1)
+
+
 def flux_apply(
     model: ParamTree,
     cfg: FluxStatic,

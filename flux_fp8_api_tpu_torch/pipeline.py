@@ -7,8 +7,9 @@ input scales of the fp8, int8 and int4 linears freeze after them. Randomness com
 ``torch.Generator``s, so a seed gives other noise than the JAX package's threefry keys;
 an init image's VAE sample is drawn from the same generator, after the noise.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item): offload
-and multi-device meshes.
+The step cache (``sampling.CacheConfig``) runs as in JAX, with the skip decision made
+on the host. Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): offload and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -327,8 +328,15 @@ class FluxPipeline:
         cache=None,
     ) -> io.BytesIO:
         """Generate image(s); returns JPEG bytes (reference flux_pipeline.py:525-663).
-        ``cache`` is validated (sampling.CacheConfig); only mode "none" runs."""
-        CacheConfig.parse(cache)
+
+        ``cache``: the step cache (sampling.CacheConfig, or a dict like ``{"mode":
+        "dynamic", "threshold": 0.25}`` from the HTTP body), which skips model
+        evaluations; ignored with a warning while calibration trials are pending.
+        ``timings["cache_model_evals"]`` then counts the evaluations run."""
+        cache = CacheConfig.parse(cache)
+        if cache.mode != "none" and self._needs_calibration:
+            logger.warning("step cache ignored: calibration trials pending")
+            cache = CacheConfig(mode="none")
         num_steps = 4 if self.name == ModelVersion.flux_schnell.value else num_steps
         init_image = self.load_init_image_if_needed(init_image)
         self.timings.pop("encode_seconds", None)
@@ -344,6 +352,7 @@ class FluxPipeline:
         self.timings["prepare_seconds"] = time.perf_counter() - t_prepare
 
         t_denoise = time.perf_counter()
+        cache_stats: Dict[str, Any] = {}
         if self._needs_calibration:
             img = self._calibration_denoise(
                 img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent
@@ -352,12 +361,19 @@ class FluxPipeline:
             img = denoise(
                 self.model_params, self.model_cfg, img, img_ids, txt, txt_ids, vec,
                 timesteps, guidance, fused=silent, progress=not silent,
+                cache=cache, stats=cache_stats,
             )
         _sync(img)
         self.timings["denoise_seconds"] = time.perf_counter() - t_denoise
+        # schedule steps per second: with the step cache, the JAX package's "effective"
+        # rate (a skipped step costs a few elementwise passes)
         self.timings["denoise_it_per_s"] = (len(timesteps) - 1) / max(
             self.timings["denoise_seconds"], 1e-9
         )
+        if "model_evals" in cache_stats:
+            self.timings["cache_model_evals"] = cache_stats["model_evals"]
+        else:
+            self.timings.pop("cache_model_evals", None)
         self.last_latents = img
 
         t_decode = time.perf_counter()

@@ -5,7 +5,8 @@ Endpoints and JSON shapes are the JAX server's:
 
 - POST /generate  {prompt, width, height, num_steps, guidance, seed, strength,
                    init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used);
-                   a step-cache mode the pipeline has not ported answers 501
+                   a malformed ``cache`` answers 400, and a pipeline feature not
+                   ported yet (``NotImplementedError``) 501
 - POST /lora      {action: load|unload, path, name, scale} → JSON status
 - GET  /          the browser UI (``webui.py``)
 - GET  /health (with the fused LoRAs' names), GET /metrics
@@ -69,8 +70,6 @@ class PipelineServer:
             args["seed"] = int(np.random.randint(0, MAX_RAND))
         try:
             args["cache"] = CacheConfig.parse(args.get("cache"))
-        except NotImplementedError as e:
-            return (*_error(501, str(e)), {})
         except (TypeError, ValueError) as e:
             return (*_error(400, str(e)), {})
         t0 = time.perf_counter()

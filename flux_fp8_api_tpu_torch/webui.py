@@ -6,9 +6,10 @@ controls without a gradio wheel: one self-contained HTML page (inline CSS and va
 JS, no external assets) that drives ``POST /generate`` and ``POST /lora``:
 text-to-image and image-to-image (source upload → base64 ``init_image``, noising
 strength), resolution presets and custom width/height in steps of 16, steps, guidance,
-seed (blank or -1 = random) with the used seed read back from ``X-Seed``, a LoRA
-load/unload panel, and a /metrics readout with ``denoise_it_per_s``. The step-cache
-selector of the JAX page is left out: the port serves only ``cache`` mode "none".
+seed (blank or -1 = random) with the used seed read back from ``X-Seed``, the
+step-cache selector (``STEP_CACHE_PRESETS``, the JAX page's two presets, sent as the
+request's ``cache``), a LoRA load/unload panel, and a /metrics readout with
+``denoise_it_per_s`` and ``cache_model_evals``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ RESOLUTION_PRESETS = {
     "landscape 1216×832 (3:2)": (1216, 832),
     "wide 1344×768 (16:9)": (1344, 768),
     "custom": None,
+}
+
+# label → the request's ``cache`` (None: every step evaluated); the JAX page's presets
+STEP_CACHE_PRESETS = {
+    "off: every step evaluated": None,
+    "dynamic, threshold 0.4: skip while the block-0 input drifts little": {"mode": "dynamic", "threshold": 0.4},
+    "interval 4: evaluate every 4th step": {"mode": "interval", "interval": 4},
 }
 
 _PAGE = """<!doctype html>
@@ -82,6 +90,8 @@ _PAGE = """<!doctype html>
       <div><label for="seed">Seed (blank/-1 = random)</label>
         <input id="seed" type="text" value=""></div>
     </div>
+    <label for="cache">Step cache (fewer model evaluations, output further from uncached)</label>
+    <select id="cache"></select>
     <label for="init">Source image (optional → image-to-image)</label>
     <input id="init" type="file" accept="image/*">
     <label for="strength">Noising strength (1 = ignore source)</label>
@@ -127,6 +137,11 @@ for (const name of Object.keys(PRESETS)) {
   o.value = name; o.textContent = name;
   $("preset").appendChild(o);
 }
+for (const name of Object.keys(CFG.cache_presets)) {
+  const o = document.createElement("option");
+  o.value = name; o.textContent = name;
+  $("cache").appendChild(o);
+}
 $("steps").value = CFG.default_steps;
 $("modelline").textContent =
   `${CFG.model} (${CFG.version}) on ${CFG.platform} — browser UI of the Gradio front end's controls`;
@@ -167,6 +182,8 @@ $("go").addEventListener("click", async () => {
   };
   const seed = seedValue();
   if (seed !== null) body.seed = seed;
+  const cache = CFG.cache_presets[$("cache").value];
+  if (cache) body.cache = cache;
   $("go").disabled = true;
   $("status").textContent = "generating…"; $("status").className = "status";
   const t0 = performance.now();
@@ -235,5 +252,6 @@ def render_index(pipeline) -> bytes:
         "platform": getattr(device, "type", None) or "cuda",
         "default_steps": 4 if "schnell" in version else 28,
         "presets": {k: v for k, v in RESOLUTION_PRESETS.items() if v},
+        "cache_presets": STEP_CACHE_PRESETS,
     }
     return _PAGE.replace("__CONFIG__", json.dumps(cfg)).encode()

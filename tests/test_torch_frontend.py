@@ -174,11 +174,16 @@ def test_fastapi_app():
     assert resp.status_code == 200 and resp.headers["x-seed"] == "3"
     assert Image.open(io.BytesIO(resp.content)).size == (64, 64)
     assert client.post("/generate", json={"prompt": "x", "seed": -1}).status_code == 422
-    assert client.post("/generate", json={"prompt": "x", "cache": {"mode": "dynamic"}}).status_code == 501
+    resp = client.post("/generate", json={"prompt": "x", "width": 64, "height": 64, "num_steps": 2, "seed": 4,
+                                          "cache": {"mode": "dynamic", "threshold": 0}})
+    # flux-schnell runs 4 steps; threshold 0 evaluates each, whatever the weights' drift
+    assert resp.status_code == 200 and pipe.timings["cache_model_evals"] == 4
+    assert client.post("/generate", json={"prompt": "x", "cache": {"mode": "nope"}}).json() == {
+        "detail": "cache mode must be none|interval|dynamic, got 'nope'"}
     assert client.post("/lora", json={"action": "load"}).json() == {"detail": "Lora path is required"}
     resp = client.post("/lora", json={"action": "unload", "name": "nope"})
     assert resp.status_code == 200 and resp.json()["status"] == "success"
-    assert client.get("/metrics").json()["requests"] == 1
+    assert client.get("/metrics").json()["requests"] == 2
 
 
 def test_api_without_fastapi_raises_import_error(monkeypatch):

@@ -150,6 +150,8 @@ def test_calibration_protocol_matches_jax(models):
 
 
 def test_pipeline_refuses_what_is_not_ported(models):
+    """Offload and meshes raise, naming their ROADMAP items; the step cache, ported
+    since, is served (tests/test_torch_step_cache.py holds it against JAX)."""
     cfg, params, ae = models
     pcfg = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32")
     for field in ("offload_flow", "offload_vae", "offload_text_encoder"):
@@ -157,9 +159,12 @@ def test_pipeline_refuses_what_is_not_ported(models):
             FluxPipeline("flux-dev", config=tiny_spec(**{field: True}))
     with pytest.raises(NotImplementedError, match="ROADMAP: multi-GPU"):
         FluxPipeline("flux-dev", config=tiny_spec(mesh={"tp": 2}))
-    pipe = FluxPipeline("flux-dev", model=to_torch(params), model_cfg=pcfg, ae=to_torch(ae), config=tiny_spec())
-    with pytest.raises(NotImplementedError, match="ROADMAP: step cache"):
-        pipe.generate("a cat", 64, 64, 2, cache={"mode": "interval"})
+    pipe = FluxPipeline("flux-dev", model=to_torch(params), model_cfg=pcfg, ae=to_torch(ae),
+                        config=tiny_spec(flow_dtype="float32"))
+    x = shared_inputs()
+    pipe._encode_prompts = lambda prompts: {p: (t(x["vec"]), t(x["txt"])) for p in prompts}
+    out = pipe.generate("a cat", 64, 64, 2, cache={"mode": "interval"})
+    assert out.getvalue()[:2] == b"\xff\xd8" and pipe.timings["cache_model_evals"] == 2
 
 
 def _fixed_inputs(pipe, noise, timesteps, vec, txt, to):
@@ -292,7 +297,7 @@ def test_server_generates_jpeg(server):
 @pytest.mark.parametrize("method,path,body,code", [
     ("POST", "/generate", {"width": 64}, 400),
     ("POST", "/generate", {"prompt": "x", "cache": {"bogus": 1}}, 400),
-    ("POST", "/generate", {"prompt": "x", "cache": {"mode": "dynamic"}}, 501),
+    ("POST", "/generate", {"prompt": "x", "width": 64, "height": 64, "cache": {"mode": "dynamic"}}, 200),
     ("POST", "/generate", {"prompt": "x", "width": 64, "height": 64, "init_image": "abc"}, 500),
     ("POST", "/lora", {"action": "load", "path": "x"}, 500),
     ("GET", "/", None, 200),
