@@ -87,7 +87,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
     flux-dev's full width and depth, 1024×1024, 28 steps (the bf16 ground truth
     resident, then fp8, fp8_fast_accum, int8 and int4 each drawn again from the same
     seed, calibrated and compared by SSIM and PSNR of the latent image), its JSON line
-    printed; the phase fails if the fp8_fast_accum SSIM is below 0.95.
+    printed; the phase fails if the fp8_fast_accum SSIM is below 0.95;
+15. offload: ``configs/config-dev-offload.json`` (fp8 flow, T5 wo_int4, all three
+    offloads) at full width and depth from a seed, the flow and the VAE in page-locked
+    host memory; (a) ``compile()`` (calibration over the whole tree's round trip, the
+    warm-up streamed; 57 K1 and rope-pass launches per evaluation) and one streamed
+    1024x1024/28 request through ``PipelineServer``, with memory before, at peak and
+    after; between requests no flow block, VAE or encoder weight on the card (every
+    tree pinned on the host, the card holding only the top-level params, the LRU and
+    the latents within ``RESIDENT_SLACK``); (b) fixed inputs through the resident loop
+    and ``offload.streamed_denoise`` at 1024x1024/28 (every block retained) and
+    512x512/4 (retain 0, half the blocks, and retain 0 at ``sync_every`` 2): latents
+    equal to the resident ones bit for bit (or within the resident loop's own
+    run-to-run difference, printed), each run's it/s and peak memory, the copy rates
+    of single blocks and of the whole tree both ways, step 1 against a steady step;
+    the phase fails unless step 1 is shorter than the whole tree's copy plus a
+    resident step by half the smaller of the two (the copies overlap the compute);
+    (c) the same prompt again: an LRU hit that moves no encoder; then a 512x512/20
+    request at ``stream_flow_offload=False``, its latents the streamed request's and
+    the params back on the host; (d) POST /lora load and unload of a LoRA over two
+    blocks, fused on the host: the stream state dropped and rebuilt, the host tree
+    pinned again, a request after each.
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7 or 4; its time, plain time, bound, library
@@ -1397,6 +1417,307 @@ def phase_fidelity(card: str):
         fail("fidelity", f"fp8_fast_accum SSIM {value} is below the gate {FIDELITY_GATE}")
 
 
+OFFLOAD_CONFIG = ROOT / "configs" / "config-dev-offload.json"
+# phase 15: device bytes allowed between requests beyond the stream state's top-level
+# params, the conditioning LRU and the last latents (allocator rounding, library
+# workspaces): far under the smallest weight unit it guards, a single block (142 MB at
+# fp8), a T5 block of the 2-layer tower (84 MB at wo_int4) or the VAE (168 MB)
+RESIDENT_SLACK = 64 * 2**20
+
+
+def host_resident(tree) -> bool:
+    """Every buffer of the tree on the host, in page-locked memory."""
+    return all(b.device.type == "cpu" and b.is_pinned() for b in tree.buffers())
+
+
+def phase_offload(card: str):
+    """configs/config-dev-offload.json at full width and depth: (a) compile() and a
+    streamed 1024x1024/28 request; (b) the streamed loop against the resident one at
+    every retain budget, with the copy rates; (c) an LRU hit and the whole-tree round
+    trip; (d) POST /lora under offload."""
+    import torch
+
+    from flux_fp8_api_tpu_torch import offload as offload_mod
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.ops.schedule import get_schedule
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.sampling import denoise
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+    from flux_fp8_api_tpu_torch.utils.config import load_config_from_path
+    from flux_fp8_api_tpu_torch.utils.loader import load_models_from_config
+    from flux_fp8_api_tpu_torch.utils.safetensors_io import save_safetensors
+    from flux_fp8_api_tpu_torch.utils.tree import copy_tree_, tree_nbytes, tree_to
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gib, prompt = 2**30, "a photo of a red house on a hill"
+    # the GEMM libraries' workspaces on the compute stream exist before the baseline
+    a = torch.ones(64, 64, device=dev)
+    torch.mm(a.bfloat16(), a.bfloat16())
+    torch._scaled_mm(a.to(torch.float8_e4m3fn), a.to(torch.float8_e4m3fn).t(), scale_a=a[0, 0], scale_b=a[0, 0],
+                     out_dtype=torch.bfloat16)
+    del a
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def zero_launches():
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # set-up: the flow drawn on the card, copied into page-locked host memory by the
+    # pipeline, then compile(): calibration over the whole tree's round trip, the
+    # serving bucket's warm-up streamed
+    spec = load_config_from_path(str(OFFLOAD_CONFIG))
+    spec.compile_extras = spec.compile_blocks = False  # compile() runs below, timed alone
+    zero_launches()
+    t = time.perf_counter()
+    models = load_models_from_config(spec)
+    draw_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pipe = FluxPipeline(str(spec.version), clip=models.clip, t5=models.t5, model=models.flow,
+                        model_cfg=models.flow_cfg, ae=models.ae, config=spec,
+                        prequantized=models.flow_prequantized)
+    to_host_s = time.perf_counter() - t
+    del models
+    release()
+    cfg = pipe.model_cfg
+    blocks = cfg.depth + cfg.depth_single_blocks
+    flow_bytes = tree_nbytes(pipe.model_params)
+    trees = {"flow": pipe.model_params, "VAE": pipe.ae_params, "T5": pipe.t5.params, "CLIP": pipe.clip.params}
+    if not all(host_resident(tree) for tree in trees.values()) or not pipe.t5.stream:
+        fail("offload", f"after load: host-resident {[k for k, v in trees.items() if host_resident(v)]}, "
+                        f"T5 streamed {pipe.t5.stream}")
+    spec.compile_extras = spec.compile_blocks = True
+    t = time.perf_counter()
+    pipe.compile()
+    compile_s = time.perf_counter() - t
+    warm = spec.num_scale_trials + (spec.warmup_steps or 24)
+    check_path_launches("offload", "compile()", dict(LAUNCHES), blocks * warm)
+    host_stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    print(f"[{card}] (offload) {OFFLOAD_CONFIG.name}: flow {flow_bytes / 1e9:.3f} GB on the host; set-up: draw "
+          f"(text encoders to pinned memory inside) {draw_s:.3f} s, flow and VAE to pinned host memory "
+          f"{to_host_s:.3f} s, compile() (12-step 768x768 calibration over the whole-tree round trip, "
+          f"{spec.warmup_steps or 24}-step 720x1024 warm-up streamed) {compile_s:.3f} s; pinned host bytes "
+          f"{host_stats.get('allocated_bytes.current', host_stats.get('allocated_bytes', 'not read'))}", flush=True)
+
+    def check_between(what: str):
+        """Nothing of a block, the VAE or an encoder on the card between requests."""
+        off = [k for k, tree in trees.items() if not host_resident(tree)]
+        tops = pipe._stream_state[0] if pipe._stream_state is not None else {}
+        expected = (sum(tree_nbytes(v) for v in tops.values() if v is not None)
+                    + sum(vec.nbytes + txt.nbytes for vec, txt in pipe._cond_cache.values())
+                    + (pipe.last_latents.nbytes if pipe.last_latents is not None else 0))
+        held = torch.cuda.memory_allocated() - base
+        if off or held - expected > RESIDENT_SLACK:
+            live = sorted((b["size"], seg["stream"]) for seg in torch.cuda.memory_snapshot()
+                          for b in seg["blocks"] if b["state"] == "active_allocated")[-12:]
+            fail("offload", f"{what}: not on the host {off}; the card holds {held} B, expected {expected} B; "
+                            f"largest live blocks (bytes, stream) {live}")
+        return held, expected
+
+    server = PipelineServer(pipe, host="127.0.0.1", port=0)
+    server.start_background()
+    tmp = Path(tempfile.mkdtemp())
+    url = f"http://127.0.0.1:{server.port}"
+
+    def generate(what, body, steps):
+        from PIL import Image
+
+        zero_launches()
+        t = time.perf_counter()
+        status, _, payload = post(f"{url}/generate", body)
+        dt = time.perf_counter() - t
+        launched = dict(LAUNCHES)
+        im = Image.open(io.BytesIO(payload))
+        im.load()
+        lat = pipe.last_latents
+        if status != 200 or im.size != (body["width"], body["height"]) or not bool(torch.isfinite(lat.float()).all()):
+            fail("offload", f"{what}: status {status}, {im.format} {im.size}, or non-finite latents")
+        check_path_launches("offload", what, launched, blocks * steps)
+        return dt, lat.clone()
+
+    try:
+        # (a) one streamed 1024x1024/28 request, every block retained after step 1
+        body = {"prompt": prompt, "width": 1024, "height": 1024, "num_steps": 28, "seed": 61}
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dt, _ = generate("(a) streamed POST /generate 1024x1024/28", body, 28)
+        peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        held, expected = check_between("(a)")
+        print(f"[{card}] (a) streamed POST /generate 1024x1024 28 steps: {dt:.3f} s/request, denoise "
+              f"{pipe.timings['denoise_it_per_s']:.3f} it/s ({pipe.timings['denoise_seconds']:.3f} s), prepare "
+              f"{pipe.timings['prepare_seconds']:.3f} s (LRU miss: CLIP moved, T5 streamed), decode (VAE moved) "
+              f"{pipe.timings['decode_seconds']:.3f} s, {blocks * 28} K1 and rope-pass launches; memory_allocated "
+              f"before {before / gib:.3f} GiB, peak {peak / gib:.3f}, after {after / gib:.3f} (beyond the phase's "
+              f"start {held / 2**20:.1f} MiB: top-level params, LRU and latents {expected / 2**20:.1f} MiB)", flush=True)
+
+        # (b) the streamed loop against the resident one on fixed inputs
+        with torch.inference_mode():
+            tops, dbl, sgl = pipe._ensure_stream_state()
+            host = pipe.model_params
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(62)
+
+            def inputs(size, steps):
+                noise = pipe.get_noise(1, size, size, gen)
+                ts = get_schedule(steps, noise.shape[-1] * noise.shape[-2] // 4, shift=True)
+                img, img_ids, vec, txt, txt_ids = pipe.prepare(noise, prompt)
+                return (img, img_ids, txt, txt_ids, vec), ts
+
+            def timed(what, steps, fn):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                m0 = torch.cuda.memory_allocated()
+                zero_launches()
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                check_path_launches("offload", what, dict(LAUNCHES), blocks * steps)
+                return out, dt, torch.cuda.max_memory_allocated() - m0
+
+            def streamed(x, ts, retain=None, sync_every=8):
+                return timed(f"streamed, retain {retain}, sync_every {sync_every}", len(ts) - 1, lambda: (
+                    offload_mod.streamed_denoise(tops, dbl, sgl, dev, *x, ts, 3.5, cfg,
+                                                 retain_bytes=retain, sync_every=sync_every)))
+
+            def resident(tree, x, ts):
+                return timed("resident", len(ts) - 1, lambda: denoise(tree, cfg, *x, ts, 3.5))
+
+            rates = []
+            for blk in (dbl[0], dbl[1], sgl[0], sgl[1]):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                d = tree_to(blk, dev, non_blocking=True)
+                torch.cuda.synchronize()
+                rates.append(tree_nbytes(blk) / (time.perf_counter() - t) / 1e9)
+                del d
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dev_tree = tree_to(host, dev, non_blocking=True)
+            torch.cuda.synchronize()
+            h2d_s = time.perf_counter() - t
+            x, ts28 = inputs(1024, 28)
+            r1, r1_s, _ = resident(dev_tree, x, ts28[:2])
+            r28, r28_s, r28_peak = resident(dev_tree, x, ts28)
+            t = time.perf_counter()
+            copy_tree_(host, dev_tree)  # the round trip's way back (the same values)
+            d2h_s = time.perf_counter() - t
+            del dev_tree, r1
+            release()
+            x512, ts4 = inputs(512, 4)
+            dev_tree = tree_to(host, dev)
+            ra, ra_s, ra_peak = resident(dev_tree, x512, ts4)
+            rb, _, _ = resident(dev_tree, x512, ts4)
+            del dev_tree
+            release()
+            floor = float((ra.float() - rb.float()).abs().max())
+            # step 1 first with the side stream's allocator pool empty (each block's
+            # tensors cudaMalloc'd), then as a server meets it, the pool holding the
+            # last request's blocks
+            _, s1_cold_s, _ = streamed(x, ts28[:2])
+            s1, s1_s, s1_peak = streamed(x, ts28[:2])
+            s28, s28_s, s28_peak = streamed(x, ts28)
+            mid = sum(tree_nbytes(b) for b in list(dbl) + list(sgl)) // 2
+            runs = {"retain 0": streamed(x512, ts4, 0), f"retain {mid / gib:.2f} GiB (mid)": streamed(x512, ts4, mid),
+                    "retain 0, sync_every 2": streamed(x512, ts4, 0, 2)}
+        resident_step, step1, steady = (r28_s - r1_s) / 27, s1_s, (s28_s - s1_s) / 27
+        diffs = {"1024x1024/28, retain all": float((s28.float() - r28.float()).abs().max())}
+        diffs.update({f"512x512/4, {k}": float((v[0].float() - ra.float()).abs().max()) for k, v in runs.items()})
+        print(f"[{card}] (b) host -> card copy of one block (pinned, non_blocking): "
+              + ", ".join(f"{r:.2f}" for r in rates) + f" GB/s (double, double, single, single); the whole flow "
+              f"{flow_bytes / 1e9:.3f} GB host -> card {h2d_s:.3f} s ({flow_bytes / h2d_s / 1e9:.2f} GB/s), card -> "
+              f"host in place {d2h_s:.3f} s ({flow_bytes / d2h_s / 1e9:.2f} GB/s)", flush=True)
+        print(f"[{card}] (b) 1024x1024: resident step {resident_step * 1e3:.1f} ms (28 steps {r28_s:.3f} s, "
+              f"{28 / r28_s:.3f} it/s, peak {r28_peak / gib:.3f} GiB above the tree); streamed, every block "
+              f"retained: step 1 {step1 * 1e3:.1f} ms ({s1_cold_s * 1e3:.1f} ms with the allocator's pool "
+              f"empty), steady step {steady * 1e3:.1f} ms (28 steps {s28_s:.3f} s, "
+              f"{28 / s28_s:.3f} it/s, peak {s28_peak / gib:.3f} GiB, step 1 alone {s1_peak / gib:.3f} GiB)", flush=True)
+        print(f"[{card}] (b) 512x512/4: resident {4 / ra_s:.3f} it/s (peak {ra_peak / gib:.3f} GiB above the tree); "
+              + "; ".join(f"streamed {k}: {4 / v[1]:.3f} it/s, peak {v[2] / gib:.3f} GiB" for k, v in runs.items())
+              + f"; resident run-to-run max |diff| {floor}", flush=True)
+        print(f"[{card}] (b) streamed vs resident latents, max |diff| (must be <= {floor}): {diffs}", flush=True)
+        if any(d > floor for d in diffs.values()):
+            fail("offload", f"streamed latents differ from the resident ones: {diffs}")
+        overlap_bound = h2d_s + resident_step - 0.5 * min(h2d_s, resident_step)
+        if not step1 <= overlap_bound:
+            fail("offload", f"step 1 {step1:.3f} s: the copies do not overlap the compute (bound {overlap_bound:.3f} s "
+                            f"= copy {h2d_s:.3f} + step {resident_step:.3f} - half the smaller)")
+        del s1, s28, r28, ra, rb, runs, x, x512, tops, dbl, sgl  # (d) rebuilds the stream state
+
+        # (c) the same prompt again: the LRU hits and no encoder moves; then the
+        # whole-tree round trip (stream_flow_offload=False)
+        moves = {"clip": 0, "t5": 0}
+        for name in moves:
+            enc = getattr(pipe, name)
+
+            def spy(enc=enc, name=name, move=enc.to_device):
+                moves[name] += 1
+                move()
+
+            enc.to_device = spy
+        body = {"prompt": prompt, "width": 512, "height": 512, "num_steps": 20, "seed": 63}
+        hit_s, hit_lat = generate("(c) LRU hit 512x512/20", body, 20)
+        if moves != {"clip": 0, "t5": 0} or pipe.timings["cond_cache_hits"] != 1:
+            fail("offload", f"(c) LRU hit: encoder moves {moves}, timings {pipe.timings}")
+        check_between("(c) LRU hit")
+        pipe.config.stream_flow_offload = False
+        try:
+            rt_s, rt_lat = generate("(c) round trip 512x512/20", body, 20)
+        finally:
+            pipe.config.stream_flow_offload = True
+        check_between("(c) round trip")
+        if not torch.equal(rt_lat, hit_lat):
+            fail("offload", "(c) the round trip's latents differ from the streamed request's")
+        print(f"[{card}] (c) LRU hit 512x512/20 (same prompt, no encoder moved: {moves}): {hit_s:.3f} s/request, "
+              f"prepare {pipe.timings['prepare_seconds']:.4f} s; stream_flow_offload=False (the whole tree to the "
+              f"card and back): {rt_s:.3f} s/request, denoise {pipe.timings['denoise_it_per_s']:.3f} it/s, latents "
+              f"equal to the streamed request's, params back on the host", flush=True)
+
+        # (d) POST /lora under offload: the fuse runs on the host tree
+        sd = {k: v for k, v in lora_state_dict(cfg.hidden_size, cfg.mlp_hidden, cfg.depth,
+                                               cfg.depth_single_blocks, seed=64).items()
+              if k.startswith(("transformer.transformer_blocks.0.", "transformer.single_transformer_blocks.37."))}
+        path = tmp / "offload-lora.safetensors"
+        save_safetensors(path, sd)
+
+        def lora(body):
+            t = time.perf_counter()
+            status, _, payload = post(f"{url}/lora", body)
+            if status != 200:
+                fail("offload", f"POST /lora {body}: {status} {payload[:200]!r}")
+            return time.perf_counter() - t
+
+        load_s = lora({"action": "load", "path": str(path), "scale": 1.0, "name": "offload"})
+        unpinned = sum(1 for b in pipe.model_params.buffers() if not b.is_pinned())
+        if pipe._stream_state is not None:
+            fail("offload", "(d) the fuse left the stream state in place")
+        fused_s, fused_lat = generate("(d) LoRA-fused 512x512/20", body, 20)
+        if pipe._stream_state is None or not host_resident(pipe.model_params):
+            fail("offload", "(d) the stream state was not rebuilt, or the host tree not pinned again")
+        unload_s = lora({"action": "unload", "name": "offload"})
+        restored_s, restored_lat = generate("(d) unfused 512x512/20", body, 20)
+        check_between("(d)")
+        fused_rel = rel(fused_lat, hit_lat)
+        restored_rel = rel(restored_lat, hit_lat)
+        print(f"[{card}] (d) POST /lora rank {LORA_RANK} over double block 0 and single block 37 "
+              f"({len(sd) // 2} factor pairs), fused on the host: load {load_s:.3f} s ({unpinned} host tensors "
+              f"left unpinned, pinned again when the stream state was rebuilt), request {fused_s:.3f} s, unload "
+              f"{unload_s:.3f} s, request {restored_s:.3f} s; latents vs unfused: fused {fused_rel:.3e}, unloaded "
+              f"{restored_rel:.3e}", flush=True)
+        if not (fused_rel > 1e-3 and restored_rel < 0.5 * fused_rel):
+            fail("offload", f"(d) fused {fused_rel}, unloaded {restored_rel}")
+    finally:
+        server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[{card}] phase offload: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del pipe, trees
+    release()
+
+
 def main() -> int:
     try:
         import torch
@@ -1437,6 +1758,7 @@ def main() -> int:
     del pipe
     release()
     phase_fidelity(card_line)
+    phase_offload(card_line)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,

@@ -281,7 +281,9 @@ def fuse_lora(model: ParamTree, cfg: FluxStatic, lora_sd: StateDict, keys: List[
     """Fuse every LoRA-touched Linear in place: W ← W + scale·B@A (reference
     apply_lora_to_model, lora_loading.py:634-693); a negative scale unfuses. Each
     touched Linear is replaced by a new one, so tensors frozen under inference mode
-    (the calibrated input scales) are never written in place. Returns the model."""
+    (the calibrated input scales) are never written in place. Each fuse runs on its
+    weight's device: the host for an offloaded flow, whose new tensors are not
+    page-locked until the pipeline's stream state is rebuilt. Returns the model."""
     qkv_perm = lin1_perm = None
     for key in keys:
         a, b = lora_sd.get(f"{key}.lora_A.weight"), lora_sd.get(f"{key}.lora_B.weight")

@@ -1,7 +1,7 @@
 """Text-encoder wrapper: tokenizer + encoder + weight-only tier
 (JAX counterpart: ``flux_fp8_api_tpu.models.conditioner``; reference ``HFEmbedder``,
-modules/conditioner.py:38-117). Resident on one device; offload, streaming and
-sharding are not ported yet.
+modules/conditioner.py:38-117). Resident on one device, or offloaded to the host
+(T5 optionally streamed per layer); sharding is not ported yet.
 
 Checkpoints load from local HF-style directories (``config.json`` + safetensors,
 optionally sharded through ``model.safetensors.index.json``); ``from_pretrained``
@@ -19,9 +19,9 @@ import torch
 
 from ..utils.config import into_device, into_dtype
 from ..utils.safetensors_io import SafetensorsFile
-from ..utils.tree import ParamTree
+from ..utils.tree import ParamTree, tree_to
 from .clip import CLIPConfig, clip_encode, load_clip_checkpoint, quantize_clip_params
-from .t5 import T5Config, load_t5_checkpoint, quantize_t5_params, t5_encode
+from .t5 import T5Config, load_t5_checkpoint, quantize_t5_params, t5_encode, t5_encode_streamed
 
 
 def _hf_state_dict_getter(model_dir: Path) -> Callable[[str], torch.Tensor]:
@@ -60,7 +60,13 @@ def _hf_state_dict_getter(model_dir: Path) -> Callable[[str], torch.Tensor]:
 
 class TextEncoder:
     """One text encoder (CLIP or T5) with its tokenizer. kind="clip" returns the pooled
-    vector (reference output_key "pooler_output"); kind="t5" the last_hidden_state."""
+    vector (reference output_key "pooler_output"); kind="t5" the last_hidden_state.
+
+    ``offload`` keeps the weights on the host (page-locked when ``device`` is a card)
+    between encodes: :meth:`to_device` puts a copy on the card and :meth:`to_host`
+    drops it (JAX conditioner.py:72-179). ``stream`` (T5 only, and only offloaded)
+    leaves the weights on the host and streams T5's blocks per layer inside each
+    encode (``t5_encode_streamed``); its moves are no-ops."""
 
     def __init__(
         self,
@@ -71,6 +77,8 @@ class TextEncoder:
         max_length: int,
         dtype=torch.bfloat16,
         device: Optional[torch.device] = None,
+        offload: bool = False,
+        stream: bool = False,
     ):
         if kind not in ("clip", "t5"):
             raise ValueError(f"unknown text encoder kind {kind!r}")
@@ -80,7 +88,26 @@ class TextEncoder:
         self.max_length = max_length
         self.dtype = dtype
         self.device = into_device(device)  # None → cuda:0; "cpu" for the host
-        self.params = params.to(self.device)
+        self.offload = offload
+        self.stream = bool(stream and offload and kind == "t5")
+        if offload:
+            self.host_params = tree_to(params, "cpu", pin=self.device.type == "cuda")
+            self.params = self.host_params
+        else:
+            self.params = params.to(self.device)
+
+    def to_device(self):
+        """Host → card (reference HFEmbedder.cuda(), conditioner.py:98-100): a device
+        copy beside the host tree. A resident or streaming encoder does nothing."""
+        if self.offload and not self.stream:
+            self.params = tree_to(self.host_params, self.device, non_blocking=True)
+
+    def to_host(self):
+        """Back to the host tree (reference HFEmbedder.offload(), conditioner.py:95-97):
+        the device copy is dropped; the weights never change, so nothing is copied
+        back. A resident or streaming encoder does nothing."""
+        if self.offload and not self.stream:
+            self.params = self.host_params
 
     def encode_ids(self, input_ids) -> torch.Tensor:
         """(B, L) ids → pooled (clip) or last_hidden_state (t5), on the encoder's device."""
@@ -88,6 +115,8 @@ class TextEncoder:
         with torch.inference_mode():
             if self.kind == "clip":
                 return clip_encode(self.params, self.config, ids, self.dtype)[1]
+            if self.stream:
+                return t5_encode_streamed(self.params, self.config, ids, self.device, self.dtype)
             return t5_encode(self.params, self.config, ids, self.dtype)
 
     def __call__(self, texts: List[str]) -> torch.Tensor:
@@ -109,13 +138,16 @@ class TextEncoder:
         quantization_dtype=None,
         tokenizer_path: Optional[str] = None,
         device: Optional[torch.device] = None,
+        offload: bool = False,
+        stream: bool = False,
     ) -> "TextEncoder":
         """Load a local HF directory: its ``config.json``, its safetensors (each tensor
         moved to ``device`` as it is read, then the tier applied there) and its
         tokenizer through ``transformers.AutoTokenizer``. The load is tolerant like
         the reference's strict=False one (util.py:225-237): missing tensors fill and
         extra keys are ignored, each with a warning naming them. ``device`` defaults
-        to cuda:0 (``into_device``); pass ``"cpu"`` for the host."""
+        to cuda:0 (``into_device``); pass ``"cpu"`` for the host. ``offload`` and
+        ``stream`` as in the constructor."""
         from transformers import AutoTokenizer
 
         from ..utils.checkpoint import LoadReport
@@ -138,7 +170,8 @@ class TextEncoder:
         report.finish(sd_get.all_keys)
         params = apply_quantization(kind, params, quantization_dtype)
         tokenizer = AutoTokenizer.from_pretrained(tokenizer_path or model_path)
-        return cls(kind, params, config, tokenizer, max_length=max_length, dtype=tdtype, device=device)
+        return cls(kind, params, config, tokenizer, max_length=max_length, dtype=tdtype, device=device,
+                   offload=offload, stream=stream)
 
 
 def apply_quantization(kind: str, params: ParamTree, quantization_dtype) -> ParamTree:

@@ -383,6 +383,33 @@ def flux_cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance=Non
     return modulate(layer_norm(h), shift1, scale1)
 
 
+def flux_pre(model, cfg: FluxStatic, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape: _Tape):
+    """Everything before the block stacks (reference flux_model.py:683-697): img_in and
+    txt_in, the conditioning vector, the rope tables. → (img, txt, SiLU(vec), cos, sin).
+    ``model`` needs only the top-level entries, so the streamed step (offload.py) runs
+    it on the device copy of those alone."""
+    dtype = cfg.dtype
+    img = tape.lin("img_in", model["img_in"], img.to(dtype), dtype)
+    vec = flux_cond_vec(model, cfg, timesteps, y, guidance, tape=tape)
+    txt = tape.lin("txt_in", model["txt_in"], txt.to(dtype), dtype)
+    ids = torch.cat([txt_ids, img_ids], dim=1)
+    cos, sin = embed_nd_cos_sin(ids, cfg.axes_dim, cfg.theta)
+    # every Modulation starts with SiLU(vec) (flux_model.py:252)
+    return img, txt, silu(vec), cos[:, :, None, :], sin[:, :, None, :]
+
+
+def flux_final(model, cfg: FluxStatic, img, vec_silu, tape: _Tape):
+    """The final adaLN projection of the image tokens (reference LastLayer,
+    flux_model.py:488-503); its chunk order is (shift, scale), not the Modulation
+    ordering."""
+    dtype = cfg.dtype
+    fl = model["final_layer"]
+    mod = tape.lin("final_layer.adaln", fl["adaln"], vec_silu, dtype)
+    f_shift, f_scale = mod[:, None, :].chunk(2, dim=-1)
+    img = modulate(layer_norm(img), f_shift, f_scale)
+    return tape.lin("final_layer.linear", fl["linear"], img, dtype)
+
+
 def flux_apply(
     model: ParamTree,
     cfg: FluxStatic,
@@ -410,18 +437,9 @@ def flux_apply(
     """
     if img.dim() != 3 or txt.dim() != 3:
         raise ValueError("Input img and txt tensors must have 3 dimensions.")
-    dtype = cfg.dtype
     tape = _Tape(collect_amax, cfg.fp8_fast_accum)
     txt_len = txt.shape[1]
-
-    img = tape.lin("img_in", model["img_in"], img.to(dtype), dtype)
-    vec = flux_cond_vec(model, cfg, timesteps, y, guidance, tape=tape)
-    txt = tape.lin("txt_in", model["txt_in"], txt.to(dtype), dtype)
-
-    ids = torch.cat([txt_ids, img_ids], dim=1)
-    cos, sin = embed_nd_cos_sin(ids, cfg.axes_dim, cfg.theta)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    vec_silu = silu(vec)  # every Modulation starts with SiLU(vec) (flux_model.py:252)
+    img, txt, vec_silu, cos, sin = flux_pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
 
     double_amaxes, single_amaxes = [], []
     for blk in model["double_blocks"]:
@@ -434,15 +452,7 @@ def flux_apply(
         block_tape = _Tape(collect_amax, cfg.fp8_fast_accum)
         x = _single_block(cfg, blk, x, vec_silu, cos, sin, block_tape)
         single_amaxes.append(block_tape.amaxes)
-    img = x[:, txt_len:]
-
-    # final adaLN projection (reference LastLayer, flux_model.py:488-503); chunk order
-    # is (shift, scale) — not the Modulation ordering
-    fl = model["final_layer"]
-    mod = tape.lin("final_layer.adaln", fl["adaln"], vec_silu, dtype)
-    f_shift, f_scale = mod[:, None, :].chunk(2, dim=-1)
-    img = modulate(layer_norm(img), f_shift, f_scale)
-    img = tape.lin("final_layer.linear", fl["linear"], img, dtype)
+    img = flux_final(model, cfg, x[:, txt_len:], vec_silu, tape)
 
     if collect_amax:
         amaxes: Dict[str, Any] = dict(tape.amaxes)

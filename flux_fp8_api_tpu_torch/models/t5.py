@@ -107,6 +107,31 @@ def t5_encode(params: ParamTree, cfg: T5Config, input_ids: torch.Tensor, dtype=t
     return _t5_layer_norm(x, params["final_ln"], cfg.layer_norm_epsilon)
 
 
+def t5_encode_streamed(params: ParamTree, cfg: T5Config, input_ids: torch.Tensor, device,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`t5_encode` with the host tree's blocks streamed to ``device`` one layer
+    ahead of their compute (JAX models/t5.py:144-207): ``shared``, ``rel_bias`` and
+    ``final_ln`` are copied first, each block's copy is enqueued on the side stream
+    before the block ahead of it runs (``offload.BlockStream``), and nothing is
+    retained: an encode reads each block once, so the card holds about two blocks of
+    weights plus activations, and nothing comes back. The same ops as
+    :func:`t5_encode`, so the same values bit for bit. ``input_ids`` on ``device``."""
+    from ..offload import BlockStream
+
+    stream = BlockStream(device)
+    tops = {k: params[k].to(device, non_blocking=True) for k in ("shared", "rel_bias", "final_ln")}
+    x = tops["shared"].to(dtype)[input_ids]
+    position_bias = compute_position_bias(tops["rel_bias"], input_ids.shape[1], cfg)
+    blocks = params["blocks"]
+    nxt = stream.put(blocks[0]) if len(blocks) else None
+    for j in range(len(blocks)):
+        (blk, done), nxt = nxt, (stream.put(blocks[j + 1]) if j + 1 < len(blocks) else None)
+        stream.ready(done)
+        x = _t5_block(blk, x, position_bias, cfg, dtype)
+        del blk  # freed once its compute is enqueued: two blocks on the card at most
+    return _t5_layer_norm(x, tops["final_ln"], cfg.layer_norm_epsilon)
+
+
 def init_t5_params(cfg: T5Config, generator: torch.Generator, dtype=torch.float32) -> ParamTree:
     """Random init on ``generator``'s device: N(0, 1)·0.02 matrices, unit norms."""
     device = generator.device

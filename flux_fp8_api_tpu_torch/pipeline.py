@@ -8,8 +8,12 @@ input scales of the fp8, int8 and int4 linears freeze after them. Randomness com
 an init image's VAE sample is drawn from the same generator, after the noise.
 
 The step cache (``sampling.CacheConfig``) runs as in JAX, with the skip decision made
-on the host. Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): offload and multi-device meshes.
+on the host. Offload runs as in JAX: the flow on the host, streamed block by block
+under the denoise loop (``offload.py``) once its input scales are calibrated, or moved
+whole to the card and back around each request (calibration, and
+``stream_flow_offload=False``); the VAE and the text encoders moved to the card only
+for their calls. Not ported yet: multi-device meshes (``NotImplementedError`` naming
+the ROADMAP item).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from PIL import Image
 
 from . import lora as lora_mod
+from . import offload as offload_mod
 from .calibration import apply_input_scales, merge_amax
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
@@ -40,7 +45,7 @@ from .ops.schedule import get_schedule
 from .sampling import CacheConfig, denoise, make_denoise_step
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
 from .utils.loader import load_models_from_config
-from .utils.tree import ParamTree
+from .utils.tree import ParamTree, copy_tree_, pin_tree_, tree_to
 
 MAX_RAND = 2**32 - 1
 
@@ -72,8 +77,6 @@ class FluxPipeline:
     ):
         if config is None:
             raise ValueError("ModelSpec config is required!")
-        if config.offload_flow or config.offload_vae or config.offload_text_encoder:
-            raise NotImplementedError("offload is not ported yet (ROADMAP: offload)")
         if config.mesh:
             raise NotImplementedError("multi-device meshes are not ported yet (ROADMAP: multi-GPU)")
         self.name = name
@@ -110,8 +113,16 @@ class FluxPipeline:
                     bound, MAX_SAFE_LOGIT,
                 )
                 self.model_cfg = dataclasses.replace(model_cfg, use_pallas=False)
-        self.model_params = model
-        self.ae_params = ae
+        self.offload_flow = config.offload_flow
+        self.offload_vae = config.offload_vae
+        self.offload_text_encoder = config.offload_text_encoder
+        # offloaded trees live on the host, page-locked when their device is a card
+        self.model_params = self._to_host(model, self.device_flux) if self.offload_flow else model
+        self.ae_params = self._to_host(ae, self.device_ae) if self.offload_vae else ae
+        # streamed offload: (top-level params on the card, host double blocks, host
+        # single blocks), built at the first streamed generate and dropped whenever the
+        # flow's weights change (a LoRA fuse, a calibration trial)
+        self._stream_state = None
 
         self._needs_calibration = (
             not prequantized and self._is_quantized() and config.num_scale_trials > 0
@@ -134,6 +145,33 @@ class FluxPipeline:
             self.compile()
 
     # ------------------------------------------------------------------------- state
+
+    @staticmethod
+    def _to_host(tree, device: torch.device):
+        if tree is None:
+            return None
+        return tree_to(tree, "cpu", pin=device.type == "cuda")
+
+    def _ensure_stream_state(self):
+        """The streamed-offload state (JAX pipeline.py:389-403), built if missing: the
+        host tree pinned again where a LoRA fuse left unpinned tensors, and the
+        top-level params copied to the card."""
+        if self._stream_state is None:
+            if self.device_flux.type == "cuda":
+                pin_tree_(self.model_params)
+            tops, dbl, sgl = offload_mod.split_flow_params(self.model_params)
+            self._stream_state = (offload_mod.tops_to_device(tops, self.device_flux), dbl, sgl)
+        return self._stream_state
+
+    def _invalidate_stream(self):
+        self._stream_state = None
+
+    def _ae_on_device(self):
+        """The VAE's weights on its device: under ``offload_vae`` a copy for this call,
+        dropped after it (the host tree never changes, so nothing comes back)."""
+        if self.offload_vae:
+            return tree_to(self.ae_params, self.device_ae, non_blocking=True)
+        return self.ae_params
 
     def _is_quantized(self) -> bool:
         if self.model_params is None:
@@ -212,7 +250,7 @@ class FluxPipeline:
             arr = self.resize_center_crop(init_image, height, width)
             nhwc = torch.from_numpy(arr.astype(np.float32) / 127.5 - 1.0)[None]
             t_encode = time.perf_counter()
-            z = ae_encode(self.ae_params, self.config.ae_params,
+            z = ae_encode(self._ae_on_device(), self.config.ae_params,
                           nhwc.to(self.device_ae, self.ae_dtype), generator)  # (1, h, w, z)
             z = z.permute(0, 3, 1, 2).to(self.device_flux, self.dtype).repeat(num_images, 1, 1, 1)
             _sync(z)
@@ -230,23 +268,32 @@ class FluxPipeline:
         size = self.config.cond_cache_size
         t5_len = self.config.text_enc_max_length
         out: Dict[str, Any] = {}
-        hits = misses = 0
+        misses: List[str] = []
         for p in dict.fromkeys(prompts):
             hit = self._cond_cache.get((p, t5_len)) if size > 0 else None
             if hit is not None:
                 self._cond_cache.move_to_end((p, t5_len))
-                hits += 1
                 out[p] = hit
-                continue
-            misses += 1
-            enc = get_weighted_text_embeddings(
-                self.clip, self.t5, p, num_images_per_prompt=1, t5_length=t5_len
-            )
-            out[p] = enc
-            if size > 0:
-                self._cond_cache[(p, t5_len)] = enc
-                while len(self._cond_cache) > size:
-                    self._cond_cache.popitem(last=False)
+            else:
+                misses.append(p)
+        if misses:  # a full hit moves no encoder
+            if self.offload_text_encoder:
+                self.clip.to_device()
+                self.t5.to_device()
+            for p in misses:
+                enc = get_weighted_text_embeddings(
+                    self.clip, self.t5, p, num_images_per_prompt=1, t5_length=t5_len
+                )
+                out[p] = enc
+                if size > 0:
+                    self._cond_cache[(p, t5_len)] = enc
+                    while len(self._cond_cache) > size:
+                        self._cond_cache.popitem(last=False)
+            if self.offload_text_encoder:
+                self.clip.to_host()
+                self.t5.to_host()
+        hits = len(out) - len(misses)
+        misses = len(misses)
         self.cond_cache_hits += hits
         self.cond_cache_misses += misses
         self.timings["cond_cache_hits"] = hits
@@ -300,6 +347,7 @@ class FluxPipeline:
                 self._amax_running = merge_amax(self._amax_running, amaxes)
                 apply_input_scales(self.model_params, self._amax_running)
                 self._trials_done += 1
+                self._invalidate_stream()  # the input scales changed under the params
                 if self._trials_done >= self.config.num_scale_trials:
                     self._needs_calibration = False
             else:
@@ -331,11 +379,15 @@ class FluxPipeline:
 
         ``cache``: the step cache (sampling.CacheConfig, or a dict like ``{"mode":
         "dynamic", "threshold": 0.25}`` from the HTTP body), which skips model
-        evaluations; ignored with a warning while calibration trials are pending.
-        ``timings["cache_model_evals"]`` then counts the evaluations run."""
+        evaluations; ignored with a warning while calibration trials are pending or
+        the flow streams (JAX pipeline.py:677-684). ``timings["cache_model_evals"]``
+        then counts the evaluations run."""
         cache = CacheConfig.parse(cache)
-        if cache.mode != "none" and self._needs_calibration:
-            logger.warning("step cache ignored: calibration trials pending")
+        # streamed offload (offload.py) once the input scales are frozen; calibration
+        # and stream_flow_offload=False move the whole tree to the card and back
+        streaming = self.offload_flow and self.config.stream_flow_offload and not self._needs_calibration
+        if cache.mode != "none" and (self._needs_calibration or streaming):
+            logger.warning("step cache ignored: calibration trials pending or streamed offload active")
             cache = CacheConfig(mode="none")
         num_steps = 4 if self.name == ModelVersion.flux_schnell.value else num_steps
         init_image = self.load_init_image_if_needed(init_image)
@@ -351,20 +403,35 @@ class FluxPipeline:
         img, img_ids, vec, txt, txt_ids = self.prepare(img, prompt)
         self.timings["prepare_seconds"] = time.perf_counter() - t_prepare
 
-        t_denoise = time.perf_counter()
         cache_stats: Dict[str, Any] = {}
-        if self._needs_calibration:
-            img = self._calibration_denoise(
-                img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent
-            )
-        else:
-            img = denoise(
-                self.model_params, self.model_cfg, img, img_ids, txt, txt_ids, vec,
-                timesteps, guidance, fused=silent, progress=not silent,
-                cache=cache, stats=cache_stats,
-            )
-        _sync(img)
-        self.timings["denoise_seconds"] = time.perf_counter() - t_denoise
+        host_flow = None
+        if self.offload_flow and not streaming:  # outside the denoise time, as in JAX
+            host_flow, self.model_params = self.model_params, tree_to(self.model_params, self.device_flux)
+        t_denoise = time.perf_counter()
+        try:
+            if self._needs_calibration:
+                img = self._calibration_denoise(
+                    img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent
+                )
+            elif streaming:
+                tops, dbl, sgl = self._ensure_stream_state()
+                retain_gb = self.config.offload_retain_gb
+                img = offload_mod.streamed_denoise(
+                    tops, dbl, sgl, self.device_flux, img, img_ids, txt, txt_ids, vec,
+                    timesteps, guidance, self.model_cfg, progress=not silent,
+                    retain_bytes=None if retain_gb is None else int(retain_gb * 1024**3),
+                )
+            else:
+                img = denoise(
+                    self.model_params, self.model_cfg, img, img_ids, txt, txt_ids, vec,
+                    timesteps, guidance, fused=silent, progress=not silent,
+                    cache=cache, stats=cache_stats,
+                )
+            _sync(img)
+            self.timings["denoise_seconds"] = time.perf_counter() - t_denoise
+        finally:
+            if host_flow is not None:  # back into the pinned host tree, calibrated scales too
+                self.model_params = copy_tree_(host_flow, self.model_params)
         # schedule steps per second: with the step cache, the JAX package's "effective"
         # rate (a skipped step costs a few elementwise passes)
         self.timings["denoise_it_per_s"] = (len(timesteps) - 1) / max(
@@ -389,7 +456,7 @@ class FluxPipeline:
         the device (reference flux_pipeline.py:422-448 + :373-397)."""
         x = unpack_latents(latents.float(), height, width)  # (B, C, h, w)
         x = x.permute(0, 2, 3, 1).to(self.device_ae, self.ae_dtype)  # NHWC
-        y = ae_decode(self.ae_params, self.config.ae_params, x).float()
+        y = ae_decode(self._ae_on_device(), self.config.ae_params, x).float()
         pixels = torch.floor(torch.clamp((torch.clamp(y, -1.0, 1.0) + 1.0) * 127.5, 0.0, 255.0))
         return pixels.to(torch.uint8).cpu().numpy()
 
@@ -403,12 +470,14 @@ class FluxPipeline:
         self.model_params, self.loras = lora_mod.pipeline_load_lora(
             self.model_params, self.model_cfg, self.loras, lora_path, scale, name
         )
+        self._invalidate_stream()
 
     def unload_lora(self, path_or_identifier: str):
         """Unfuse a previously loaded LoRA (reference flux_pipeline.py:170-177)."""
         self.model_params, self.loras = lora_mod.pipeline_unload_lora(
             self.model_params, self.model_cfg, self.loras, path_or_identifier
         )
+        self._invalidate_stream()
 
     # -------------------------------------------------------------------- checkpoints
 

@@ -6,7 +6,8 @@ Endpoints and JSON shapes are the JAX server's:
 - POST /generate  {prompt, width, height, num_steps, guidance, seed, strength,
                    init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used);
                    a malformed ``cache`` answers 400, and a pipeline feature not
-                   ported yet (``NotImplementedError``) 501
+                   ported yet (``NotImplementedError``: today only a multi-device
+                   mesh) 501
 - POST /lora      {action: load|unload, path, name, scale} → JSON status
 - GET  /          the browser UI (``webui.py``)
 - GET  /health (with the fused LoRAs' names), GET /metrics

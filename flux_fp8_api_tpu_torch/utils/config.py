@@ -72,8 +72,8 @@ class AutoEncoderParams(BaseModel):
 class ModelSpec(BaseModel):
     """Pipeline configuration, field-compatible with the JAX package's ModelSpec.
 
-    Fields for features this port does not run yet (offload, mesh) are kept so that
-    the pipeline can refuse them by name instead of silently dropping them.
+    The ``mesh`` field, for the multi-device serving this port does not run yet, is
+    kept so that the pipeline can refuse it by name instead of silently dropping it.
     """
 
     version: ModelVersion
@@ -105,6 +105,17 @@ class ModelSpec(BaseModel):
     offload_text_encoder: bool = False
     offload_vae: bool = False
     offload_flow: bool = False
+    # with offload_flow: stream the flow's blocks host → card one block ahead of their
+    # compute under the denoise loop (offload.py) instead of moving the whole tree to
+    # the card and back each request; calibration always moves the whole tree
+    stream_flow_offload: bool = True
+    # GiB of streamed blocks kept on the card between denoise steps (the leading blocks
+    # that fit); None keeps every block, 0 streams every block at every step
+    offload_retain_gb: Optional[float] = None
+    # with offload_text_encoder: stream T5's blocks per layer at encode time
+    # (models/t5.py t5_encode_streamed) instead of moving the whole tower; CLIP always
+    # moves whole
+    stream_text_encoder: bool = True
     prequantized_flow: bool = False
     quantize_modulation: bool = True
     quantize_flow_embedder_layers: bool = False

@@ -242,7 +242,8 @@ def _random_clip(config: ModelSpec, device: torch.device) -> TextEncoder:
         config.clip_quantization_dtype,
     )
     return TextEncoder("clip", params, cfg, _toy_tokenizer("clip"), max_length=77,
-                       dtype=into_dtype(config.text_enc_dtype), device=device)
+                       dtype=into_dtype(config.text_enc_dtype), device=device,
+                       offload=config.offload_text_encoder)
 
 
 def _random_t5(config: ModelSpec, device: torch.device) -> TextEncoder:
@@ -260,7 +261,8 @@ def _random_t5(config: ModelSpec, device: torch.device) -> TextEncoder:
     )
     return TextEncoder("t5", params, cfg, _toy_tokenizer("t5"),
                        max_length=config.text_enc_max_length,
-                       dtype=into_dtype(config.text_enc_dtype), device=device)
+                       dtype=into_dtype(config.text_enc_dtype), device=device,
+                       offload=config.offload_text_encoder, stream=config.stream_text_encoder)
 
 
 def _looks_like_hub_id(path) -> bool:
@@ -274,7 +276,8 @@ def _looks_like_hub_id(path) -> bool:
 def load_text_encoders(config: ModelSpec):
     """→ (clip, t5) TextEncoders (reference util.py:259-275): a local HF directory
     loads through ``TextEncoder.from_pretrained``; a hub id or no path gives the
-    random tower."""
+    random tower. With ``offload_text_encoder`` both keep their weights on the host,
+    T5 streamed per layer under ``stream_text_encoder`` (JAX loader.py:225-330)."""
     device = into_device(config.text_enc_device)
     dtype = config.text_enc_dtype
     if config.clip_path and not _looks_like_hub_id(config.clip_path):
@@ -282,6 +285,7 @@ def load_text_encoders(config: ModelSpec):
             "clip", config.clip_path, max_length=77, dtype=dtype,
             quantization_dtype=config.clip_quantization_dtype,
             tokenizer_path=config.clip_tokenizer_path, device=device,
+            offload=config.offload_text_encoder,
         )
     else:
         if config.clip_path:
@@ -293,6 +297,7 @@ def load_text_encoders(config: ModelSpec):
             "t5", config.text_enc_path, max_length=config.text_enc_max_length, dtype=dtype,
             quantization_dtype=config.text_enc_quantization_dtype,
             tokenizer_path=config.t5_tokenizer_path, device=device,
+            offload=config.offload_text_encoder, stream=config.stream_text_encoder,
         )
     else:
         if config.text_enc_path:
