@@ -109,9 +109,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
     blocks, fused on the host: the stream state dropped and rebuilt, the host tree
     pinned again, a request after each.
 
+16. training: (a) the rope pass's backward build against its plain version bit for bit
+    at L = 4608, 3392 and 1536 (a contiguous and a head-folded strided gradient),
+    timed beside its plain version and its bound, and the autograd Function's grads
+    against autograd through ``rope_rotate_ref`` on the card; (b) QLoRA at full size:
+    ``configs/config-dev-int8.json``'s pipeline (calibrated and warmed by
+    ``compile()``, one 512x512/20 request served first), rank-16 adapters on
+    ``DEFAULT_ADAPTER_TARGETS``, ``make_lora_train_step`` (AdamW, clip 1.0, remat) at
+    512x512, batch 1: one warm step, then, every launch count set to 0 just before and
+    read just after, ``TRAIN_STEPS`` timed steps (s/step, steps/s, peak memory, finite
+    losses; no K1 launch, 114 rope-pass forwards and 57 backwards per step); every base
+    tensor byte-equal before and after; the adapters exported and fused by POST /lora
+    into the same pipeline, a 512x512/20 request (57 K1 launches per evaluation,
+    latents finite and other than the base's), and the fused serving forward against
+    the merged dequantize forward within ``LORA_FUSE_REL_TOL`` in norm, three fused
+    int8 weights within half a step of dequant(W) + B·A; fp8 and int4 bases
+    drawn from a seed, 2 steps each with finite losses; (e) ``train_lora`` on
+    ``config-dev-int8.json`` with 4 PNGs at 512x512 (4 steps, a checkpoint and a
+    validation every 2, a train-state directory), resumed to 6 steps, its file loaded
+    by POST /lora into (b)'s pipeline; (c) remat on against off at full width with 2 + 4
+    blocks at 1024x1024: loss and adapter grads within ``REMAT_REL_TOL``, both peaks;
+    (d) full-parameter steps at full width, 2 + 4 blocks, bf16, 1024x1024:
+    ``make_train_step`` (SGD) and ``make_optimizer_train_step`` (AdamW, clip 1.0), 2
+    steps each, finite losses and params moved.
+
 The last lines are the card line, one JSON object describing each kernel build (its
-launches counted in the path of phase 7 or 4; its time, plain time, bound, library
-time and error at L = 4608 from phase 3 or 4),
+launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
+time and error at L = 4608 from phase 3, 4 or 16),
 and ``{"ok": true, "device": {...}}``. Phases 7-13 free their pipelines before the
 next (phase 7's lives until phase 10 has saved it, and phase 10(a)'s reload until
 phase 13 has served it).
@@ -178,6 +202,26 @@ LORA_RANK, LORA_B_STD = 16, 0.0625
 # phase 14: the North star's gate, fp8 (fast accumulation, the serving default) against
 # bf16 by the SSIM of the latent image
 FIDELITY_GATE = 0.95
+# phase 16(b): the fused serving forward (int8 activations, requantized weights) against
+# the merged dequantize forward, ‖a − b‖ / ‖b‖. The JAX package's test of the same
+# comparison (tests/test_lora_train.py::test_export_into_quantized_base) holds 2 + 2
+# blocks to 0.05 in max|a − b| / max|b|. Over flux-dev's 57 random-weight blocks each of
+# the two int8 roundings moves the output by about that much on its own (both printed:
+# the int8 activations 3.9% in norm, requantizing W + B·A to a fresh scale 5.1%; NVIDIA
+# H100 80GB HBM3, 700 W), so the bound is twice the JAX one, in norm. What the fuse must
+# get right, the exported rows in their layout, is checked per weight, to half a step:
+LORA_FUSE_REL_TOL = 0.1
+# a fused int8 row against dequant(W) + B·A in fp64 (the adapters in the runtime's
+# layout): requantization rounds each element to the nearest step of its row's fresh
+# scale, at most amax/254, with 1e-3 of that for the fp32 delta and sum
+INT8_HALF_STEP = 1.0 / 254 * (1 + 1e-3)
+# phase 16(c): remat on against off, ‖a − b‖ / ‖b‖ over the loss and over all adapter
+# grads. The two runs do the same bf16 work, but SDPA's backward accumulates dq over
+# key tiles with atomics in an order that changes from run to run, and each bf16
+# rounding that moves passes through the blocks' backward.
+REMAT_REL_TOL = 2e-2
+TRAIN_STEPS = 6
+TRAIN_CONFIG = ROOT / "configs" / "config-dev-int8.json"
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1718,6 +1762,327 @@ def phase_offload(card: str):
     release()
 
 
+def phase_training(card: str):
+    """Phase 16: the rope pass's backward build, QLoRA at flux-dev's full size, the
+    train_lora CLI, remat on against off, and full-parameter steps (module docstring)."""
+    import logging
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from flux_fp8_api_tpu_torch import train_lora
+    from flux_fp8_api_tpu_torch.lora import (
+        adapter_tensors, init_lora_adapters, merge_lora_adapters, save_lora_adapters,
+    )
+    from flux_fp8_api_tpu_torch.models.flux import FluxStatic, flux_apply, init_flux_params, quant_tier
+    from flux_fp8_api_tpu_torch.ops.attention import fold_heads
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import (
+        LAUNCHES, rope_rotate, rope_rotate_backward, rope_rotate_ref, rope_rotate_ref_backward,
+    )
+    from flux_fp8_api_tpu_torch.ops.quant import dequantize_kernel
+    from flux_fp8_api_tpu_torch.parallel.train import (
+        adamw, flow_matching_loss, make_dummy_batch, make_lora_train_step, make_optimizer_train_step,
+        make_train_step, train_cfg, trainable_tensors,
+    )
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+    from flux_fp8_api_tpu_torch.utils.config import FluxParams
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def zero_launches():
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+    def finite(x):
+        return bool(torch.isfinite(x.float()).all())
+
+    # (a) the backward build at the three serving lengths
+    bwd = {}
+    for h_img, w_img in ((1024, 1024), (1024, 720), (512, 512)):
+        cos, sin = rope_tables(h_img, w_img)
+        l = cos.shape[0]
+        g = gen(l)
+        gq = torch.randn((24, l, 128), generator=g, device=dev).to(torch.bfloat16)
+        # k's gradient as a head-folded view of a (1, L, 24, 128) tensor, as B = 1 hands it over
+        gk = fold_heads(torch.randn((1, l, 24, 128), generator=g, device=dev).to(torch.bfloat16))
+        dq, dk = rope_rotate_backward(gq, gk, cos, sin)
+        rq, rk = rope_rotate_ref_backward(gq, cos, sin), rope_rotate_ref_backward(gk, cos, sin)
+        torch.cuda.synchronize()
+        if not (torch.equal(dq, rq) and torch.equal(dk, rk)):
+            err = max(float((dq.float() - rq.float()).abs().max()), float((dk.float() - rk.float()).abs().max()))
+            fail("training", f"L={l}: the backward build differs from its plain version (max {err})")
+        q = torch.randn((24, l, 128), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+        k = torch.randn((24, l, 128), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+        oq, ok = rope_rotate(q, k, cos, sin)
+        got = torch.autograd.grad((oq, ok), (q, k), (gq, gk))
+        want = torch.autograd.grad((rope_rotate_ref(q, cos, sin), rope_rotate_ref(k, cos, sin)), (q, k), (gq, gk))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail("training", f"L={l}: the Function's grads differ from autograd through rope_rotate_ref")
+        ms = cuda_time_ms(lambda: rope_rotate_backward(gq, gk, cos, sin), 50)
+        plain_ms = cuda_time_ms(lambda: (rope_rotate_ref_backward(gq, cos, sin),
+                                         rope_rotate_ref_backward(gk, cos, sin)), 5)
+        bound_ms, bound_by = rope_bound(24, l)
+        bwd[l] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0}
+        print(f"[{card}] (a) rope pass backward L={l}: bit for bit its plain version (contiguous gq, "
+              f"head-folded strided gk) and the Function's grads autograd's; {ms:.4f} ms (plain {plain_ms:.3f}, "
+              f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.0f}% of it)", flush=True)
+
+    # (b) QLoRA at full size on a pipeline that has calibrated and served
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    t = time.perf_counter()
+    pipe = FluxPipeline.load_pipeline_from_config_path(str(TRAIN_CONFIG))  # compile() runs here
+    cfg, base = pipe.model_cfg, pipe.model_params
+    blocks = cfg.depth + cfg.depth_single_blocks
+    print(f"[{card}] (b) pipeline from {TRAIN_CONFIG.name}: hidden {cfg.hidden_size}, {cfg.depth}+"
+          f"{cfg.depth_single_blocks} blocks, {base['single_blocks'][0]['linear1'].kind}; load + calibrate + warm "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    server = PipelineServer(pipe, host="127.0.0.1", port=0)
+    server.start_background()
+    url = f"http://127.0.0.1:{server.port}"
+
+    def request(what):
+        body = {"prompt": "a photo of a red house on a hill", "width": 512, "height": 512, "num_steps": 20,
+                "seed": 51}
+        before = dict(LAUNCHES)
+        status, _, payload = post(f"{url}/generate", body)
+        im = Image.open(io.BytesIO(payload))
+        im.load()
+        lat = pipe.last_latents
+        if status != 200 or im.size != (512, 512) or lat is None or not finite(lat):
+            fail("training", f"{what}: status {status}, {im.size}, latents finite {lat is not None and finite(lat)}")
+        check_path_launches("training", what, {k: n - before[k] for k, n in LAUNCHES.items()}, blocks * 20)
+        return lat.clone()
+
+    def load_lora(path, name):
+        status, _, payload = post(f"{url}/lora", {"action": "load", "path": str(path), "scale": 1.0, "name": name})
+        with urllib.request.urlopen(f"{url}/health", timeout=60) as resp:
+            loaded = json.loads(resp.read())["loras"]
+        if status != 200 or name not in loaded:
+            fail("training", f"POST /lora {path}: status {status} {payload!r}, /health {loaded}")
+
+    try:
+        base_latents = request("base 512x512/20")
+        snapshot = {n: b.clone() for n, b in base.named_buffers()}
+        adapters = init_lora_adapters(base, 16, gen(160))
+        n_adapter = sum(p.numel() for p in adapter_tensors(adapters))
+        init, step = make_lora_train_step(cfg, adamw(1e-4), max_grad_norm=1.0)
+        opt = init(adapters)
+        data = make_dummy_batch(cfg, 1, 64, 64, 512, gen(161))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        adapters, opt, loss = step(adapters, opt, base, data, gen(162))
+        first_s, losses = time.perf_counter() - t, [float(loss)]
+        zero_launches()  # the training path's run starts here
+        t = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            adapters, opt, loss = step(adapters, opt, base, data, gen(163 + i))
+            losses.append(float(loss))
+        dt = (time.perf_counter() - t) / TRAIN_STEPS
+        train_launches = dict(LAUNCHES)  # read just after it
+        peak = torch.cuda.max_memory_allocated()
+        want = {"rope_rotate": 2 * blocks * TRAIN_STEPS, "rope_rotate_backward": blocks * TRAIN_STEPS}
+        if {k: n for k, n in train_launches.items() if n} != want:
+            fail("training", f"launches over {TRAIN_STEPS} steps {train_launches}, expected {want}")
+        if not all(np.isfinite(losses)):
+            fail("training", f"non-finite loss: {losses}")
+        changed = [n for n, b in base.named_buffers() if not torch.equal(
+            b.view(torch.uint8) if b.element_size() == 1 else b,
+            snapshot[n].view(torch.uint8) if b.element_size() == 1 else snapshot[n])]
+        if changed or sorted(snapshot) != sorted(n for n, _ in base.named_buffers()):
+            fail("training", f"the frozen base changed: {changed[:5]}")
+        del snapshot
+        print(f"[{card}] (b) QLoRA flux-dev int8 base, rank 16 on the default targets ({n_adapter} adapter "
+              f"params, {n_adapter * 2 / 1e6:.1f} MB bf16), 512x512 (L = 1536) batch 1, remat, AdamW lr 1e-4 "
+              f"+ clip 1.0: first step {first_s:.3f} s, then {dt:.4f} s/step = {1 / dt:.3f} steps/s over "
+              f"{TRAIN_STEPS} steps; peak memory {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
+              f"before); losses {', '.join(f'{x:.4f}' for x in losses)}; launches {train_launches} = 0 K1, "
+              f"{2 * blocks} rope-pass forwards and {blocks} backwards per step; every base tensor "
+              f"byte-equal after", flush=True)
+
+        # the trained adapters exported and served: fused by POST /lora into this pipeline
+        x = make_dummy_batch(cfg, 1, 64, 64, 512, gen(164))
+        half = torch.full((1,), 0.5, device=dev)
+        args = (x["latents"], x["img_ids"], x["txt"], x["txt_ids"], half, x["y"], torch.full((1,), 3.5, device=dev))
+        with torch.inference_mode():
+            merged = flux_apply(merge_lora_adapters(base, adapters), train_cfg(cfg, False, dequant=True), *args)
+            # the same adapters as a side branch on the serving path: what only requantization moves
+            merged_serving = flux_apply(merge_lora_adapters(base, adapters), cfg, *args)
+        path = tmp / "trained.safetensors"
+        save_lora_adapters(str(path), adapters, cfg)
+        leaves = (("double_blocks", 0, "img_attn_qkv"), ("double_blocks", cfg.depth - 1, "txt_mlp_2"),
+                  ("single_blocks", cfg.depth_single_blocks - 1, "linear1"))
+        expected = {}
+        for stack, i, name in leaves:
+            ab = adapters[stack][i][name]
+            delta = ab["b"].detach().double() @ ab["a"].detach().double()  # runtime layout
+            expected[(stack, i, name)] = (dequantize_kernel(base[stack][i][name]).double() + delta).cpu()
+        t = time.perf_counter()
+        load_lora(path, "trained")
+        load_s = time.perf_counter() - t
+        for (stack, i, name), ref in expected.items():
+            got = dequantize_kernel(pipe.model_params[stack][i][name]).double().cpu()
+            step = ref.abs().amax(dim=1, keepdim=True) * INT8_HALF_STEP
+            used = float(((got - ref).abs() / step).max())
+            print(f"[{card}] (b) fused {stack}.{i}.{name}: dequant vs dequant(W) + B·A in fp64, the worst "
+                  f"element at {used:.3f} of its int8 half step", flush=True)
+            if not used <= 1.0:
+                fail("training", f"{stack}.{i}.{name}: fused weights off dequant(W) + B·A ({used} half steps)")
+        lat = request("the trained LoRA 512x512/20")
+        if torch.equal(lat, base_latents):
+            fail("training", "the trained LoRA left the served latents as they were")
+        with torch.inference_mode():
+            fused = flux_apply(pipe.model_params, cfg, *args)
+        def max_rel(a, b):
+            return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+        def norm_rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        fuse_rel = norm_rel(fused, merged)
+        print(f"[{card}] (b) exported ({path.stat().st_size} bytes) and fused by POST /lora in {load_s:.3f} s; "
+              f"512x512/20 served through K1 ({blocks} launches per evaluation), latents vs the base's "
+              f"{float((lat - base_latents).float().norm() / base_latents.float().norm()):.3e}; fused serving "
+              f"forward vs merged dequantize forward ‖a - b‖/‖b‖ {fuse_rel:.3e} (tol {LORA_FUSE_REL_TOL}), "
+              f"max|a - b|/max|b| {max_rel(fused, merged):.3e}; of it, the int8 activations (merged serving vs "
+              f"merged dequantize) {norm_rel(merged_serving, merged):.3e} / {max_rel(merged_serving, merged):.3e}, "
+              f"the requantization (fused vs merged serving) {norm_rel(fused, merged_serving):.3e} / "
+              f"{max_rel(fused, merged_serving):.3e}", flush=True)
+        if not fuse_rel < LORA_FUSE_REL_TOL:
+            fail("training", f"fused serving forward vs merged forward {fuse_rel}")
+        del adapters, opt, merged, merged_serving, fused
+
+        # (e) the CLI end to end, its file loaded into the same pipeline
+        data_dir = tmp / "data"
+        data_dir.mkdir()
+        rng = np.random.default_rng(165)
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 255, (512, 512, 3), dtype=np.uint8)).save(data_dir / f"item_{i}.png")
+        (data_dir / "item_0.txt").write_text("a (red:1.2) house on a hill")
+        out, state = tmp / "cli.safetensors", tmp / "state"
+        common = ["--config-path", str(TRAIN_CONFIG), "--data-dir", str(data_dir), "--output", str(out),
+                  "--rank", "16", "--width", "512", "--height", "512", "--save-every", "2",
+                  "--val-every", "2", "--state-dir", str(state)]
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda r: records.append(r.getMessage())
+        cli_log = logging.getLogger(train_lora.__name__)
+        cli_log.addHandler(handler)
+        cli_log.setLevel(logging.INFO)
+        try:
+            t = time.perf_counter()
+            train_lora.train(common + ["--steps", "4"])
+            first_run = time.perf_counter() - t
+            written = out.read_bytes()
+            t = time.perf_counter()
+            train_lora.train(common + ["--steps", "6"])
+            resumed_run = time.perf_counter() - t
+        finally:
+            cli_log.removeHandler(handler)
+        vals = [m for m in records if "val loss" in m]
+        if len(vals) != 3 or not any("@ step 4" in m for m in records) or out.read_bytes() == written:
+            fail("training", f"CLI: validations {vals}, log {records}")
+        load_lora(out, "cli")
+        print(f"[{card}] (e) train_lora on {TRAIN_CONFIG.name}, 4 PNGs at 512x512 (one held out): 4 steps "
+              f"{first_run:.1f} s with load, resumed to 6 {resumed_run:.1f} s; {'; '.join(vals)}; "
+              f"{out.stat().st_size} bytes loaded by POST /lora", flush=True)
+    finally:
+        server.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del pipe, base
+    release()
+
+    # (b) the fp8 and int4 bases, drawn from a seed
+    for kind in ("fp8", "int4"):
+        model = init_flux_params(cfg, gen(170), leaf_fn=quant_tier(kind))
+        adapters = init_lora_adapters(model, 16, gen(171))
+        init, step = make_lora_train_step(cfg, adamw(1e-4), max_grad_norm=1.0)
+        opt = init(adapters)
+        data = make_dummy_batch(cfg, 1, 64, 64, 512, gen(172))
+        losses, t = [], time.perf_counter()
+        for i in range(2):
+            adapters, opt, loss = step(adapters, opt, model, data, gen(173 + i))
+            losses.append(float(loss))
+        if not all(np.isfinite(losses)):
+            fail("training", f"{kind} base: losses {losses}")
+        print(f"[{card}] (b) {kind} base ({model['single_blocks'][0]['linear1'].kind}): 2 steps "
+              f"{time.perf_counter() - t:.2f} s, losses {losses}", flush=True)
+        del model, adapters, opt
+        release()
+
+    # (c) remat on against off, and (d) full-parameter steps: flux-dev width, 2 + 4 blocks, 1024x1024
+    cut = FluxParams(in_channels=64, vec_in_dim=768, context_in_dim=4096, hidden_size=3072, mlp_ratio=4.0,
+                     num_heads=24, depth=2, depth_single_blocks=4, axes_dim=[16, 56, 56], theta=10_000,
+                     qkv_bias=True, guidance_embed=True)
+    small = FluxStatic.from_params(cut, use_pallas=False)
+    data = make_dummy_batch(small, 1, 128, 128, 512, gen(180))
+    model = init_flux_params(small, gen(181), leaf_fn=quant_tier("int8"))
+    adapters = init_lora_adapters(model, 16, gen(182))
+    with torch.no_grad():
+        for entry in (e for stack in adapters.values() for e in stack):
+            for ab in entry.values():  # B ≠ 0, so that A gets gradients too
+                ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen(183), device=dev) * 1e-2)
+    runs = {}
+    for remat in (True, False):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        g = gen(184)
+        loss = flow_matching_loss(merge_lora_adapters(model, adapters), train_cfg(small, remat, dequant=True), data, g)
+        grads = torch.autograd.grad(loss, adapter_tensors(adapters))
+        flat = torch.cat([gr.float().flatten() for gr in grads])
+        torch.cuda.synchronize()
+        runs[remat] = (float(loss.detach()), flat, (torch.cuda.max_memory_allocated() - base_mem) / 2**30)
+        del grads, loss
+    (l_on, g_on, p_on), (l_off, g_off, p_off) = runs[True], runs[False]
+    loss_rel = abs(l_on - l_off) / abs(l_off)
+    grad_rel = float((g_on - g_off).norm() / g_off.norm())
+    print(f"[{card}] (c) remat on vs off, int8 QLoRA step, {cut.depth}+{cut.depth_single_blocks} blocks at "
+          f"1024x1024 (L = 4608): loss {l_on:.6f} / {l_off:.6f} (rel {loss_rel:.2e}{', bit for bit' if l_on == l_off else ''}), "
+          f"adapter grads rel {grad_rel:.2e} (tol {REMAT_REL_TOL}); peak above the weights {p_on:.2f} GiB on, "
+          f"{p_off:.2f} GiB off", flush=True)
+    if not (loss_rel <= REMAT_REL_TOL and grad_rel <= REMAT_REL_TOL and np.isfinite(l_on)):
+        fail("training", f"remat on vs off: loss rel {loss_rel}, grad rel {grad_rel}")
+    del model, adapters, runs, g_on, g_off
+    release()
+
+    for name in ("sgd", "adamw"):
+        model = init_flux_params(small, gen(190), dtype=torch.bfloat16)
+        before = [p.detach().clone() for p in trainable_tensors(model)]
+        if name == "sgd":
+            sgd = make_train_step(small, lr=1e-3)
+            run_step = lambda m, i: sgd(m, data, gen(191 + i))[1]  # noqa: E731
+        else:
+            init, opt_step = make_optimizer_train_step(small, adamw(1e-4), max_grad_norm=1.0)
+            opt = init(model)
+            run_step = lambda m, i: opt_step(m, opt, data, gen(191 + i))[2]  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        losses = [float(run_step(model, i)) for i in range(2)]
+        dt = time.perf_counter() - t
+        after = trainable_tensors(model)
+        moved = sum(int((a != b).sum()) for a, b in zip(after, before))
+        total = sum(b.numel() for b in before)
+        print(f"[{card}] (d) full-parameter {name} ({'lr 1e-3' if name == 'sgd' else 'AdamW lr 1e-4, clip 1.0'}), "
+              f"bf16, {cut.depth}+{cut.depth_single_blocks} blocks ({total} params) at 1024x1024: 2 steps "
+              f"{dt:.2f} s, losses {losses}, {moved} of {total} params moved, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if not (all(np.isfinite(losses)) and moved > 0):
+            fail("training", f"full-parameter {name}: losses {losses}, {moved} params moved")
+        del model, before, after
+        release()
+    print(f"[{card}] phase training: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return train_launches, bwd
+
+
 def main() -> int:
     try:
         import torch
@@ -1759,6 +2124,7 @@ def main() -> int:
     release()
     phase_fidelity(card_line)
     phase_offload(card_line)
+    train_launches, bwd = phase_training(card_line)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
@@ -1780,6 +2146,9 @@ def main() -> int:
     ):
         t = builds[build][4608]
         kernels.append(row(build, source, replaces, path_launches[build], t["max_abs_err"], t))
+    kernels.append(row("rope_rotate_backward", "flux_fp8_api_tpu_torch/csrc/rope_rotate.cu",
+                       "flux_fp8_api_tpu/ops/rope.py:93", train_launches["rope_rotate_backward"],
+                       bwd[4608]["max_abs_err"], bwd[4608]))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

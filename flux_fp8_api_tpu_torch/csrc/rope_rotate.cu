@@ -21,6 +21,14 @@
 // against the 4 bytes of x and out. q and k go in one launch: the first blocks take q,
 // the rest k; blockIdx.y picks the group of heads. x may be a strided (head, row) view
 // with a contiguous last dimension; out is contiguous (H, L, 128).
+//
+// The backward build (kBackward) is the transpose of the same rotation, for training:
+// given the gradient g of out, with the same geometry, tables and roundings,
+//   dx[j]      = g[j] cos[j]           + g[j + 64] sin[j + 64]      j < 64
+//   dx[j + 64] = g[j + 64] cos[j + 64] - g[j] sin[j]
+// which is what autograd computes through rope_rotate_ref: the same two products and
+// one sum per element, each rounded on its own, then one round to bf16. It is right
+// for any tables, equal halves or not.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,6 +61,7 @@ __device__ __forceinline__ void load8(float (&f)[8], const float* p) {
   *reinterpret_cast<float4*>(f + 4) = *reinterpret_cast<const float4*>(p + 4);
 }
 
+template <bool kBackward>
 __device__ __forceinline__ void rotate(const Job& job, int64_t item, int head0) {
   const int c = static_cast<int>(item % kChunks) * 8;
   const int row = static_cast<int>(item / kChunks);
@@ -82,8 +91,13 @@ __device__ __forceinline__ void rotate(const Job& job, int64_t item, int head0) 
       for (int u = 0; u < 2; ++u) {
         a[u] = __bfloat162float(xl[e + u]);
         b[u] = __bfloat162float(xh[e + u]);
-        rl[u] = __fsub_rn(__fmul_rn(a[u], cl[e + u]), __fmul_rn(b[u], sl[e + u]));
-        rh[u] = __fadd_rn(__fmul_rn(b[u], ch[e + u]), __fmul_rn(a[u], sh[e + u]));
+        if (kBackward) {
+          rl[u] = __fadd_rn(__fmul_rn(a[u], cl[e + u]), __fmul_rn(b[u], sh[e + u]));
+          rh[u] = __fsub_rn(__fmul_rn(b[u], ch[e + u]), __fmul_rn(a[u], sl[e + u]));
+        } else {
+          rl[u] = __fsub_rn(__fmul_rn(a[u], cl[e + u]), __fmul_rn(b[u], sl[e + u]));
+          rh[u] = __fadd_rn(__fmul_rn(b[u], ch[e + u]), __fmul_rn(a[u], sh[e + u]));
+        }
       }
       ol[e / 2] = pack_bf16(rl[0], rl[1]);
       oh[e / 2] = pack_bf16(rh[0], rh[1]);
@@ -94,14 +108,15 @@ __device__ __forceinline__ void rotate(const Job& job, int64_t item, int head0) 
   }
 }
 
+template <bool kBackward>
 __global__ void __launch_bounds__(kThreads) rope_rotate_kernel(const Job q, const Job k, int q_blocks) {
   const bool is_q = static_cast<int>(blockIdx.x) < q_blocks;
   const int64_t item = static_cast<int64_t>(blockIdx.x - (is_q ? 0 : q_blocks)) * kThreads + threadIdx.x;
   const int head0 = blockIdx.y * kHeadsPerThread;
   if (is_q) {
-    if (item < q.items) rotate(q, item, head0);
+    if (item < q.items) rotate<kBackward>(q, item, head0);
   } else if (item < k.items) {
-    rotate(k, item, head0);
+    rotate<kBackward>(k, item, head0);
   }
 }
 
@@ -120,6 +135,20 @@ Job make_job(const void* x, int64_t sh, int64_t sl, void* out, const void* cos, 
   return j;
 }
 
+template <bool kBackward>
+int launch(const void* q, int64_t q_sh, int64_t q_sl, void* q_out, const void* cos_q, const void* sin_q, int lq,
+           const void* k, int64_t k_sh, int64_t k_sl, void* k_out, const void* cos_k, const void* sin_k, int lkv,
+           int heads, void* stream) {
+  const Job qj = make_job(q, q_sh, q_sl, q_out, cos_q, sin_q, heads, lq);
+  const Job kj = make_job(k, k_sh, k_sl, k_out, cos_k, sin_k, heads, lkv);
+  const int q_blocks = static_cast<int>((qj.items + kThreads - 1) / kThreads);
+  const int k_blocks = static_cast<int>((kj.items + kThreads - 1) / kThreads);
+  if (q_blocks + k_blocks == 0 || heads == 0) return 0;
+  const dim3 grid(q_blocks + k_blocks, (heads + kHeadsPerThread - 1) / kHeadsPerThread);
+  rope_rotate_kernel<kBackward><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(qj, kj, q_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes: rotates q (H, lq, 128) with cos_q/sin_q and
@@ -130,12 +159,17 @@ extern "C" int rope_rotate_bf16(
     const void* q, int64_t q_sh, int64_t q_sl, void* q_out, const void* cos_q, const void* sin_q, int lq,
     const void* k, int64_t k_sh, int64_t k_sl, void* k_out, const void* cos_k, const void* sin_k, int lkv,
     int heads, void* stream) {
-  const Job qj = make_job(q, q_sh, q_sl, q_out, cos_q, sin_q, heads, lq);
-  const Job kj = make_job(k, k_sh, k_sl, k_out, cos_k, sin_k, heads, lkv);
-  const int q_blocks = static_cast<int>((qj.items + kThreads - 1) / kThreads);
-  const int k_blocks = static_cast<int>((kj.items + kThreads - 1) / kThreads);
-  if (q_blocks + k_blocks == 0 || heads == 0) return 0;
-  const dim3 grid(q_blocks + k_blocks, (heads + kHeadsPerThread - 1) / kHeadsPerThread);
-  rope_rotate_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(qj, kj, q_blocks);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, q_sh, q_sl, q_out, cos_q, sin_q, lq, k, k_sh, k_sl, k_out, cos_k, sin_k, lkv,
+                       heads, stream);
+}
+
+// The backward build, bound the same way: gq (H, lq, 128) and gk (H, lkv, 128), the
+// gradients of the rotated q and k (strided views with a contiguous last dimension
+// allowed), into the contiguous dq and dk, with the forward's tables, in one launch.
+extern "C" int rope_rotate_backward_bf16(
+    const void* gq, int64_t q_sh, int64_t q_sl, void* dq, const void* cos_q, const void* sin_q, int lq,
+    const void* gk, int64_t k_sh, int64_t k_sl, void* dk, const void* cos_k, const void* sin_k, int lkv,
+    int heads, void* stream) {
+  return launch<true>(gq, q_sh, q_sl, dq, cos_q, sin_q, lq, gk, k_sh, k_sl, dk, cos_k, sin_k, lkv,
+                      heads, stream);
 }

@@ -19,21 +19,29 @@ The port's blocks are per-block modules, so ``double_blocks.3.img_attn.qkv`` nam
 Deltas arrive in the checkpoint's interleaved rope layout; the rows of a qkv or
 linear1 delta are permuted into the runtime's half-split layout first. Only the flat
 fused layout exists here (the grouped one is multi-GPU work).
+
+The second half makes LoRAs (JAX lora.py:517-647): trainable rank-r adapters on a
+frozen, typically quantized base (:func:`init_lora_adapters`), attached to a skeleton
+copy of the tree for the train step (:func:`merge_lora_adapters`), and exported as a
+kohya ``lora_unet_*`` file that :func:`pipeline_load_lora` (and the reference) loads
+(:func:`save_lora_adapters`).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import re
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .models.flux import FluxStatic
 from .ops.quant import Linear, dequantize_kernel, with_kernel
 from .utils.checkpoint import qkv_out_permutation
-from .utils.safetensors_io import load_safetensors
+from .utils.safetensors_io import load_safetensors, save_safetensors
 from .utils.tree import ParamTree
 
 logger = logging.getLogger(__name__)
@@ -361,3 +369,121 @@ def pipeline_unload_lora(model: ParamTree, cfg: FluxStatic, registry: List[LoraW
             return model, registry[:i] + registry[i + 1:]
     logger.warning("could not remove LoRA %s: it is not fused into the model", path_or_identifier)
     return model, registry
+
+
+# ------------------------------------------------------ trainable adapters (QLoRA)
+#
+# Adapters are ``{stack: [{leaf: {"a": (r, in), "b": (out, r)}} per block]}``: the JAX
+# package's stacked (D, in, r) / (D, r, out) split per block and transposed into
+# torch's lora_down / lora_up convention (utils/convert.py:convert_adapters carries JAX
+# adapters across). The alpha/rank scale is folded into the parametrization: the side
+# branch applies (x·Aᵀ)·Bᵀ unscaled and the export writes alpha = rank.
+
+DEFAULT_ADAPTER_TARGETS: Dict[str, Tuple[str, ...]] = {
+    "double_blocks": (
+        "img_attn_qkv", "txt_attn_qkv", "img_attn_proj", "txt_attn_proj",
+        "img_mlp_0", "img_mlp_2", "txt_mlp_0", "txt_mlp_2",
+    ),
+    "single_blocks": ("linear1", "linear2"),
+}
+
+Adapters = Dict[str, List[Dict[str, Dict[str, torch.Tensor]]]]
+
+
+def _out_features(lin: Linear) -> int:
+    return (lin.weight if lin.weight is not None else lin.q).shape[0]
+
+
+def init_lora_adapters(
+    model: ParamTree,
+    rank: int,
+    generator: torch.Generator,
+    targets: Optional[Dict[str, Tuple[str, ...]]] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Adapters:
+    """Fresh adapters on ``generator``'s device, each a leaf that requires grad: A drawn
+    N(0, 1/in) in fp32 and cast, B zeros, so the merged model is the base model at step
+    0 (JAX lora.py:550-578). ``in`` is the true in width of packed kinds (int4 holds
+    in/2 bytes per row)."""
+    targets = DEFAULT_ADAPTER_TARGETS if targets is None else targets
+    device = generator.device
+    adapters: Adapters = {}
+    for stack, names in targets.items():
+        blocks = []
+        for blk in model[stack]:
+            entry = {}
+            for name in names:
+                lin = blk[name]
+                in_f, out_f = lin.in_features, _out_features(lin)
+                a = torch.randn((rank, in_f), generator=generator, device=device) * (in_f**-0.5)
+                entry[name] = {
+                    "a": a.to(dtype).requires_grad_(),
+                    "b": torch.zeros((out_f, rank), dtype=dtype, device=device).requires_grad_(),
+                }
+            blocks.append(entry)
+        adapters[stack] = blocks
+    return adapters
+
+
+def adapter_tensors(adapters: Adapters) -> List[torch.Tensor]:
+    """Every adapter tensor, in a fixed order: stack, block, leaf, then a before b."""
+    return [ab[k] for stack in adapters.values() for entry in stack for ab in entry.values() for k in ("a", "b")]
+
+
+def merge_lora_adapters(model: ParamTree, adapters: Adapters) -> ParamTree:
+    """A skeleton copy of ``model`` whose targeted Linears carry the adapters as
+    ``lora_a``/``lora_b`` (JAX lora.py:581-592). Every base tensor is shared, not
+    copied; only the modules on the way to a touched Linear are new, so ``model``
+    itself is left without adapters."""
+
+    def shallow(module):
+        clone = copy.copy(module)
+        clone._modules = dict(module._modules)
+        clone._buffers = dict(module._buffers)
+        return clone
+
+    out = shallow(model)
+    for stack, blocks in adapters.items():
+        new_stack = shallow(model[stack])
+        for i, entry in enumerate(blocks):
+            blk = shallow(new_stack[i])
+            for name, ab in entry.items():
+                lin = shallow(blk[name])
+                lin._buffers["lora_a"], lin._buffers["lora_b"] = ab["a"], ab["b"]
+                blk._modules[name] = lin
+            new_stack._modules[str(i)] = blk
+        out._modules[stack] = new_stack
+    return out
+
+
+def export_lora_adapters(adapters: Adapters, cfg: FluxStatic) -> StateDict:
+    """Trained adapters → a kohya ``lora_unet_*`` state dict in fp32 (JAX
+    lora.py:595-640): ``lora_down.weight`` (r, in), ``lora_up.weight`` (out, r),
+    ``alpha`` = rank, so every consumer applies scale 1. The rows of a qkv or linear1
+    B go back into the checkpoint's interleaved rope layout: the inverse of the
+    permutation that :func:`fuse_lora` applies at load. Only the flat fused layout is
+    ported: the grouped one (tensor parallelism) raises."""
+    cfg.require_flat("exporting adapters")
+    inv_qkv = np.argsort(qkv_out_permutation(cfg.hidden_size, cfg.head_dim))
+    inv_lin1 = np.argsort(qkv_out_permutation(cfg.hidden_size, cfg.head_dim, extra=cfg.mlp_hidden))
+    bfl_by_leaf = {v: k for k, v in _BLOCK_LEAF_BY_BFL.items()}
+    sd: StateDict = {}
+    for stack, blocks in adapters.items():
+        for i, entry in enumerate(blocks):
+            for name, ab in entry.items():
+                a = ab["a"].detach().float().cpu()
+                b = ab["b"].detach().float().cpu()
+                if name in ("img_attn_qkv", "txt_attn_qkv"):
+                    b = b[torch.as_tensor(inv_qkv)]
+                elif name == "linear1":
+                    b = b[torch.as_tensor(inv_lin1)]
+                stem = f"lora_unet_{stack}_{i}_{bfl_by_leaf[name].replace('.', '_')}"
+                sd[f"{stem}.lora_down.weight"] = a.contiguous()
+                sd[f"{stem}.lora_up.weight"] = b.contiguous()
+                sd[f"{stem}.alpha"] = torch.tensor(float(a.shape[0]), dtype=torch.float32)
+    return sd
+
+
+def save_lora_adapters(path: str, adapters: Adapters, cfg: FluxStatic) -> None:
+    """Export and write a safetensors file that any FLUX LoRA consumer loads."""
+    save_safetensors(str(path), export_lora_adapters(adapters, cfg))

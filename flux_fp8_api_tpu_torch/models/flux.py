@@ -20,6 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from ..ops.attention import attention
 from ..ops.math import (
     clamp_policy,
@@ -57,6 +59,18 @@ class FluxStatic:
     # the attention path (ModelSpec.use_pallas): the max-free kernel, or
     # F.scaled_dot_product_attention (ops/attention.py:attention_core)
     use_pallas: bool = True
+    # rematerialize block activations under autograd: with grad enabled each double and
+    # single block runs under torch.utils.checkpoint, so backward recomputes the block
+    # instead of holding its activations and dequantized weights (JAX flux.py:82-86,
+    # jax.checkpoint on the scan bodies). Forward values are unchanged.
+    remat: bool = False
+    # run the fp8/int8/int4 linears through the differentiable dequantize path
+    # (ops/quant.py linear_apply ``dequant``): the QLoRA training forward. Serving
+    # configs keep it off (JAX flux.py:87-93).
+    dequant_linears: bool = False
+    # fused qkv/linear1/linear2 channel layout (JAX flux.py:73-79): only "flat" is
+    # ported; "grouped" (head-major, for tensor parallelism) raises where it is used
+    fused_layout: str = "flat"
 
     @classmethod
     def from_params(
@@ -87,6 +101,11 @@ class FluxStatic:
             fp8_fast_accum=fp8_fast_accum,
             use_pallas=use_pallas,
         )
+
+    def require_flat(self, what: str) -> None:
+        if self.fused_layout != "flat":
+            raise NotImplementedError(
+                f"{what} in the {self.fused_layout!r} fused layout waits for multi-GPU (ROADMAP §1 item 12)")
 
     @property
     def head_dim(self) -> int:
@@ -243,13 +262,19 @@ def init_flux_params(
 class _Tape:
     """Applies linears and, during calibration passes, records their input amaxes."""
 
-    def __init__(self, collect: bool, fast_accum: bool = True):
+    def __init__(self, collect: bool, fast_accum: bool = True, dequant: bool = False):
         self.collect = collect
         self.fast_accum = fast_accum
+        self.dequant = dequant
         self.amaxes: Dict[str, torch.Tensor] = {}
 
+    @classmethod
+    def of(cls, cfg: "FluxStatic", collect: bool = False) -> "_Tape":
+        return cls(collect, cfg.fp8_fast_accum, cfg.dequant_linears)
+
     def lin(self, name: str, lin: Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-        out, amax = linear_apply(lin, x, dtype, collect_amax=self.collect, fast_accum=self.fast_accum)
+        out, amax = linear_apply(lin, x, dtype, collect_amax=self.collect, fast_accum=self.fast_accum,
+                                 dequant=self.dequant)
         if self.collect:
             self.amaxes[name] = amax
         return out
@@ -357,7 +382,7 @@ def flux_cond_vec(model, cfg: FluxStatic, timesteps, y, guidance=None, tape: Opt
     """The per-step conditioning vector (reference flux_model.py:683-691):
     time_in(t_emb) [+ guidance_in(g_emb)] + vector_in(y)."""
     dtype = cfg.dtype
-    tape = tape or _Tape(False, cfg.fp8_fast_accum)
+    tape = tape or _Tape.of(cfg)
     vec = _mlp_embedder(tape, "time_in", model["time_in"], timestep_embedding(timesteps, 256).to(dtype), dtype)
     if cfg.guidance_embed:
         if guidance is None:
@@ -375,7 +400,7 @@ def flux_cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance=Non
     relative L1 drift between steps follows the drift of the model's output; it costs
     img_in, the conditioning MLPs and one modulation linear, none of the 57 blocks."""
     dtype = cfg.dtype
-    tape = _Tape(False, cfg.fp8_fast_accum)
+    tape = _Tape.of(cfg)
     h = tape.lin("img_in", model["img_in"], img.to(dtype), dtype)
     vec = flux_cond_vec(model, cfg, timesteps, y, guidance, tape=tape)
     img_mod = tape.lin("img_mod_lin", model["double_blocks"][0]["img_mod_lin"], silu(vec), dtype)[:, None, :]
@@ -437,20 +462,30 @@ def flux_apply(
     """
     if img.dim() != 3 or txt.dim() != 3:
         raise ValueError("Input img and txt tensors must have 3 dimensions.")
-    tape = _Tape(collect_amax, cfg.fp8_fast_accum)
+    cfg.require_flat("the forward")
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and collect_amax:
+        raise ValueError("collect_amax (calibration) does not combine with remat under grad")
+    tape = _Tape.of(cfg, collect_amax)
     txt_len = txt.shape[1]
     img, txt, vec_silu, cos, sin = flux_pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
 
+    def run(block_fn, *args):
+        # per-block rematerialization: only the block's inputs are kept for backward
+        if remat:
+            return checkpoint(block_fn, *args, use_reentrant=False)
+        return block_fn(*args)
+
     double_amaxes, single_amaxes = [], []
     for blk in model["double_blocks"]:
-        block_tape = _Tape(collect_amax, cfg.fp8_fast_accum)
-        img, txt = _double_block(cfg, blk, img, txt, vec_silu, cos, sin, block_tape)
+        block_tape = _Tape.of(cfg, collect_amax)
+        img, txt = run(_double_block, cfg, blk, img, txt, vec_silu, cos, sin, block_tape)
         double_amaxes.append(block_tape.amaxes)
 
     x = torch.cat([txt, img], dim=1)
     for blk in model["single_blocks"]:
-        block_tape = _Tape(collect_amax, cfg.fp8_fast_accum)
-        x = _single_block(cfg, blk, x, vec_silu, cos, sin, block_tape)
+        block_tape = _Tape.of(cfg, collect_amax)
+        x = run(_single_block, cfg, blk, x, vec_silu, cos, sin, block_tape)
         single_amaxes.append(block_tape.amaxes)
     img = flux_final(model, cfg, x[:, txt_len:], vec_silu, tape)
 

@@ -57,7 +57,10 @@ def attention_core(
       q, k, v: (B, L, N, H).
       cos, sin: optional rope tables, (B, L, 1, H) as the model builds them, or (L, H).
       use_pallas: True runs the max-free kernel (the rope pass in front when there are
-        tables); False rotates q and k with the rope pass and runs :func:`_sdpa`.
+        tables), which has no backward and raises under a gradient; False rotates q
+        and k with the rope pass and runs :func:`_sdpa`, differentiable end to end
+        (the rope pass through its autograd Function and backward build, SDPA through
+        its own backward): the training path.
     Returns:
       (B, L, N, H) in q's dtype.
     """

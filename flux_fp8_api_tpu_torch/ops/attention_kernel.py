@@ -1,7 +1,8 @@
 """Max-free qk-norm attention: the hand-written CUDA kernel in its three builds
-(serving, stats, ablate) and the rope pass in front of it, their plain PyTorch
-versions, the wrappers that pick between them by device, the guard rail built on the
-stats build, and the kernels' build.
+(serving, stats, ablate) and the rope pass in front of it with its backward build,
+their plain PyTorch versions, the wrappers that pick between them by device, the
+autograd Function of the rope pass, the guard rail built on the stats build, and the
+kernels' build.
 
 JAX counterpart: ``flux_fp8_api_tpu.ops.attention_kernel`` (the Pallas TPU kernel),
 whose docstring argues why FLUX's qk-RMSNorm makes a constant-shift softmax safe:
@@ -50,6 +51,7 @@ LAUNCHES = {
     "qknorm_attention_stats": 0,
     "qknorm_attention_ablate_exp": 0,
     "rope_rotate": 0,
+    "rope_rotate_backward": 0,
     "bare_two_dot": 0,
 }
 
@@ -117,11 +119,11 @@ def load_library():
             ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        fn = lib.rope_rotate_bf16
         job = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        fn.argtypes = job + job + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.rope_rotate_bf16, lib.rope_rotate_backward_bf16):
+            fn.argtypes = job + job + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         fn = lib.bare_two_dot_bf16
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] * 3 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -131,14 +133,34 @@ def load_library():
     return _lib
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or in fp64 when it is fp64 (gradcheck's dtype)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rope_rotate_ref(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Plain version of the rope pass: half-split RoPE of x (..., L, D) with (L, D)
     tables, in fp32 (each product and the sum rounded on their own), cast back to x's
     dtype once. The JAX kernel's ``_rope_rotate``."""
-    x32 = x.float()
+    x32 = _wide(x)
     half = x32.shape[-1] // 2
     rotated = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
-    return (x32 * cos.float() + rotated * sin.float()).to(x.dtype)
+    return (x32 * cos.to(x32.dtype) + rotated * sin.to(x32.dtype)).to(x.dtype)
+
+
+def rope_rotate_ref_backward(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Plain version of the rope pass's backward: the gradient of x from the gradient g
+    of ``rope_rotate_ref(x, cos, sin)``, the rotation's transpose
+    ``dx₁ = g₁·c₁ + g₂·s₂``, ``dx₂ = g₂·c₂ − g₁·s₁`` (halves of the last axis), with the
+    products and sums that autograd forms through :func:`rope_rotate_ref`, so it equals
+    autograd's gradient bit for bit."""
+    g32 = _wide(g)
+    c, s = cos.to(g32.dtype), sin.to(g32.dtype)
+    half = g32.shape[-1] // 2
+    g1, g2 = g32[..., :half], g32[..., half:]
+    dx1 = g1 * c[..., :half] + g2 * s[..., half:]
+    dx2 = g2 * c[..., half:] - g1 * s[..., :half]
+    return torch.cat([dx1, dx2], dim=-1).to(g.dtype)
 
 
 def qknorm_attention_ref(
@@ -232,6 +254,80 @@ def tma_params(t: torch.Tensor) -> tuple:
     return (d, l, h, row, head, BOX_COLS, BLOCKS[1], 1)
 
 
+def _rope_launch(entry: str, build: str, q, k, cos, sin, cos_q, sin_q):
+    """One launch of a rope-pass build (``entry`` in the library) on CUDA q (H, Lq, 128)
+    and k (H, Lkv, 128) with their tables, into new contiguous outputs. Raises on what
+    the kernel cannot take and on a failed launch."""
+    check_heads(q, k, k)
+    h, lq, d = q.shape
+    lkv = k.shape[1]
+    for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq), ("cos", cos, lkv), ("sin", sin, lkv)):
+        _check_table(t, rows, name, q.device)
+    q_out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
+    k_out = torch.empty((h, lkv, d), dtype=k.dtype, device=k.device)
+    err = getattr(load_library(), entry)(
+        q.data_ptr(), q.stride(0), q.stride(1), q_out.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), lq,
+        k.data_ptr(), k.stride(0), k.stride(1), k_out.data_ptr(), cos.data_ptr(), sin.data_ptr(), lkv,
+        h, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{build} kernel launch failed: cudaError {err}")
+    LAUNCHES[build] += 1
+    return q_out, k_out
+
+
+def _kernel_view(g: torch.Tensor) -> torch.Tensor:
+    """g as the rope kernels take it: a copy when its last dimension is not contiguous
+    or its strides or base are not 16-byte aligned (a gradient may arrive in any
+    layout), else g itself."""
+    if g.stride(-1) != 1 or g.stride(0) % 8 or g.stride(1) % 8 or g.data_ptr() % 16:
+        return g.contiguous()
+    return g
+
+
+def rope_rotate_backward(
+    gq: torch.Tensor,
+    gk: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cos_q: Optional[torch.Tensor] = None,
+    sin_q: Optional[torch.Tensor] = None,
+):
+    """The rope pass's backward: (dq, dk) from the gradients of the rotated q and k,
+    with the forward's tables (``cos_q``/``sin_q`` default to ``cos``/``sin``).
+
+    CPU tensors run :func:`rope_rotate_ref_backward`. CUDA tensors launch the backward
+    build of ``csrc/rope_rotate.cu`` (one launch for both), which gives what the plain
+    version gives, bit for bit; a gradient whose layout the kernel cannot take is
+    copied first, and anything else it cannot take raises.
+    """
+    cos_q = cos if cos_q is None else cos_q
+    sin_q = sin if sin_q is None else sin_q
+    if not gq.is_cuda:
+        return rope_rotate_ref_backward(gq, cos_q, sin_q), rope_rotate_ref_backward(gk, cos, sin)
+    return _rope_launch("rope_rotate_backward_bf16", "rope_rotate_backward",
+                        _kernel_view(gq), _kernel_view(gk), cos, sin, cos_q, sin_q)
+
+
+class RopeRotate(torch.autograd.Function):
+    """The rope pass under autograd: forward :func:`rope_rotate`'s kernel (or its plain
+    version on the CPU), backward :func:`rope_rotate_backward`'s. q and k get
+    gradients; the tables get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, cos_q, sin_q):
+        ctx.save_for_backward(cos, sin, cos_q, sin_q)
+        if not q.is_cuda:
+            return rope_rotate_ref(q, cos_q, sin_q), rope_rotate_ref(k, cos, sin)
+        return _rope_launch("rope_rotate_bf16", "rope_rotate", q, k, cos, sin, cos_q, sin_q)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        cos, sin, cos_q, sin_q = ctx.saved_tensors
+        dq, dk = rope_rotate_backward(gq, gk, cos, sin, cos_q, sin_q)
+        return dq, dk, None, None, None, None
+
+
 def rope_rotate(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -246,28 +342,12 @@ def rope_rotate(
     CPU tensors run :func:`rope_rotate_ref`. CUDA tensors launch the kernel
     (``csrc/rope_rotate.cu``, one launch for both), which takes bf16 (H, L, 128) with a
     contiguous last dimension and contiguous (L, 128) float32 tables, and gives what
-    the plain version gives, bit for bit; anything else raises.
+    the plain version gives, bit for bit; anything else raises. It runs through
+    :class:`RopeRotate`, so gradients of q and k flow through the backward build.
     """
     cos_q = cos if cos_q is None else cos_q
     sin_q = sin if sin_q is None else sin_q
-    if not q.is_cuda:
-        return rope_rotate_ref(q, cos_q, sin_q), rope_rotate_ref(k, cos, sin)
-    check_heads(q, k, k)
-    h, lq, d = q.shape
-    lkv = k.shape[1]
-    for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq), ("cos", cos, lkv), ("sin", sin, lkv)):
-        _check_table(t, rows, name, q.device)
-    q_out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
-    k_out = torch.empty((h, lkv, d), dtype=k.dtype, device=k.device)
-    err = load_library().rope_rotate_bf16(
-        q.data_ptr(), q.stride(0), q.stride(1), q_out.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), lq,
-        k.data_ptr(), k.stride(0), k.stride(1), k_out.data_ptr(), cos.data_ptr(), sin.data_ptr(), lkv,
-        h, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"rope_rotate kernel launch failed: cudaError {err}")
-    LAUNCHES["rope_rotate"] += 1
-    return q_out, k_out
+    return RopeRotate.apply(q, k, cos, sin, cos_q, sin_q)
 
 
 def qknorm_attention(
@@ -291,14 +371,21 @@ def qknorm_attention(
     :func:`qknorm_attention_checked`. ``ablate_exp=True`` selects the measurement build
     without the exp. The two do not combine.
 
-    CPU tensors run the plain version. CUDA tensors launch the rope pass
-    (:func:`rope_rotate`, when there are tables) and then the attention kernel, which
+    It has no backward: asked for a gradient (grad enabled and q, k or v requiring
+    one) it raises, on both devices. CPU tensors run the plain version. CUDA tensors
+    launch the rope pass (:func:`rope_rotate`, when there are tables) and then the
+    attention kernel, which
     takes bf16 with D = 128, a contiguous last dimension and 16-byte aligned strides
     (:func:`tma_params`); anything else raises. The output is allocated token-major,
     (Lq, H, D), and returned as its (H, Lq, D) view.
     """
     if return_max_logit and ablate_exp:
         raise ValueError("the stats and ablate_exp builds do not combine")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "the max-free attention kernel has no backward: train with use_pallas=False "
+            "(the rope pass and scaled_dot_product_attention, both differentiable)"
+        )
     if not q.is_cuda:
         return qknorm_attention_ref(q, k, v, sm_scale, cos, sin, cos_q, sin_q,
                                     return_max_logit=return_max_logit, ablate_exp=ablate_exp)

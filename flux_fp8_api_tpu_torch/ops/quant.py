@@ -29,6 +29,13 @@ Kinds and their layouts here:
   ``w_scale_inv`` (out, nblocks): blocks of 64 along in, or one block spanning the
   row when 64 does not divide in. Both are the JAX arrays transposed.
 
+Any kind may carry a trainable low-rank adapter, ``lora_a`` (r, in) and ``lora_b``
+(out, r) in torch's ``lora_down``/``lora_up`` convention, applied as a side branch
+``(x·Aᵀ)·Bᵀ`` (QLoRA training, JAX quant.py:509-519); both are None on a served tree.
+``linear_apply(..., dequant=True)`` runs the quantized-activation kinds as a
+differentiable dequantize and bf16 product instead (JAX quant.py:522-534): the
+serving kinds round the activation, which has no gradient.
+
 Scale semantics match the reference (float8_quantize.py:214-218) for fp8 and the JAX
 package's 127/amax law for the int kinds; every quantizer gives the bytes and scales
 the JAX package serves (its flow quantize and calibration run jitted, see
@@ -89,7 +96,9 @@ def to_fp8_saturated(x: torch.Tensor, scale: torch.Tensor, max_val: float) -> to
 
 
 class Linear(nn.Module):
-    """One linear layer's parameters, held as buffers (nothing here trains)."""
+    """One linear layer's parameters, held as buffers. Nothing of the base trains; the
+    adapters ``lora_a``/``lora_b`` are None except on the trainer's merged copy
+    (``lora.merge_lora_adapters``)."""
 
     def __init__(
         self,
@@ -101,6 +110,8 @@ class Linear(nn.Module):
         in_scale: Optional[torch.Tensor] = None,
         in_scale_inv: Optional[torch.Tensor] = None,
         bias: Optional[torch.Tensor] = None,
+        lora_a: Optional[torch.Tensor] = None,
+        lora_b: Optional[torch.Tensor] = None,
     ):
         super().__init__()
         if kind not in KINDS:
@@ -113,6 +124,8 @@ class Linear(nn.Module):
         self.register_buffer("in_scale", in_scale)
         self.register_buffer("in_scale_inv", in_scale_inv)
         self.register_buffer("bias", bias)
+        self.register_buffer("lora_a", lora_a)
+        self.register_buffer("lora_b", lora_b)
 
     @property
     def in_features(self) -> int:
@@ -302,12 +315,27 @@ def linear_apply(
     compute_dtype: torch.dtype = torch.bfloat16,
     collect_amax: bool = False,
     fast_accum: bool = True,
+    dequant: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Apply a linear layer; with ``collect_amax`` also return max|x| (fp32 scalar)
     for scale calibration. ``fast_accum`` is ``_scaled_mm``'s ``use_fast_accum`` for
-    the ``fp8`` kind on the card."""
+    the ``fp8`` kind on the card. ``dequant`` runs ``fp8``/``int8``/``int4`` as the
+    differentiable dequantize path of QLoRA training. With adapters set, adds
+    ``h·Bᵀ`` where ``h = x·Aᵀ`` is rounded to the compute dtype and the product
+    accumulates in fp32, added in the output's dtype (JAX quant.py:509-519)."""
     amax = x.abs().max().float() if collect_amax else None
-    return _linear_base(lin, x, compute_dtype, fast_accum), amax
+    out = _linear_base(lin, x, compute_dtype, fast_accum, dequant)
+    if lin.lora_a is not None:
+        h = F.linear(x.to(compute_dtype), lin.lora_a.to(compute_dtype))
+        out = out + F.linear(h, lin.lora_b.to(compute_dtype)).to(out.dtype)
+    return out, amax
+
+
+def _saveable(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A weight that autograd may save for x's backward: a tensor made under
+    ``torch.inference_mode`` (a LoRA fuse, a calibrated pipeline) cannot be saved, so
+    it is copied when x needs a gradient."""
+    return w.clone() if x.requires_grad and w.is_inference() else w
 
 
 def fp8_linear_ref(lin: Linear, x8: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -347,10 +375,22 @@ def int_mm_ref(x8: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x8.double(), q.double().t()).to(torch.int32)
 
 
-def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool) -> torch.Tensor:
+def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool,
+                 dequant: bool = False) -> torch.Tensor:
     bias = None if lin.bias is None else lin.bias.to(compute_dtype)
     if lin.kind == "float":
-        return F.linear(x.to(compute_dtype), lin.weight.to(compute_dtype), bias)
+        return F.linear(x.to(compute_dtype), _saveable(lin.weight.to(compute_dtype), x), bias)
+
+    if dequant and lin.kind in ACTIVATION_KINDS:
+        # the differentiable QLoRA forward (JAX quant.py:522-534): the weight
+        # dequantized in the compute dtype (fp8's scale is a scalar, int8/int4's per out
+        # channel), full-precision activations; F.linear adds the bias to the fp32
+        # accumulator (cuBLAS's epilogue on the card) and rounds once, as JAX adds it in
+        # fp32 and casts once
+        q = _unpack_int4(lin.q) if lin.kind == "int4" else lin.q
+        scale = lin.w_scale_inv.to(compute_dtype)
+        w = q.to(compute_dtype) * (scale if lin.kind == "fp8" else scale[:, None])
+        return F.linear(x.to(compute_dtype), w, bias)
 
     if lin.kind == "fp8":
         x8 = to_fp8_saturated(x.float(), lin.in_scale, F8_INPUT_MAX).to(INPUT_F8_DTYPE)

@@ -300,6 +300,17 @@ class FluxPipeline:
         self.timings["cond_cache_misses"] = misses
         return out
 
+    def embed_text(self, prompt: str, num_images: int = 1):
+        """→ (CLIP vec (N, vec_in_dim), T5 txt (N, L, ctx_dim)) with the emphasis grammar
+        and text-encoder offload handled: the single-prompt text path of
+        :meth:`prepare`, for callers that batch their own latents (the LoRA trainer's
+        dataset encoder, train_lora.py)."""
+        vec, txt = self._encode_prompts([prompt])[prompt]
+        if num_images > 1:
+            vec = vec.repeat_interleave(num_images, dim=0)
+            txt = txt.repeat_interleave(num_images, dim=0)
+        return vec, txt
+
     def prepare(self, img: torch.Tensor, prompt: Union[str, List[str]]):
         """Pack latents, build id grids, embed text (reference flux_pipeline.py:233-312)."""
         bs, c, h, w = img.shape

@@ -13,6 +13,10 @@ module never imports the JAX package. The conversion:
 - splits the depth-stacked leaves under ``double_blocks``, ``single_blocks`` and
   ``blocks`` into per-block modules, carrying per-block scales with their block;
 - turns 4-D conv kernels (HWIO) into torch's OIHW ``weight``.
+
+:func:`convert_adapters` carries the JAX package's trainable LoRA adapters across:
+stacked ``{"a": (D, in, r), "b": (D, r, out)}`` per leaf become per-block (r, in) /
+(out, r) tensors, the layout of ``lora.init_lora_adapters``.
 """
 
 from __future__ import annotations
@@ -108,3 +112,23 @@ def convert(tree: Any, device=None) -> Any:
     if tree is None:
         return None
     return to_tensor(tree, device)
+
+
+def convert_adapters(tree: Mapping[str, Any], device=None):
+    """JAX adapters ``{stack: {leaf: {"a": (D, in, r), "b": (D, r, out)}}}`` (numpy) →
+    ``{stack: [{leaf: {"a": (r, in), "b": (out, r)}} per block]}`` with the same bytes,
+    each tensor a leaf that requires grad."""
+    out = {}
+    for stack, leaves in tree.items():
+        depth = _depth(leaves)
+        out[stack] = [
+            {
+                name: {
+                    k: to_tensor(np.asarray(ab[k])[i].T, device).requires_grad_()
+                    for k in ("a", "b")
+                }
+                for name, ab in leaves.items()
+            }
+            for i in range(depth)
+        ]
+    return out

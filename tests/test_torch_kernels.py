@@ -328,3 +328,96 @@ def test_int_linear_matches_exact_product(dev, kind, n, k, m):
     ref = acc.float() * ((1.0 / lin.in_scale.to(torch.bfloat16).float()) * lin.w_scale_inv) + b.float()
     assert out.shape == (1, m, n) and out.dtype == torch.bfloat16
     assert bool(((out.float()[0] - ref).abs() <= 1e-6 + 2**-8 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("h_latent,w_latent", [(128, 128), (90, 128), (64, 64)])
+def test_rope_backward_is_its_plain_version_bit_for_bit(dev, h_latent, w_latent):
+    """The rope pass's backward build, one launch for q and k, equals
+    rope_rotate_ref_backward exactly (±0 equal), on a contiguous gradient and on a
+    head-folded strided one, into contiguous outputs."""
+    from flux_fp8_api_tpu_torch.ops.attention import fold_heads
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import rope_rotate_backward, rope_rotate_ref_backward
+
+    l = _l(h_latent, w_latent)
+    gen = torch.Generator(device=dev).manual_seed(l + 7)
+    gq = torch.randn((24, l, 128), generator=gen, device=dev).to(torch.bfloat16)
+    gk = fold_heads(torch.randn((1, l, 24, 128), generator=gen, device=dev).to(torch.bfloat16))
+    cos, sin = _tables(dev, h_latent, w_latent)
+    before = dict(LAUNCHES)
+    dq, dk = rope_rotate_backward(gq, gk, cos, sin)
+    assert _launched(before) == {"rope_rotate_backward": 1}
+    assert dq.is_contiguous() and dk.is_contiguous()
+    assert torch.equal(dq, rope_rotate_ref_backward(gq, cos, sin))
+    assert torch.equal(dk, rope_rotate_ref_backward(gk, cos, sin))
+
+
+def test_rope_function_on_the_card_is_autograd_of_the_plain_version(dev):
+    """Through the autograd Function: one forward and one backward launch, and the
+    grads of q and k equal autograd's through rope_rotate_ref on the card, bit for bit."""
+    l = _l(64, 64)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, gq, gk = (torch.randn((24, l, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    cos, sin = _tables(dev, 64, 64)
+    qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
+    before = dict(LAUNCHES)
+    got = torch.autograd.grad(rope_rotate(qa, ka, cos, sin), (qa, ka), (gq, gk))
+    assert _launched(before) == {"rope_rotate": 1, "rope_rotate_backward": 1}
+    qb, kb = q.clone().requires_grad_(), k.clone().requires_grad_()
+    want = torch.autograd.grad((rope_rotate_ref(qb, cos, sin), rope_rotate_ref(kb, cos, sin)), (qb, kb), (gq, gk))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k1_refuses_a_gradient_on_the_card(dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (_normed(gen, 24, 256, 128).requires_grad_() for _ in range(3))
+    with pytest.raises(RuntimeError, match="use_pallas=False"):
+        qknorm_attention(q, k, v, 128**-0.5)
+
+
+def test_adapter_step_on_the_card_matches_the_cpu(dev):
+    """A QLoRA step of a small flux (two heads of 128, 2 + 2 blocks, int8 base) on the
+    card in bf16 against the same step on the CPU in fp32, from the same weights,
+    adapters, batch and draws: the card launches no K1 and per block two rope-pass
+    forwards (remat recomputes) and one backward. Loss 2e-2 relative and adapter
+    gradients 5e-2 relative in norm: bf16 rounding of activations (2^-8 each) across
+    the forward and the backward."""
+    import dataclasses
+
+    from flux_fp8_api_tpu_torch.lora import adapter_tensors, init_lora_adapters, merge_lora_adapters
+    from flux_fp8_api_tpu_torch.models.flux import FluxStatic, init_flux_params, quant_tier
+    from flux_fp8_api_tpu_torch.parallel.train import flow_matching_loss, make_dummy_batch, train_cfg
+    from flux_fp8_api_tpu_torch.utils.config import FluxParams
+    from flux_fp8_api_tpu_torch.utils.tree import tree_to
+
+    params = FluxParams(in_channels=64, vec_in_dim=64, context_in_dim=128, hidden_size=256, mlp_ratio=4.0,
+                        num_heads=2, depth=2, depth_single_blocks=2, axes_dim=[16, 56, 56], theta=10_000,
+                        qkv_bias=True, guidance_embed=True)
+    cfg = FluxStatic.from_params(params, compute_dtype="float32", use_pallas=False)
+    cpu = torch.Generator().manual_seed(0)
+    model = init_flux_params(cfg, cpu, torch.float32, quant_tier("int8"))
+    adapters = init_lora_adapters(model, 4, cpu, dtype=torch.float32)
+    with torch.no_grad():
+        for p in adapter_tensors(adapters):
+            p.copy_(torch.randn(p.shape, generator=cpu) * 0.02)
+    batch = make_dummy_batch(cfg, 1, 32, 32, 16, cpu)
+    tt = torch.rand((1,), generator=cpu)
+    eps = torch.randn(batch["latents"].shape, generator=cpu)
+
+    def run(device, dtype):
+        m = tree_to(model, device)
+        ad = {s: [{n: {k: v.detach().to(device, dtype).requires_grad_() for k, v in ab.items()}
+                   for n, ab in e.items()} for e in blocks] for s, blocks in adapters.items()}
+        b = {k: v.to(device) for k, v in batch.items()}
+        c = train_cfg(dataclasses.replace(cfg, compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32"),
+                      remat=True, dequant=True)
+        loss = flow_matching_loss(merge_lora_adapters(m, ad), c, b, t=tt.to(device), noise=eps.to(device))
+        grads = torch.autograd.grad(loss, adapter_tensors(ad))
+        return float(loss.detach()), torch.cat([g.float().flatten().cpu() for g in grads])
+
+    before = dict(LAUNCHES)
+    loss_card, g_card = run(dev, torch.bfloat16)
+    blocks = params.depth + params.depth_single_blocks
+    assert _launched(before) == {"rope_rotate": 2 * blocks, "rope_rotate_backward": blocks}
+    loss_cpu, g_cpu = run("cpu", torch.float32)
+    assert abs(loss_card - loss_cpu) <= 2e-2 * abs(loss_cpu)
+    assert float((g_card - g_cpu).norm() / g_cpu.norm()) <= 5e-2
