@@ -103,6 +103,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
     of single blocks and of the whole tree both ways, step 1 against a steady step;
     the phase fails unless step 1 is shorter than the whole tree's copy plus a
     resident step by half the smaller of the two (the copies overlap the compute);
+    then ``sync_every`` against the compute: each single block's compute padded by a
+    sleep longer than its copy, 512x512/2 at retain 0 and 512x512/4 at half the blocks
+    retained: the memory the allocator reserves (from an empty cache) at ``sync_every``
+    2 within the resident loop's plus the retained blocks' plus 5 block slices, and at
+    least 4 slices under the reservation at ``sync_every`` 0;
     (c) the same prompt again: an LRU hit that moves no encoder; then a 512x512/20
     request at ``stream_flow_offload=False``, its latents the streamed request's and
     the params back on the host; (d) POST /lora load and unload of a LoRA over two
@@ -133,9 +138,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``make_train_step`` (SGD) and ``make_optimizer_train_step`` (AdamW, clip 1.0), 2
     steps each, finite losses and params moved.
 
+17. mesh: (a) the rope pass (bit for bit) and K1 (its tolerance) against their plain
+    versions at a mesh rank's local shapes of 1024x1024 and 720x1024: tp 2 (12 heads),
+    tp 4 (6), sp 2 (24 heads, Lq = L/2 against Lkv = L, both halves of the q tables)
+    and tp 2 x sp 2, each timed beside its bound and ``F.scaled_dot_product_attention``;
+    then one-rank references of ``configs/config-dev-tp4.json`` (int8) and
+    ``configs/config-dev.json`` (fp8), each calibrated, saved prequantized and run at
+    1024x1024 for ``MESH_STEPS`` steps from ``MESH_SEED``; (d) a world of one over
+    NCCL (``{"dp": 1, "tp": 1}``), its latents bit for bit the fp8 reference's; (b)
+    worlds of ranks sharing the one card over gloo, each rank loading its slice from
+    the prequantized file: config-dev-tp4.json as 4 ranks, config-dev.json at
+    ``{"tp": 2, "sp": 2}`` and at ``{"dp": 2}`` with two images: latents against one
+    rank's (int8 bit for bit, fp8 within ``MESH_FP8_REL_TOL``), 57 K1 and rope-pass
+    launches per evaluation on every rank at its local shape, each rank's block
+    weights at most 1/tp of one rank's, the collectives of the request equal to the
+    pinned budget; (c) on the tp 4 world, rank 0's server: POST /generate, POST /lora
+    load, POST /generate, /health naming the mesh. Ranks sharing one card time nothing
+    of multi-GPU.
+
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
-time and error at L = 4608 from phase 3, 4 or 16),
+time and error at L = 4608 from phase 3, 4 or 16; K1 and the rope pass also at phase
+17's local shapes, under ``mesh_shapes``),
 and ``{"ok": true, "device": {...}}``. Phases 7-13 free their pipelines before the
 next (phase 7's lives until phase 10 has saved it, and phase 10(a)'s reload until
 phase 13 has served it).
@@ -143,10 +167,12 @@ phase 13 has served it).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
 import json
+import math
 import shutil
 import sys
 import tempfile
@@ -1467,6 +1493,9 @@ OFFLOAD_CONFIG = ROOT / "configs" / "config-dev-offload.json"
 # workspaces): far under the smallest weight unit it guards, a single block (142 MB at
 # fp8), a T5 block of the 2-layer tower (84 MB at wo_int4) or the VAE (168 MB)
 RESIDENT_SLACK = 64 * 2**20
+# phase 15's padding of a single block's compute: about 20 ms at the H100's 1.98 GHz,
+# longer than a single block's copy (142 MB, about 3 ms at 47 GB/s)
+OFFLOAD_PAD_CYCLES = 40_000_000
 
 
 def host_resident(tree) -> bool:
@@ -1611,25 +1640,31 @@ def phase_offload(card: str):
                 img, img_ids, vec, txt, txt_ids = pipe.prepare(noise, prompt)
                 return (img, img_ids, txt, txt_ids, vec), ts
 
-            def timed(what, steps, fn):
+            def timed(what, steps, fn, reserved=False):
+                """→ (output, seconds, peak bytes above the start: allocated, or with
+                ``reserved`` what the allocator reserved from an empty cache, which also
+                counts freed blocks that a stream has yet to pass)."""
                 torch.cuda.synchronize()
+                if reserved:
+                    torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
-                m0 = torch.cuda.memory_allocated()
+                m0 = torch.cuda.memory_reserved() if reserved else torch.cuda.memory_allocated()
                 zero_launches()
                 t = time.perf_counter()
                 out = fn()
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t
                 check_path_launches("offload", what, dict(LAUNCHES), blocks * steps)
-                return out, dt, torch.cuda.max_memory_allocated() - m0
+                peak = torch.cuda.max_memory_reserved() if reserved else torch.cuda.max_memory_allocated()
+                return out, dt, peak - m0
 
-            def streamed(x, ts, retain=None, sync_every=8):
+            def streamed(x, ts, retain=None, sync_every=8, reserved=False):
                 return timed(f"streamed, retain {retain}, sync_every {sync_every}", len(ts) - 1, lambda: (
                     offload_mod.streamed_denoise(tops, dbl, sgl, dev, *x, ts, 3.5, cfg,
-                                                 retain_bytes=retain, sync_every=sync_every)))
+                                                 retain_bytes=retain, sync_every=sync_every)), reserved)
 
-            def resident(tree, x, ts):
-                return timed("resident", len(ts) - 1, lambda: denoise(tree, cfg, *x, ts, 3.5))
+            def resident(tree, x, ts, reserved=False):
+                return timed("resident", len(ts) - 1, lambda: denoise(tree, cfg, *x, ts, 3.5), reserved)
 
             rates = []
             for blk in (dbl[0], dbl[1], sgl[0], sgl[1]):
@@ -1656,6 +1691,8 @@ def phase_offload(card: str):
             dev_tree = tree_to(host, dev)
             ra, ra_s, ra_peak = resident(dev_tree, x512, ts4)
             rb, _, _ = resident(dev_tree, x512, ts4)
+            ra2, _, ra2_reserved = resident(dev_tree, x512, ts4[:3], reserved=True)
+            _, _, ra_reserved = resident(dev_tree, x512, ts4, reserved=True)
             del dev_tree
             release()
             floor = float((ra.float() - rb.float()).abs().max())
@@ -1668,6 +1705,18 @@ def phase_offload(card: str):
             mid = sum(tree_nbytes(b) for b in list(dbl) + list(sgl)) // 2
             runs = {"retain 0": streamed(x512, ts4, 0), f"retain {mid / gib:.2f} GiB (mid)": streamed(x512, ts4, mid),
                     "retain 0, sync_every 2": streamed(x512, ts4, 0, 2)}
+            # sync_every waits on the compute, as JAX's does: each single block's compute
+            # padded by a sleep longer than its copy, so that the copies outrun it
+            real_single = offload_mod._single_block
+            offload_mod._single_block = lambda *a: (torch.cuda._sleep(OFFLOAD_PAD_CYCLES), real_single(*a))[1]
+            try:
+                padded = {s: streamed(x512, ts4[:3], 0, s, reserved=True) for s in (0, 2)}
+                padded_mid = {s: streamed(x512, ts4, mid, s, reserved=True) for s in (0, 2)}
+            finally:
+                offload_mod._single_block = real_single
+            slice_ = max(offload_mod.slice_nbytes(dbl), offload_mod.slice_nbytes(sgl))
+            kept = offload_mod.retained_blocks(dbl, sgl, mid)
+            kept_bytes = sum(tree_nbytes(b) for b, k in zip(list(dbl) + list(sgl), kept) if k)
         resident_step, step1, steady = (r28_s - r1_s) / 27, s1_s, (s28_s - s1_s) / 27
         diffs = {"1024x1024/28, retain all": float((s28.float() - r28.float()).abs().max())}
         diffs.update({f"512x512/4, {k}": float((v[0].float() - ra.float()).abs().max()) for k, v in runs.items()})
@@ -1683,6 +1732,26 @@ def phase_offload(card: str):
         print(f"[{card}] (b) 512x512/4: resident {4 / ra_s:.3f} it/s (peak {ra_peak / gib:.3f} GiB above the tree); "
               + "; ".join(f"streamed {k}: {4 / v[1]:.3f} it/s, peak {v[2] / gib:.3f} GiB" for k, v in runs.items())
               + f"; resident run-to-run max |diff| {floor}", flush=True)
+        print(f"[{card}] (b) compute slower than the copies (each single block padded by "
+              f"{OFFLOAD_PAD_CYCLES} cycles), 512x512/2, retain 0, reserved peaks from an empty cache: "
+              f"{padded[0][2] / gib:.3f} GiB at sync_every 0 ({padded[0][1]:.2f} s), {padded[2][2] / gib:.3f} GiB at "
+              f"sync_every 2 ({padded[2][1]:.2f} s) = the resident loop's {ra2_reserved / gib:.3f} GiB + "
+              f"{(padded[2][2] - ra2_reserved) / slice_:.2f} block slices of {slice_ / gib:.3f} GiB (bound 5)",
+              flush=True)
+        print(f"[{card}] (b) the same padding, 512x512/4, retain {mid / gib:.2f} GiB ({sum(kept)} of {len(kept)} "
+              f"blocks, {kept_bytes / gib:.3f} GiB): {padded_mid[0][2] / gib:.3f} GiB at sync_every 0 "
+              f"({padded_mid[0][1]:.2f} s), {padded_mid[2][2] / gib:.3f} GiB at sync_every 2 ({padded_mid[2][1]:.2f} s) "
+              f"= the resident loop's {ra_reserved / gib:.3f} GiB + the retained blocks + "
+              f"{(padded_mid[2][2] - ra_reserved - kept_bytes) / slice_:.2f} block slices (bound 5)", flush=True)
+        for label, pad, base in (("retain 0", padded, ra2_reserved), ("mid retain", padded_mid, ra_reserved + kept_bytes)):
+            if not (pad[2][2] <= base + 5 * slice_ and pad[0][2] >= pad[2][2] + 4 * slice_):
+                fail("offload", f"{label}: sync_every 2 does not bound the host's lead over the compute: reserved "
+                                f"peaks {pad[0][2]} (sync_every 0) and {pad[2][2]} (sync_every 2), the resident "
+                                f"loop's (and the retained blocks') {base}, slice {slice_}")
+        diffs.update({f"512x512/2 padded, sync_every {k}": float((v[0].float() - ra2.float()).abs().max())
+                      for k, v in padded.items()})
+        diffs.update({f"512x512/4 padded, mid retain, sync_every {k}": float((v[0].float() - ra.float()).abs().max())
+                      for k, v in padded_mid.items()})
         print(f"[{card}] (b) streamed vs resident latents, max |diff| (must be <= {floor}): {diffs}", flush=True)
         if any(d > floor for d in diffs.values()):
             fail("offload", f"streamed latents differ from the resident ones: {diffs}")
@@ -1690,7 +1759,7 @@ def phase_offload(card: str):
         if not step1 <= overlap_bound:
             fail("offload", f"step 1 {step1:.3f} s: the copies do not overlap the compute (bound {overlap_bound:.3f} s "
                             f"= copy {h2d_s:.3f} + step {resident_step:.3f} - half the smaller)")
-        del s1, s28, r28, ra, rb, runs, x, x512, tops, dbl, sgl  # (d) rebuilds the stream state
+        del s1, s28, r28, ra, rb, ra2, runs, padded, padded_mid, x, x512, tops, dbl, sgl  # (d) rebuilds the stream state
 
         # (c) the same prompt again: the LRU hits and no encoder moves; then the
         # whole-tree round trip (stream_flow_offload=False)
@@ -2083,6 +2152,565 @@ def phase_training(card: str):
     return train_launches, bwd
 
 
+# ----------------------------------------------------------------------- phase 17: mesh
+
+MESH_STEPS = 2
+MESH_SEED = 23
+MESH_PROMPT = "a photo of a red house on a hill"
+MESH_FP8_SEEDS = (24, 25)  # noise seeds read besides MESH_SEED in the fp8 tp 2 x sp 2 world
+TP4_CONFIG = ROOT / "configs" / "config-dev-tp4.json"
+# fp8 on a mesh against one rank, ‖a − b‖ / ‖b‖ over the latents after MESH_STEPS steps
+# from the same conditioning. A row-parallel fp8 linear reduces _scaled_mm's fp32
+# partials over tp and adds the bias once, where one rank adds it inside _scaled_mm;
+# wherever the two land one bf16 ulp apart and the next layer's e5m2 cast (2 mantissa
+# bits) crosses a boundary, the element moves by up to 25%, and the 57 blocks spread it.
+# The reading is a floor that does not depend on the size of the first differences:
+# 5.72–5.74e-2 at MESH_SEED and MESH_FP8_SEEDS, 5.70e-2 with fp32 accumulation on both
+# sides (NVIDIA H100 80GB HBM3, 700 W; PERF.md). The limit was set after the first
+# reading, not predicted. It sees the sp rows gathered out of order (0.138) but not a
+# bias added on every tp rank (6.03e-2): the layer check (MESH_LAYER_REL_TOL) does.
+MESH_FP8_REL_TOL = 0.1
+# the sharded text encoders' (vec, txt) against one rank's, ‖a − b‖ / ‖b‖: a
+# row-parallel product sums the ranks' fp32 partials in another order than one rank's
+# GEMM sums its products, and where the two fp32 sums straddle a bf16 rounding boundary
+# the output lands one ulp (2^-8 relative) apart; the later layers carry that on.
+# Measured 3.6e-3 (vec) and 8.9e-3 (txt) (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+MESH_COND_REL_TOL = 2e-2
+MESH_E2E_REL_TOL = 0.05
+# one sharded Linear against the whole one on the same card and input: each side rounds
+# its fp32 result to bf16 once, so no element is more than one bf16 ulp (2^-7 relative
+# at most) apart, and the norm of the difference no more than 2^-7 of the output's
+MESH_LAYER_REL_TOL = 2**-7
+def mesh_flux_budget(shape: dict, quant: str, batch: int = 1, l_txt: int = 512, l_img: int = 4096,
+                     hs: int = 3072, heads: int = 24, d: int = 19, s: int = 38) -> dict:
+    """The collectives of one evaluation of flux-dev on a rank of ``shape`` (the port's
+    pinned budget, tests/test_torch_mesh.py): under tp two bf16 modulation gathers per
+    double block and one per single block, and one row-parallel all-reduce per
+    proj/mlp_2 (4 per double block) and linear2 (int32 on the int tiers, fp32 on fp8);
+    under sp one bf16 gather of the attention's rows per block."""
+    tp, sp = shape.get("tp", 1), shape.get("sp", 1)
+    out = {}
+    if tp > 1:
+        red = "int32" if quant in ("int8", "int4") else "float32"
+        out[("all_gather", "bfloat16", (batch, 6 * hs // tp))] = 2 * d
+        out[("all_gather", "bfloat16", (batch, 3 * hs // tp))] = s
+        out[("all_reduce_sum", red, (batch * l_txt, hs))] = 2 * d
+        out[("all_reduce_sum", red, (batch * l_img, hs))] = 2 * d
+        out[("all_reduce_sum", red, (batch * (l_txt + l_img), hs))] = s
+    if sp > 1:
+        out[("all_gather", "bfloat16", (batch * heads // tp, (l_txt + l_img) // sp, hs // heads))] = d + s
+    return out
+
+
+def _mesh_spec(config: Path, **overrides):
+    """A config file's ModelSpec with fields replaced; compile and warm-up off (the
+    worlds time nothing, and calibration runs once, on one rank)."""
+    from flux_fp8_api_tpu_torch.utils.config import ModelSpec, load_config_from_path
+
+    fields = {**load_config_from_path(str(config)).model_dump(), "compile_blocks": False,
+              "compile_extras": False, "warmup_resolutions": None, **overrides}
+    return ModelSpec.model_validate(fields)
+
+
+def _attention_spy(shapes: list):
+    """Record each K1 call's (q shape, k shape) on this rank; → the restore function."""
+    from flux_fp8_api_tpu_torch.ops import attention as attention_mod
+
+    real = attention_mod.qknorm_attention
+
+    def spy(q, k, *a, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, *a, **kw)
+
+    attention_mod.qknorm_attention = spy
+    return lambda: setattr(attention_mod, "qknorm_attention", real)
+
+
+def _mesh_rank(job: dict) -> None:
+    """One rank of a phase-17 world (started by ``parallel.launch.run_ranks``): its
+    pipeline from the prequantized file on the shared card; the prompt through its
+    sharded text encoders, held against one rank's conditioning; one ``generate`` on
+    every rank from one rank's conditioning, with its launches, K1 shapes, collectives,
+    flow bytes and latents written to ``job["out"]``; then, in the serving world, the
+    HTTP server on the first rank (a request, a POST /lora load, a request) with the
+    others following."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+    from flux_fp8_api_tpu_torch.parallel.launch import follower_loop
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+
+    mesh = pmesh.make_mesh(job["mesh"], backend="gloo")
+    # gloo stages CUDA tensors through the host: probe each collective the path needs
+    axis = next(a for a, n in mesh.shape.items() if n > 1)
+    probe = {
+        "all_reduce_sum int32": mesh.all_reduce_sum(torch.arange(3, dtype=torch.int32, device=mesh.device), None).tolist(),
+        "all_reduce_max float32": mesh.all_reduce_max(torch.full((2,), float(mesh.global_rank), device=mesh.device),
+                                                      None).tolist(),
+        f"all_gather bf16 over {axis}": mesh.all_gather(
+            torch.full((2,), float(mesh.global_rank), device=mesh.device, dtype=torch.bfloat16), axis, 0).float().tolist(),
+        "broadcast_object": mesh.broadcast_object({"from": mesh.global_rank}),
+    }
+    t = time.perf_counter()
+    spec = _mesh_spec(Path(job["config"]), ckpt_path=job["ckpt"], prequantized_flow=True, mesh=job["mesh"])
+    pipe = FluxPipeline.load_pipeline_from_config(spec, mesh=mesh)
+    load_s = time.perf_counter() - t
+    one_vec, one_txt = (x.to(mesh.device) for x in torch.load(job["cond"]))
+    with torch.inference_mode():
+        pmesh.reset_collectives()
+        vec, txt = pipe._encode_prompts([MESH_PROMPT])[MESH_PROMPT]
+        enc_collectives = {repr(k): v for k, v in pmesh.COLLECTIVES.items()}
+        cond_rel = [float((a.float() - b.float()).norm() / b.float().norm()) for a, b in ((vec, one_vec), (txt, one_txt))]
+    encode = pipe._encode_prompts
+    pipe._encode_prompts = lambda prompts: {p: (one_vec, one_txt) for p in prompts}
+    shapes: list = []
+    restore = _attention_spy(shapes)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    pmesh.reset_collectives()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED,
+                      num_images=job["num_images"], silent=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    restore()
+    blocks = sum(pmesh.sharded_bytes(pipe.model_params[s]) for s in ("double_blocks", "single_blocks"))
+    result = {
+        "rank": mesh.global_rank, "coords": mesh.coords, "probe": probe, "load_s": load_s, "generate_s": gen_s,
+        "launches": dict(LAUNCHES), "shapes": sorted(set(shapes)), "k1_calls": len(shapes),
+        "collectives": {repr(k): v for k, v in pmesh.COLLECTIVES.items()}, "encode_collectives": enc_collectives,
+        "cond_rel": cond_rel, "flow_bytes": pmesh.sharded_bytes(pipe.model_params), "block_bytes": blocks,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "cfg": {"layout": pipe.model_cfg.fused_layout, "seq": pipe.model_cfg.attn_seq_axis,
+                "use_pallas": pipe.model_cfg.use_pallas},
+    }
+    if mesh.is_root:
+        torch.save(pipe.last_latents.cpu(), Path(job["out"]) / "latents.pt")
+    # more noise seeds and planted sharding faults from one rank's conditioning, then
+    # the whole request through this world's own sharded text encoders
+    extra, t = {}, time.perf_counter()
+    with torch.inference_mode():
+        for seed in job.get("seeds", ()):
+            extra[f"seed {seed}"] = _mesh_latents(pipe, job, seed)
+        for fault in job.get("faults", ()):
+            with _planted(pipe, mesh, fault):
+                extra[fault] = _mesh_latents(pipe, job, MESH_SEED)
+        if job.get("exact_accum"):  # _scaled_mm's accumulation promoted to fp32
+            fast = pipe.model_cfg
+            pipe.model_cfg = dataclasses.replace(fast, fp8_fast_accum=False)
+            extra["exact accum"] = _mesh_latents(pipe, job, MESH_SEED)
+            pipe.model_cfg = fast
+        if job.get("layer_check"):
+            result["layers"] = _layer_check(pipe, mesh)
+            result["layers, bias"] = _layer_check(pipe, mesh, "bias")
+        pipe._encode_prompts = encode
+        if job.get("end_to_end"):
+            extra["end to end"] = _mesh_latents(pipe, job, MESH_SEED)
+    result["extra_s"] = time.perf_counter() - t
+    if mesh.is_root:
+        torch.save(extra, Path(job["out"]) / "extra.pt")
+    if job.get("serve"):
+        if mesh.is_root:
+            result["http"] = _mesh_http(pipe, job)
+        else:
+            follower_loop(pipe)
+    (Path(job["out"]) / f"rank{mesh.global_rank}.json").write_text(json.dumps(result))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _mesh_latents(pipe, job: dict, seed: int):
+    """One MESH_STEPS-step 1024² request's latents on the host."""
+    pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=seed,
+                  num_images=job["num_images"], silent=True)
+    return pipe.last_latents.cpu()
+
+
+@contextlib.contextmanager
+def _planted(pipe, mesh, fault: str):
+    """A sharding fault planted on this rank while the block runs, to show that the
+    world's comparison sees it: ``"bias"`` adds every row-parallel flow Linear's bias
+    on each tp rank (tp times in the reduced sum, not once); ``"sp order"`` gathers the
+    sp ranks' attention rows in reverse order."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.quant import Linear
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+
+    if fault == "bias":
+        rows = [m for stack in ("double_blocks", "single_blocks") for m in pipe.model_params[stack].modules()
+                if isinstance(m, Linear) and m.shard is not None and m.shard.mode == "row" and m.bias is not None]
+        if not rows:
+            fail("mesh", "planted bias fault: no row-parallel Linear with a bias on this rank")
+        saved = [m.bias.clone() for m in rows]
+        for m in rows:
+            m.bias.mul_(mesh.size("tp"))
+        try:
+            yield
+        finally:
+            for m, b in zip(rows, saved):
+                m.bias.copy_(b)
+    elif fault == "sp order":
+        real = pmesh.Mesh.all_gather
+
+        def reversed_rows(self, t, axis, dim):
+            out = real(self, t, axis, dim)
+            return torch.cat(out.chunk(self.size(axis), dim)[::-1], dim) if axis == "sp" else out
+
+        pmesh.Mesh.all_gather = reversed_rows
+        try:
+            yield
+        finally:
+            pmesh.Mesh.all_gather = real
+    else:
+        raise ValueError(fault)
+
+
+def _layer_check(pipe, mesh, fault=None) -> dict:
+    """Each sharded Linear of the flow's first double and single block on this rank
+    (its slice, its collective) against the whole Linear gathered from the tp ranks,
+    on the same card and input (64 rows of N(0, 0.1²) in bf16); with ``fault``, the
+    slices run with that fault planted and the whole Linears without it. → {leaf:
+    ‖a − b‖ / ‖b‖ over this rank's part of the output}."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.quant import Linear, linear_apply
+    from flux_fp8_api_tpu_torch.parallel.mesh import gather_linear
+    from flux_fp8_api_tpu_torch.utils.tree import tree_to
+
+    leaves = [(f"{stack}.0.{leaf}", lin) for stack in ("double_blocks", "single_blocks")
+              for leaf, lin in pipe.model_params[stack][0].items() if isinstance(lin, Linear) and lin.shard is not None]
+    gen = torch.Generator(device=mesh.device).manual_seed(31)
+    fast = pipe.model_cfg.fp8_fast_accum
+    wholes, xs, refs = {}, {}, {}
+    for name, lin in leaves:
+        wholes[name] = tree_to(gather_linear(lin), mesh.device)
+        xs[name] = (0.1 * torch.randn(64, wholes[name].in_features, generator=gen, device=mesh.device)).to(torch.bfloat16)
+        refs[name] = linear_apply(wholes[name], xs[name], fast_accum=fast)[0].float()
+    out = {}
+    with _planted(pipe, mesh, fault) if fault else contextlib.nullcontext():
+        for name, lin in leaves:
+            shard, b = lin.shard, refs[name]
+            size, rank = mesh.size(shard.axis), mesh.rank(shard.axis)
+            x = xs[name].chunk(size, -1)[rank] if shard.mode == "row" else xs[name]
+            a = linear_apply(lin, x, fast_accum=fast)[0].float()
+            if shard.mode == "col" and not shard.gather:
+                b = b.chunk(size, -1)[rank]
+            out[name] = float((a - b).norm() / b.norm())
+    return out
+
+
+def _mesh_http(pipe, job: dict) -> dict:
+    """The first rank's server: one request, a POST /lora load, one more request;
+    → the statuses and times. The followers are released at the end."""
+    from PIL import Image
+
+    from flux_fp8_api_tpu_torch.parallel.launch import MeshPipeline
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+
+    front = MeshPipeline(pipe)
+    server = PipelineServer(front, host="127.0.0.1", port=0)
+    server.start_background()
+    out = {}
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        # another prompt than (b)'s: the LRU misses, and the sharded encoders run
+        body = {"prompt": "a lighthouse at dusk", "width": 1024, "height": 1024, "num_steps": MESH_STEPS, "seed": 5}
+        for name, path, req in (("generate", "/generate", body),
+                                ("lora", "/lora", {"action": "load", "path": job["lora"], "scale": 1.0, "name": "m"}),
+                                ("generate after the LoRA", "/generate", body)):
+            t = time.perf_counter()
+            status, _, payload = post(url + path, req)
+            entry = {"status": status, "s": time.perf_counter() - t}
+            if path == "/generate":
+                im = Image.open(io.BytesIO(payload))
+                entry.update(format=im.format, size=list(im.size))
+            out[name] = entry
+        out["health"] = json.loads(urllib_get(url + "/health"))
+    finally:
+        server.shutdown()
+        front.stop()
+    return out
+
+
+def urllib_get(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read()
+
+
+def mesh_kernels(card: str):
+    """(a) K1 and the rope pass at the local shapes of tp 2, tp 4, sp 2 (both halves of
+    the q tables) and tp 2 × sp 2, at 1024² and 720×1024, against their plain versions;
+    each timed beside its bound and F.scaled_dot_product_attention."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import (
+        qknorm_attention, qknorm_attention_ref, rope_rotate, rope_rotate_ref,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    d = 128
+    scale = d**-0.5
+
+    def normed(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
+
+    rows = []
+    for h_img, w_img in ((1024, 1024), (720, 1024)):
+        l = 512 + (h_img // 16) * (w_img // 16)
+        cos, sin = rope_tables(h_img, w_img)
+        for world, heads, sp in (("tp2", 12, 1), ("tp4", 6, 1), ("sp2", 24, 2), ("tp2xsp2", 12, 2)):
+            q, k = normed(heads, l, d), normed(heads, l, d)
+            v = torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
+            lq = l // sp
+            worst = 0.0
+            for part in range(sp):  # every sp rank's rows and q tables
+                sl = slice(part * lq, (part + 1) * lq)
+                qs, cq, sq = q[:, sl], cos[sl].contiguous(), sin[sl].contiguous()
+                qr, kr = rope_rotate(qs, k, cos, sin, cq, sq)
+                if not (torch.equal(qr, rope_rotate_ref(qs, cq, sq)) and torch.equal(kr, rope_rotate_ref(k, cos, sin))):
+                    fail("mesh", f"{world} L={l} rows {part}: the rope pass differs from its plain version")
+                out = qknorm_attention(qs, k, v, scale, cos=cos, sin=sin, cos_q=cq, sin_q=sq)
+                ref = qknorm_attention_ref(qs, k, v, scale, cos, sin, cq, sq)
+                o, r = out.float(), ref.float()
+                used = (o - r).abs() / (K1_ATOL + K1_RTOL * r.abs())
+                if not bool(torch.isfinite(o).all()) or bool((used > 1).any()):
+                    fail("mesh", f"{world} L={l} rows {part}: K1 outside tolerance (worst {float(used.max()):.3f})")
+                worst = max(worst, float((o - r).abs().max()))
+            flops = 4 * heads * lq * l * d
+            nbytes = 2 * heads * d * (2 * lq + 2 * l)
+            b_ms, b_by = bound(flops, nbytes)
+            # q and k read and written once in bf16; one pair of fp32 tables, and under sp
+            # the q rows' own pair
+            tables = 2 * 4 * d * (l + (lq if sp > 1 else 0))
+            r_ms, r_by = bound(3 * heads * d * (lq + l), 2 * 2 * heads * d * (lq + l) + tables, PEAK_F32_FLOPS)
+            k1_ms = cuda_time_ms(lambda: qknorm_attention(qr, kr, v, scale), 20)
+            rope_ms = cuda_time_ms(lambda: rope_rotate(qs, k, cos, sin, cq, sq), 50)
+            with_rope = cuda_time_ms(lambda: qknorm_attention(qs, k, v, scale, cos=cos, sin=sin, cos_q=cq,
+                                                              sin_q=sq), 20)
+            lib = library_attention(card, qr, kr, v, scale, qknorm_attention_ref(qr, kr, v, scale))
+            row = {"world": world, "heads": heads, "lq": lq, "lkv": l, "k1_ms": k1_ms, "k1_bound_ms": b_ms,
+                   "k1_bound_by": b_by, "rope_ms": rope_ms, "rope_bound_ms": r_ms, "rope_bound_by": r_by,
+                   "rope_and_k1_ms": with_rope, "sdpa_ms": lib, "k1_max_abs_err": worst}
+            rows.append(row)
+            lib_s = "none ran" if lib is None else f"{lib:.4f} ms"
+            print(f"[{card}] (a) {world} {heads} heads Lq={lq} Lkv={l}: rope pass bit for bit, K1 max_abs_err "
+                  f"{worst:.3e}; K1 {k1_ms:.4f} ms ({100 * b_ms / k1_ms:.1f}% of its {b_ms:.4f} ms bound, {b_by}); "
+                  f"rope pass {rope_ms:.4f} ms ({100 * r_ms / rope_ms:.1f}% of its {r_ms:.4f} ms bound, {r_by}); "
+                  f"rope + K1 {with_rope:.4f} ms; SDPA {lib_s}", flush=True)
+    return rows
+
+
+def phase_mesh(card: str):
+    """(a) the kernels at the mesh's local shapes; the one-rank references of the
+    int8 (config-dev-tp4.json) and fp8 (config-dev.json) pipelines, calibrated once and
+    saved prequantized; (d) a world of one over NCCL against no mesh; (b) the worlds on
+    the shared card over gloo; (c) HTTP through the tp 4 world's first rank."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+    from flux_fp8_api_tpu_torch.parallel.launch import free_port, run_ranks
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.utils.safetensors_io import save_safetensors
+
+    t_phase = time.perf_counter()
+    rows = mesh_kernels(card)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    refs, one_bytes = {}, {}
+    try:
+        # the one-rank references, each calibrated once and saved for the worlds
+        for quant, config in (("int8", TP4_CONFIG), ("fp8", CONFIG)):
+            t = time.perf_counter()
+            pipe = FluxPipeline.load_pipeline_from_config(_mesh_spec(config, mesh=None))
+            pipe.compile()
+            pipe.save_prequantized(str(tmp / f"{quant}.safetensors"))
+            one_bytes[quant] = (pmesh.sharded_bytes(pipe.model_params),
+                                sum(pmesh.sharded_bytes(pipe.model_params[s]) for s in ("double_blocks", "single_blocks")))
+            with torch.inference_mode():
+                torch.save([x.cpu() for x in pipe._encode_prompts([MESH_PROMPT])[MESH_PROMPT]],
+                           tmp / f"{quant}-cond.pt")
+                runs = [(1, MESH_SEED)] + ([(2, MESH_SEED)] + [(1, s) for s in MESH_FP8_SEEDS] if quant == "fp8" else [])
+                for n, seed in runs:
+                    pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=seed,
+                                  num_images=n, silent=True)
+                    refs[(quant, n, seed)] = pipe.last_latents.cpu()
+                if quant == "fp8":  # the same request with _scaled_mm's accumulation promoted to fp32
+                    pipe.model_cfg = dataclasses.replace(pipe.model_cfg, fp8_fast_accum=False)
+                    pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED,
+                                  silent=True)
+                    refs[(quant, 1, "exact accum")] = pipe.last_latents.cpu()
+            print(f"[{card}] one rank {config.name} ({quant}): calibrated, saved and {MESH_STEPS}-step 1024x1024 "
+                  f"references in {time.perf_counter() - t:.1f} s; flow {one_bytes[quant][0] / 2**30:.3f} GiB",
+                  flush=True)
+            del pipe
+            release()
+
+        # (d) a world of one over NCCL, bit for bit against no mesh
+        import torch.distributed as dist
+
+        mesh = pmesh.make_mesh({"dp": 1, "tp": 1}, backend="nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                               rank=0, world_size=1)
+        try:
+            pipe = FluxPipeline.load_pipeline_from_config(
+                _mesh_spec(CONFIG, ckpt_path=str(tmp / "fp8.safetensors"), prequantized_flow=True,
+                           mesh={"dp": 1, "tp": 1}), mesh=mesh)
+            with torch.inference_mode():
+                pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED, silent=True)
+            same = torch.equal(pipe.last_latents.cpu(), refs[("fp8", 1, MESH_SEED)])
+            print(f"[{card}] (d) NCCL world of one ({dist.get_backend()}, mesh {mesh.shape}): latents bit for bit "
+                  f"against no mesh: {same}", flush=True)
+            if not same:
+                fail("mesh", "(d) the NCCL world of one differs from the pipeline without a mesh")
+            del pipe
+        finally:
+            dist.destroy_process_group()
+            release()
+
+        save_safetensors(str(tmp / "lora.safetensors"), lora_state_dict(3072, 12288, 1, 1, 29))
+        # the tp 4 world also serves HTTP and runs the request through its own sharded
+        # encoders; the tp 2 x sp 2 world reads more noise seeds and two planted faults
+        worlds = (("config-dev-tp4.json (int8), tp 4", TP4_CONFIG, "int8", json.loads(TP4_CONFIG.read_text())["mesh"], 1,
+                   {"serve": True, "end_to_end": True}),
+                  ("config-dev.json (fp8), tp 2 x sp 2", CONFIG, "fp8", {"tp": 2, "sp": 2}, 1,
+                   {"seeds": MESH_FP8_SEEDS, "faults": ("bias", "sp order"), "exact_accum": True,
+                    "layer_check": True}),
+                  ("config-dev.json (fp8), dp 2, two images", CONFIG, "fp8", {"dp": 2}, 2, {}))
+        for what, config, quant, shape, n, extras in worlds:
+            out = tmp / f"world{len(shape)}{quant}{n}"
+            out.mkdir()
+            job = {"config": str(config), "ckpt": str(tmp / f"{quant}.safetensors"), "mesh": shape,
+                   "cond": str(tmp / f"{quant}-cond.pt"), "num_images": n, "out": str(out),
+                   "lora": str(tmp / "lora.safetensors"), **extras}
+            world = math.prod(shape.values())
+            t = time.perf_counter()
+            run_ranks(_mesh_rank, world, (job,))
+            wall = time.perf_counter() - t
+            ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+            check_mesh_world(card, what, shape, quant, n, ranks, torch.load(out / "latents.pt"),
+                             torch.load(out / "extra.pt"), refs, one_bytes[quant], wall)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[{card}] phase mesh: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, one_bytes, wall):
+    """A world's checks: the flow's latents from one rank's conditioning against one
+    rank's at every seed read (int8 bit for bit, fp8 within MESH_FP8_REL_TOL); each
+    planted fault outside that; the sharded text encoders' conditioning against one
+    rank's within MESH_COND_REL_TOL, and the whole request through them within
+    MESH_E2E_REL_TOL; 57 K1 launches per evaluation on every rank at its local shape;
+    each rank's block weights at most 1/tp of one rank's; the collectives of the
+    request and of the encode equal to the pinned budget."""
+    tp, sp, dp = shape.get("tp", 1), shape.get("sp", 1), shape.get("dp", 1)
+    heads, l = 24 // tp * (n // dp), 4608
+    evals = MESH_STEPS
+    from flux_fp8_api_tpu_torch.bench_fidelity import latent_image
+    from flux_fp8_api_tpu_torch.utils.fidelity import ssim
+
+    def rel_to(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    ref = refs[(quant, n, MESH_SEED)]
+    rel = rel_to(latents, ref)
+    exact = bool((latents == ref).all())
+    seeds = {MESH_SEED: rel, **{int(k.split()[1]): rel_to(v, refs[(quant, n, int(k.split()[1]))])
+                                for k, v in extra.items() if k.startswith("seed ")}}
+    faults = {k: rel_to(v, ref) for k, v in extra.items() if k in ("bias", "sp order")}
+    promoted = {k: rel_to(v, refs[(quant, n, "exact accum")]) for k, v in extra.items() if k.startswith("exact accum")}
+    whole = rel_to(extra["end to end"], ref) if "end to end" in extra else None
+    similarity = ssim(latent_image(latents, 128, 128), latent_image(ref, 128, 128))
+    cond = max(max(r["cond_rel"]) for r in ranks)
+    print(f"[{card}] (b) {what}: {len(ranks)} ranks on one card over gloo, wall {wall:.1f} s (load "
+          f"{max(r['load_s'] for r in ranks):.1f} s, generate {max(r['generate_s'] for r in ranks):.1f} s; ranks "
+          f"sharing one card time nothing of multi-GPU); from one rank's conditioning the latents are one rank's "
+          f"bit for bit: {exact}, ‖a - b‖/‖b‖ {rel:.3e}, SSIM of the latent image {similarity:.6f}; the sharded text encoders' (vec, txt) against one rank's "
+          f"{[r['cond_rel'] for r in ranks]}; collective probe {ranks[0]['probe']}", flush=True)
+    if len(seeds) > 1 or faults or whole is not None:
+        print(f"[{card}] (b) {what}: ‖a - b‖/‖b‖ from one rank's at seeds {seeds}; planted faults {faults} "
+              f"(tol {MESH_FP8_REL_TOL}); the whole request through the sharded encoders "
+              + ("not run" if whole is None else f"{whole:.3e} (tol {MESH_E2E_REL_TOL})"), flush=True)
+    if promoted:
+        print(f"[{card}] (b) {what}: with _scaled_mm's accumulation promoted to fp32 (fp8_fast_accum off) on both "
+              f"sides, ‖a - b‖/‖b‖ from one rank's {promoted} (read, not checked)", flush=True)
+    worst = ({k: {leaf: max(r[k][leaf] for r in ranks) for leaf in ranks[0][k]} for k in ("layers", "layers, bias")}
+             if "layers" in ranks[0] else None)
+    if worst:
+        print(f"[{card}] (b) {what}: each sharded Linear of block 0 against the whole one gathered from the tp ranks, "
+              f"‖a - b‖/‖b‖ (worst rank; tol {MESH_LAYER_REL_TOL}): {worst['layers']}; with the bias added on every "
+              f"tp rank: {worst['layers, bias']}", flush=True)
+    if quant == "int8" and not exact:
+        fail("mesh", f"{what}: int8 latents differ from one rank's ({rel:.3e})")
+    if quant != "int8" and not max(seeds.values()) <= MESH_FP8_REL_TOL:
+        fail("mesh", f"{what}: fp8 latents {seeds} from one rank's (tol {MESH_FP8_REL_TOL})")
+    if worst and not max(worst["layers"].values()) <= MESH_LAYER_REL_TOL:
+        fail("mesh", f"{what}: a sharded Linear differs from the whole one: {worst['layers']}")
+    if whole is not None and not whole <= MESH_E2E_REL_TOL:
+        fail("mesh", f"{what}: the whole request through the sharded encoders is {whole:.3e} from one rank's")
+    if not cond <= MESH_COND_REL_TOL:
+        fail("mesh", f"{what}: the sharded text encoders' conditioning is {cond:.3e} from one rank's")
+    want_shape = [[[heads, l // sp, 128], [heads, l, 128]]]
+    budget = {repr(k): v * evals for k, v in mesh_flux_budget(shape, quant, batch=n // dp).items()}
+    if dp > 1:  # the latents gathered over dp
+        budget[repr(("all_gather", "bfloat16", (n // dp, 4096, 64)))] = 1
+    # the prompt's encode under tp: T5 (2 layers, d_model 4096) and CLIP (2 layers, 768),
+    # each block's o/out_proj and down-projection reduced in fp32
+    enc_budget = {} if tp == 1 else {repr(("all_reduce_sum", "float32", (512, 4096))): 4,
+                                     repr(("all_reduce_sum", "float32", (77, 768))): 4}
+    for r in ranks:
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != {"qknorm_attention": 57 * evals, "rope_rotate": 57 * evals}:
+            fail("mesh", f"{what} rank {r['rank']}: launches {got}, expected 57 x {evals} each")
+        if [list(map(list, s)) for s in r["shapes"]] != want_shape:
+            fail("mesh", f"{what} rank {r['rank']}: K1 shapes {r['shapes']}, expected {want_shape}")
+        if r["collectives"] != budget or r["encode_collectives"] != enc_budget:
+            fail("mesh", f"{what} rank {r['rank']}: collectives {r['collectives']} and {r['encode_collectives']}, "
+                         f"the pinned budget {budget} and {enc_budget}")
+        share = r["block_bytes"] / one_bytes[1]
+        if not share <= 1 / tp + 0.01:
+            fail("mesh", f"{what} rank {r['rank']}: block weights {share:.3f} of one rank's, expected 1/{tp}")
+    print(f"[{card}] (b) {what}: every rank 57 K1 and rope-pass launches per evaluation at q {want_shape[0][0]} "
+          f"x kv {want_shape[0][1]}; block weights per rank {ranks[0]['block_bytes'] / 2**30:.3f} GiB = "
+          f"{ranks[0]['block_bytes'] / one_bytes[1]:.3f} of one rank's, flow {ranks[0]['flow_bytes'] / 2**30:.3f} GiB "
+          f"(one rank {one_bytes[0] / 2**30:.3f}); peak {max(r['peak_gib'] for r in ranks):.2f} GiB per rank; "
+          f"collectives per rank, request {ranks[0]['collectives']}, encode {ranks[0]['encode_collectives']}",
+          flush=True)
+    http = ranks[0].get("http")
+    if http is not None:
+        for name in ("generate", "lora", "generate after the LoRA"):
+            e = http[name]
+            if e["status"] != 200 or (name != "lora" and (e["format"] != "JPEG" or e["size"] != [1024, 1024])):
+                fail("mesh", f"(c) {name} through the first rank: {e}")
+        if http["health"].get("mesh", {}).get("shape") != shape or http["health"]["loras"] != ["m"]:
+            fail("mesh", f"(c) /health: {http['health']}")
+        print(f"[{card}] (c) HTTP on {what}: POST /generate 1024x1024 {http['generate']['s']:.1f} s, POST /lora "
+              f"{http['lora']['s']:.1f} s, POST /generate {http['generate after the LoRA']['s']:.1f} s; /health "
+              f"{http['health']}", flush=True)
+    # each planted fault must read outside the comparison meant to see it: the sp rows
+    # out of order in the latents; the bias added on every tp rank at every row-parallel
+    # Linear of the layer check (in the latents it reads within MESH_FP8_REL_TOL, PERF.md)
+    unseen = {}
+    if "sp order" in faults and not faults["sp order"] > MESH_FP8_REL_TOL:
+        unseen["sp order"] = faults["sp order"]
+    if worst:
+        rows = [leaf for leaf in worst["layers, bias"] if leaf.split(".")[-1] in ("img_attn_proj", "txt_attn_proj",
+                                                                                  "img_mlp_2", "txt_mlp_2", "linear2")]
+        unseen.update({f"bias at {leaf}": worst["layers, bias"][leaf] for leaf in rows
+                       if not min(r["layers, bias"][leaf] for r in ranks) > MESH_LAYER_REL_TOL})
+    if unseen:
+        fail("mesh", f"{what}: planted faults read within their tolerance: {unseen}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2125,6 +2753,7 @@ def main() -> int:
     phase_fidelity(card_line)
     phase_offload(card_line)
     train_launches, bwd = phase_training(card_line)
+    mesh_rows = phase_mesh(card_line)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
@@ -2139,6 +2768,13 @@ def main() -> int:
             "flux_fp8_api_tpu/ops/attention_kernel.py:51", launches["rope_rotate"],
             rope[4608]["max_abs_err"], rope[4608]),
     ]
+    # phase 17's local shapes of a mesh rank beside the one-rank row
+    shape = ("world", "heads", "lq", "lkv")
+    kernels[0]["mesh_shapes"] = [{**{k: m[k] for k in shape}, "ms": m["k1_ms"], "bound_ms": m["k1_bound_ms"],
+                                  "bound_by": m["k1_bound_by"], "library_ms": m["sdpa_ms"],
+                                  "max_abs_err": m["k1_max_abs_err"]} for m in mesh_rows]
+    kernels[1]["mesh_shapes"] = [{**{k: m[k] for k in shape}, "ms": m["rope_ms"], "bound_ms": m["rope_bound_ms"],
+                                  "bound_by": m["rope_bound_by"], "max_abs_err": 0.0} for m in mesh_rows]
     for build, source, replaces in (
         ("qknorm_attention_stats", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:109"),
         ("qknorm_attention_ablate_exp", k1_source, "flux_fp8_api_tpu/ops/attention_kernel.py:115"),

@@ -3,6 +3,12 @@
 The protocol is the JAX package's: run the model with ``collect_amax=True``, fold the
 amaxes into a running elementwise max across trials, and write the tuned input scales
 into the quantized linears. Here the write is in place on the model's buffers.
+
+Under a mesh each rank sees part of every activation: a row-parallel linear its slice
+of the features, a dp rank its batch rows. :func:`reduce_amaxes` takes the MAX over
+the whole mesh before the scales are frozen, as GSPMD's reduction does for the JAX
+package, so every rank freezes one rank's ``in_scale`` (without it each rank would
+freeze its own, and the image would silently differ).
 """
 
 from __future__ import annotations
@@ -23,6 +29,35 @@ def merge_amax(running: Optional[Dict[str, Any]], new: Dict[str, Any]) -> Dict[s
         k: merge_amax(running[k], v) if isinstance(v, dict) else torch.maximum(running[k], v)
         for k, v in new.items()
     }
+
+
+def reduce_amaxes(amaxes: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The amax tree with every entry the MAX over the whole mesh: one all-reduce of
+    all entries flattened together."""
+    if mesh is None or mesh.world == 1:
+        return amaxes
+    flat: list = []
+
+    def collect(tree):
+        for v in tree.values():
+            collect(v) if isinstance(v, dict) else flat.append(v.float().reshape(-1))
+
+    collect(amaxes)
+    merged = mesh.all_reduce_max(torch.cat(flat), None)
+    offset = 0
+
+    def rebuild(tree):
+        nonlocal offset
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = rebuild(v)
+            else:
+                out[k] = merged[offset:offset + v.numel()].reshape(v.shape)
+                offset += v.numel()
+        return out
+
+    return rebuild(amaxes)
 
 
 def apply_input_scales(model: ParamTree, amaxes: Dict[str, Any]) -> ParamTree:

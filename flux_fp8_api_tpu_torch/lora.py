@@ -40,7 +40,7 @@ import torch
 
 from .models.flux import FluxStatic
 from .ops.quant import Linear, dequantize_kernel, with_kernel
-from .utils.checkpoint import qkv_out_permutation
+from .utils.checkpoint import grouped_permutations, qkv_out_permutation
 from .utils.safetensors_io import load_safetensors, save_safetensors
 from .utils.tree import ParamTree
 
@@ -291,7 +291,15 @@ def fuse_lora(model: ParamTree, cfg: FluxStatic, lora_sd: StateDict, keys: List[
     touched Linear is replaced by a new one, so tensors frozen under inference mode
     (the calibrated input scales) are never written in place. Each fuse runs on its
     weight's device: the host for an offloaded flow, whose new tensors are not
-    page-locked until the pipeline's stream state is rebuilt. Returns the model."""
+    page-locked until the pipeline's stream state is rebuilt. Returns the model.
+
+    In the grouped layout (tensor parallelism) the delta's qkv/linear1 rows take the
+    head-major regroup after the rope deinterleave, and linear2's columns the grouped
+    in-permutation (JAX lora.py:350-390); each rank then fuses the slice of the delta
+    that its shard of the weight holds (``with_kernel`` takes the fresh scales from
+    the whole weight)."""
+    grouped = cfg.fused_layout == "grouped"
+    perms = grouped_permutations(cfg) if grouped else {}
     qkv_perm = lin1_perm = None
     for key in keys:
         a, b = lora_sd.get(f"{key}.lora_A.weight"), lora_sd.get(f"{key}.lora_B.weight")
@@ -307,13 +315,25 @@ def fuse_lora(model: ParamTree, cfg: FluxStatic, lora_sd: StateDict, keys: List[
         delta = calculate_lora_delta(a, b, lora_sd.get(f"{key}.alpha"), lora_scale, device)
         if key.endswith((".img_attn.qkv", ".txt_attn.qkv")) and delta.shape[0] == 3 * cfg.hidden_size:
             if qkv_perm is None:
-                qkv_perm = torch.as_tensor(qkv_out_permutation(cfg.hidden_size, cfg.head_dim))
+                qkv_perm = qkv_out_permutation(cfg.hidden_size, cfg.head_dim)
+                if grouped:  # perm_total = flat[grouped], as in JAX
+                    qkv_perm = qkv_perm[perms["img_attn_qkv"][1]]
+                qkv_perm = torch.as_tensor(qkv_perm)
             delta = delta[qkv_perm.to(device)]
         elif key.endswith(".linear1") and delta.shape[0] == 3 * cfg.hidden_size + cfg.mlp_hidden:
             if lin1_perm is None:
-                lin1_perm = torch.as_tensor(
-                    qkv_out_permutation(cfg.hidden_size, cfg.head_dim, extra=cfg.mlp_hidden))
+                lin1_perm = qkv_out_permutation(cfg.hidden_size, cfg.head_dim, extra=cfg.mlp_hidden)
+                if grouped:
+                    lin1_perm = lin1_perm[perms["linear1"][1]]
+                lin1_perm = torch.as_tensor(lin1_perm)
             delta = delta[lin1_perm.to(device)]
+        elif grouped and key.endswith(".linear2") and delta.shape[1] == cfg.hidden_size + cfg.mlp_hidden:
+            delta = delta[:, torch.as_tensor(perms["linear2"][1]).to(device)]
+        if lin.shard is not None:  # this rank's slice of the delta, as of the weight
+            mesh, axis = lin.shard.mesh, lin.shard.axis
+            dim, size = (0 if lin.shard.mode == "col" else 1), mesh.size(axis)
+            n = delta.shape[dim] // size
+            delta = delta.narrow(dim, mesh.rank(axis) * n, n)
         setattr(parent, name, with_kernel(lin, dequantize_kernel(lin) + delta))
     return model
 
@@ -461,11 +481,17 @@ def export_lora_adapters(adapters: Adapters, cfg: FluxStatic) -> StateDict:
     lora.py:595-640): ``lora_down.weight`` (r, in), ``lora_up.weight`` (out, r),
     ``alpha`` = rank, so every consumer applies scale 1. The rows of a qkv or linear1
     B go back into the checkpoint's interleaved rope layout: the inverse of the
-    permutation that :func:`fuse_lora` applies at load. Only the flat fused layout is
-    ported: the grouped one (tensor parallelism) raises."""
-    cfg.require_flat("exporting adapters")
-    inv_qkv = np.argsort(qkv_out_permutation(cfg.hidden_size, cfg.head_dim))
-    inv_lin1 = np.argsort(qkv_out_permutation(cfg.hidden_size, cfg.head_dim, extra=cfg.mlp_hidden))
+    permutation that :func:`fuse_lora` applies at load: in the grouped layout the
+    head-major regroup as well, and linear2's A columns its grouped in-permutation
+    (JAX lora.py:592-620)."""
+    qkv_perm = qkv_out_permutation(cfg.hidden_size, cfg.head_dim)
+    lin1_perm = qkv_out_permutation(cfg.hidden_size, cfg.head_dim, extra=cfg.mlp_hidden)
+    inv_lin2_in = None
+    if cfg.fused_layout == "grouped":
+        perms = grouped_permutations(cfg)
+        qkv_perm, lin1_perm = qkv_perm[perms["img_attn_qkv"][1]], lin1_perm[perms["linear1"][1]]
+        inv_lin2_in = np.argsort(perms["linear2"][1])
+    inv_qkv, inv_lin1 = np.argsort(qkv_perm), np.argsort(lin1_perm)
     bfl_by_leaf = {v: k for k, v in _BLOCK_LEAF_BY_BFL.items()}
     sd: StateDict = {}
     for stack, blocks in adapters.items():
@@ -477,6 +503,8 @@ def export_lora_adapters(adapters: Adapters, cfg: FluxStatic) -> StateDict:
                     b = b[torch.as_tensor(inv_qkv)]
                 elif name == "linear1":
                     b = b[torch.as_tensor(inv_lin1)]
+                elif name == "linear2" and inv_lin2_in is not None:
+                    a = a[:, torch.as_tensor(inv_lin2_in)]
                 stem = f"lora_unet_{stack}_{i}_{bfl_by_leaf[name].replace('.', '_')}"
                 sd[f"{stem}.lora_down.weight"] = a.contiguous()
                 sd[f"{stem}.lora_up.weight"] = b.contiguous()

@@ -4,12 +4,22 @@
 endpoints.
 
     python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev.json
+    python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev-tp4.json
+    python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev.json --mesh tp=2,sp=2
+    torchrun --nproc-per-node 4 -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev-tp4.json
+
+A config with a ``mesh`` (or ``--mesh``) serves over that many ranks, one process each
+(``parallel/launch.py``): spawned here, or torchrun's when it started this process.
+The first rank serves HTTP on ``--port``; the others follow it. ``--dist-backend``
+names the process group's backend: nccl (the default) takes one rank per card, gloo
+lets ranks share a card or run on the host.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 
 logger = logging.getLogger(__name__)
 
@@ -64,23 +74,37 @@ def parse_args(argv=None):
                              "(quantized data + weight/input scales) to PATH, then exit "
                              "instead of serving; reload it with -PF")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="Multi-device serving mesh (not ported yet)")
+                        help="Multi-GPU serving mesh, e.g. 'dp=1,tp=4' or 'tp=2,sp=2': shards the "
+                             "flow over (data, tensor, sequence) parallel axes, one rank per process "
+                             "(overrides the config file's mesh field)")
+    parser.add_argument("--dist-backend", type=str, default="nccl", choices=["nccl", "gloo"],
+                        help="torch.distributed backend of a mesh: nccl (one rank per card) or "
+                             "gloo (ranks may share a card, or run on the host)")
     return parser.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)-7s | %(name)s - %(message)s")
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP: multi-GPU)")
+def parse_mesh(spec: str):
+    """'dp=1,tp=4' → {"dp": 1, "tp": 4} (preserving axis order; JAX main.py:69-80)."""
+    mesh = {}
+    for part in spec.split(","):
+        axis, _, size = part.partition("=")
+        if not axis or not size:
+            raise SystemExit(f"--mesh {spec!r}: expected comma-separated axis=size pairs")
+        try:
+            mesh[axis.strip()] = int(size)
+        except ValueError:
+            raise SystemExit(f"--mesh {spec!r}: size for axis {axis!r} is not an integer")
+    return mesh
 
-    from .pipeline import FluxPipeline
-    from .utils.config import ModelVersion, load_config
+
+def _config(args):
+    """The ModelSpec of the command line: the config file (with ``-f``), or the flags."""
+    from .utils.config import ModelVersion, load_config, load_config_from_path
 
     if args.config_path:
-        pipeline = FluxPipeline.load_pipeline_from_config_path(
-            args.config_path, flow_model_path=args.flow_model_path
-        )
+        config = load_config_from_path(args.config_path)
+        if args.flow_model_path:
+            config.ckpt_path = args.flow_model_path
     else:
         config = load_config(
             ModelVersion(args.model_version),
@@ -102,18 +126,73 @@ def main(argv=None):
             quantize_modulation=args.quantize_modulation,
             quantize_flow_embedder_layers=args.quantize_flow_embedder_layers,
         )
-        pipeline = FluxPipeline.load_pipeline_from_config(config)
+    if args.mesh:
+        config.mesh = parse_mesh(args.mesh)
+    return config
 
+
+def _logging() -> None:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)-7s | %(name)s - %(message)s")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _logging()
+    config = _config(args)
+    if config.mesh:
+        from .parallel.launch import run_ranks
+        from .parallel.mesh import parse_axes
+
+        run_ranks(_serve_rank, math.prod(parse_axes(config.mesh).values()), (args, config))
+        return
+    from .pipeline import FluxPipeline
+
+    if args.config_path:
+        pipeline = FluxPipeline.load_pipeline_from_config_path(args.config_path, flow_model_path=args.flow_model_path)
+    else:
+        pipeline = FluxPipeline.load_pipeline_from_config(config)
+    _serve(args, pipeline)
+
+
+def _serve_rank(args, config) -> None:
+    """One rank of a mesh: its pipeline, then the server (first rank) or the follower
+    loop. A rank runs on ``cuda:{LOCAL_RANK % cards}``, or on the host when the config
+    puts the flow there."""
+    _logging()
+    from .parallel.launch import MeshPipeline, follower_loop
+    from .parallel.mesh import make_mesh
+    from .pipeline import FluxPipeline
+
+    on_host = str(config.flux_device or "").startswith("cpu")
+    mesh = make_mesh(config.mesh, backend=args.dist_backend, device="cpu" if on_host else None)
+    pipeline = FluxPipeline.load_pipeline_from_config(config, mesh=mesh)
+    if args.save_prequantized or not mesh.is_root:
+        if args.save_prequantized:  # every rank calibrates and gathers; the first writes
+            _save_prequantized(args, pipeline)
+        else:
+            follower_loop(pipeline)
+        return
+    front = MeshPipeline(pipeline)
+    try:
+        _serve(args, front)
+    finally:
+        front.stop()
+
+
+def _save_prequantized(args, pipeline) -> None:
+    if pipeline._needs_calibration:
+        # the reference's warmup recipe until the input scales freeze: the file ships them
+        logger.info("calibrating input scales before the prequantized export …")
+        pipeline.compile()
+    pipeline.save_prequantized(args.save_prequantized)
+    logger.info("prequantized flow checkpoint written to %s — serve it with "
+                "--config-path configs/config-dev-prequant.json -f %s (ckpt_path, "
+                "prequantized_flow=true)", args.save_prequantized, args.save_prequantized)
+
+
+def _serve(args, pipeline) -> None:
     if args.save_prequantized:
-        if pipeline._needs_calibration:
-            # the reference's warmup recipe until the input scales freeze: the file
-            # ships them
-            logger.info("calibrating input scales before the prequantized export …")
-            pipeline.compile()
-        pipeline.save_prequantized(args.save_prequantized)
-        logger.info("prequantized flow checkpoint written to %s — serve it with "
-                    "--config-path configs/config-dev-prequant.json -f %s (ckpt_path, "
-                    "prequantized_flow=true)", args.save_prequantized, args.save_prequantized)
+        _save_prequantized(args, pipeline)
         return
     try:
         import uvicorn

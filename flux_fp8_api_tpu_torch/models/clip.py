@@ -3,6 +3,10 @@
 HF CLIPTextModel semantics: learned absolute positions, causal mask, quick_gelu,
 affine LayerNorm (eps 1e-5) in fp32, and pooling at the first eos token (with HF's
 legacy argmax rule for openai-era configs whose eos_token_id is 2).
+
+Under tensor parallelism (``parallel/mesh.py:shard_encoder_params``) each rank's
+q/k/v and fc1 hold its heads and channels, and out_proj and fc2 all-reduce their
+partial products.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import Linear, linear_apply, quantize_blocks_weight_only
+from ..parallel.mesh import local_heads
 from ..utils.config import into_device
 from ..utils.tree import ParamTree
 
@@ -49,15 +54,15 @@ def _ln(x: torch.Tensor, p, eps: float) -> torch.Tensor:
 
 def _clip_attention(blk, x, cfg: CLIPConfig, dtype):
     b, l, d = x.shape
-    h = cfg.num_heads
-    hd = d // h
+    hd = d // cfg.num_heads
+    h = local_heads(cfg.num_heads, blk["q_proj"])[1]
     q = linear_apply(blk["q_proj"], x, dtype)[0].reshape(b, l, h, hd) * (hd**-0.5)
     k = linear_apply(blk["k_proj"], x, dtype)[0].reshape(b, l, h, hd)
     v = linear_apply(blk["v_proj"], x, dtype)[0].reshape(b, l, h, hd)
     scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
     causal = torch.triu(torch.full((l, l), float("-inf"), device=x.device), diagonal=1)
     probs = torch.softmax(scores + causal, dim=-1).to(dtype)
-    out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, d)
+    out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, h * hd)
     return linear_apply(blk["out_proj"], out, dtype)[0]
 
 

@@ -4,8 +4,10 @@ The model is a :class:`~..utils.tree.ParamTree` with the JAX tree's names:
 ``img_in``, ``txt_in``, ``time_in``/``vector_in``/``guidance_in`` (``in_layer``,
 ``out_layer``), ``double_blocks`` and ``single_blocks`` as ``nn.ModuleList``s of
 per-block trees, and ``final_layer`` (``linear``, ``adaln``). The depth stacks run
-as Python loops where the JAX package scans stacked leaves. Only the ``flat`` fused
-qkv layout is ported.
+as Python loops where the JAX package scans stacked leaves. Both fused layouts run:
+``flat`` on one rank, ``grouped`` (head-major) under tensor parallelism, where each
+rank's qkv, linear1 and linear2 hold only its heads and every head count below is
+read from the tensors (``parallel/mesh.py``).
 
 Quantization tiers (``fp8``, ``int8``, ``int4``) follow the reference's partition
 (float8_quantize.py:320-369,395-496): ``final_layer`` never, modulation linears gated
@@ -68,9 +70,19 @@ class FluxStatic:
     # (ops/quant.py linear_apply ``dequant``): the QLoRA training forward. Serving
     # configs keep it off (JAX flux.py:87-93).
     dequant_linears: bool = False
-    # fused qkv/linear1/linear2 channel layout (JAX flux.py:73-79): only "flat" is
-    # ported; "grouped" (head-major, for tensor parallelism) raises where it is used
+    # fused qkv/linear1/linear2 channel layout (JAX flux.py:73-79): "flat" (the
+    # reference's order, one rank) or "grouped" (head-major, tensor parallelism;
+    # utils/checkpoint.py:relayout_flux_tree). The tree and this field must agree.
     fused_layout: str = "flat"
+    # the mesh axes the attention's folded batch·head axis is split over (JAX
+    # flux.py:71-80): informational here, where each rank's heads are local already
+    attn_shard_axes: Optional[Tuple[str, ...]] = None
+    # the mesh axis of sequence parallelism: each rank runs its L/sp rows of q against
+    # the full k and v and the rows are all-gathered (ops/attention.py)
+    attn_seq_axis: Optional[str] = None
+    # the parallel.mesh.Mesh that attn_seq_axis names (not part of the configuration's
+    # identity)
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
     def from_params(
@@ -101,11 +113,6 @@ class FluxStatic:
             fp8_fast_accum=fp8_fast_accum,
             use_pallas=use_pallas,
         )
-
-    def require_flat(self, what: str) -> None:
-        if self.fused_layout != "flat":
-            raise NotImplementedError(
-                f"{what} in the {self.fused_layout!r} fused layout waits for multi-GPU (ROADMAP §1 item 12)")
 
     @property
     def head_dim(self) -> int:
@@ -286,17 +293,28 @@ def _mlp_embedder(tape: _Tape, name: str, p, x, dtype):
     return tape.lin(f"{name}.out_layer", p["out_layer"], silu(h), dtype)
 
 
-def _split_qkv(qkv: torch.Tensor, num_heads: int):
-    """(B, L, 3D) → three (B, L, N, H) views, reference K-major order (3, heads, hd)."""
+def _split_qkv(qkv: torch.Tensor, head_dim: int, layout: str = "flat"):
+    """(B, L, 3·N·H) → three (B, L, N, H) views (JAX flux.py:339-355), N read from the
+    width (a tensor-parallel rank holds only its heads). ``flat``: the reference's
+    K-major order (3, heads, hd); ``grouped``: head-major (heads, 3, hd)."""
     b, l, d3 = qkv.shape
-    qkv = qkv.reshape(b, l, 3, num_heads, d3 // (3 * num_heads))
-    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    n = d3 // (3 * head_dim)
+    if layout == "flat":
+        qkv = qkv.reshape(b, l, 3, n, head_dim)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    qkv = qkv.reshape(b, l, n, 3, head_dim)
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+
+
+def _attention(cfg: FluxStatic, q, k, v, cos, sin):
+    return attention(q, k, v, cos, sin, use_pallas=cfg.use_pallas,
+                     seq_mesh=cfg.mesh if cfg.attn_seq_axis else None, seq_axis=cfg.attn_seq_axis)
 
 
 def _double_block(cfg: FluxStatic, blk, img, txt, vec_silu, cos, sin, tape: _Tape):
     """One DoubleStreamBlock (reference flux_model.py:356-400)."""
     dtype = cfg.dtype
-    n = cfg.num_heads
+    hd, layout = cfg.head_dim, cfg.fused_layout
     txt_len = txt.shape[1]
 
     img_mod = tape.lin("img_mod_lin", blk["img_mod_lin"], vec_silu, dtype)[:, None, :]
@@ -306,14 +324,14 @@ def _double_block(cfg: FluxStatic, blk, img, txt, vec_silu, cos, sin, tape: _Tap
 
     img_modulated = modulate(layer_norm(img), i_shift1, i_scale1)
     img_q, img_k, img_v = _split_qkv(
-        tape.lin("img_attn_qkv", blk["img_attn_qkv"], img_modulated, dtype), n
+        tape.lin("img_attn_qkv", blk["img_attn_qkv"], img_modulated, dtype), hd, layout
     )
     img_q = rms_norm(img_q, blk["img_attn_qnorm"])
     img_k = rms_norm(img_k, blk["img_attn_knorm"])
 
     txt_modulated = modulate(layer_norm(txt), t_shift1, t_scale1)
     txt_q, txt_k, txt_v = _split_qkv(
-        tape.lin("txt_attn_qkv", blk["txt_attn_qkv"], txt_modulated, dtype), n
+        tape.lin("txt_attn_qkv", blk["txt_attn_qkv"], txt_modulated, dtype), hd, layout
     )
     txt_q = rms_norm(txt_q, blk["txt_attn_qnorm"])
     txt_k = rms_norm(txt_k, blk["txt_attn_knorm"])
@@ -322,7 +340,7 @@ def _double_block(cfg: FluxStatic, blk, img, txt, vec_silu, cos, sin, tape: _Tap
     q = torch.cat([txt_q, img_q], dim=1)
     k = torch.cat([txt_k, img_k], dim=1)
     v = torch.cat([txt_v, img_v], dim=1)
-    attn = attention(q, k, v, cos, sin, use_pallas=cfg.use_pallas)
+    attn = _attention(cfg, q, k, v, cos, sin)
     txt_attn, img_attn = attn[:, :txt_len], attn[:, txt_len:]
 
     img = img + i_gate1 * tape.lin("img_attn_proj", blk["img_attn_proj"], img_attn, dtype)
@@ -344,22 +362,36 @@ def _double_block(cfg: FluxStatic, blk, img, txt, vec_silu, cos, sin, tape: _Tap
 
 
 def _single_block(cfg: FluxStatic, blk, x, vec_silu, cos, sin, tape: _Tape):
-    """One SingleStreamBlock (reference flux_model.py:467-485)."""
+    """One SingleStreamBlock (reference flux_model.py:467-485). In the grouped layout
+    linear1's out-axis is [q_n | k_n | v_n | mlp_n] per head and linear2's in-axis
+    [attn_n | mlp_n], so a tensor-parallel rank's slices hold whole heads with their
+    mlp channels (JAX flux.py:428-460)."""
     dtype = cfg.dtype
-    hs = cfg.hidden_size
+    hd = cfg.head_dim
+    g = cfg.mlp_hidden // cfg.num_heads  # mlp channels per head group
 
     mod = tape.lin("mod_lin", blk["mod_lin"], vec_silu, dtype)[:, None, :]
     shift, scale, gate = mod.chunk(3, dim=-1)
     x_mod = modulate(layer_norm(x), shift, scale)
 
     lin1 = tape.lin("linear1", blk["linear1"], x_mod, dtype)
-    q, k, v = _split_qkv(lin1[..., : 3 * hs], cfg.num_heads)
-    mlp = lin1[..., 3 * hs:]
+    b, l, width = lin1.shape
+    if cfg.fused_layout == "flat":
+        q, k, v = _split_qkv(lin1[..., : 3 * cfg.hidden_size], hd)
+        mlp = lin1[..., 3 * cfg.hidden_size:]
+    else:
+        lin1 = lin1.reshape(b, l, width // (3 * hd + g), 3 * hd + g)
+        q, k, v = _split_qkv(lin1[..., : 3 * hd].reshape(b, l, -1), hd, "grouped")
+        mlp = lin1[..., 3 * hd:]  # (B, L, N, g)
     q = rms_norm(q, blk["qnorm"])
     k = rms_norm(k, blk["knorm"])
-    attn = attention(q, k, v, cos, sin, use_pallas=cfg.use_pallas)
+    attn = _attention(cfg, q, k, v, cos, sin)
 
-    out = tape.lin("linear2", blk["linear2"], torch.cat([attn, gelu_tanh(mlp)], dim=-1), dtype)
+    if cfg.fused_layout == "flat":
+        x2 = torch.cat([attn, gelu_tanh(mlp)], dim=-1)
+    else:
+        x2 = torch.cat([attn.reshape(b, l, -1, hd), gelu_tanh(mlp)], dim=-1).reshape(b, l, -1)
+    out = tape.lin("linear2", blk["linear2"], x2, dtype)
     return clamp_policy(x + gate * out, cfg.do_clamp)
 
 
@@ -462,7 +494,6 @@ def flux_apply(
     """
     if img.dim() != 3 or txt.dim() != 3:
         raise ValueError("Input img and txt tensors must have 3 dimensions.")
-    cfg.require_flat("the forward")
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and collect_amax:
         raise ValueError("collect_amax (calibration) does not combine with remat under grad")

@@ -3,6 +3,11 @@
 HF T5 v1.1 semantics: RMS layer norm in fp32 without bias, no embedding or attention
 scaling, gated-gelu feed-forward, bidirectional relative position bias computed once
 and shared by all blocks, and — as the reference does — no attention mask.
+
+Under tensor parallelism (``parallel/mesh.py:shard_encoder_params``) q/k/v and the
+gated up-projections hold this rank's heads and channels, o and the down-projection
+all-reduce their partial products, and each rank adds its heads' rows of the position
+bias.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Any, Dict
 import torch
 
 from ..ops.quant import Linear, linear_apply, quantize_blocks_weight_only
+from ..parallel.mesh import local_heads
 from ..utils.config import into_device
 from ..utils.tree import ParamTree
 
@@ -82,9 +88,10 @@ def compute_position_bias(rel_bias_table: torch.Tensor, seq_len: int, cfg: T5Con
 
 def _t5_attention(blk, x, position_bias, cfg: T5Config, dtype):
     b, l, _ = x.shape
-    h, dk = cfg.num_heads, cfg.d_kv
+    h0, h = local_heads(cfg.num_heads, blk["q"])
+    dk = cfg.d_kv
     q, k, v = (linear_apply(blk[n], x, dtype)[0].reshape(b, l, h, dk) for n in ("q", "k", "v"))
-    scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) + position_bias
+    scores = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) + position_bias[:, h0:h0 + h]
     probs = torch.softmax(scores, dim=-1).to(dtype)
     out = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(b, l, h * dk)
     return linear_apply(blk["o"], out, dtype)[0]

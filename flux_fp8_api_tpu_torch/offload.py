@@ -59,16 +59,24 @@ class BlockStream:
     """Copies blocks host → ``device`` on a side stream for the current (compute)
     stream; on the CPU a copy is the host block itself and nothing waits.
 
-    ``sync_every`` is host backpressure, as in the JAX package: after each copy it
-    enqueues, the host waits for the copy ``sync_every`` copies back to finish. That
-    bounds how far the host runs ahead of the card, and so how many dropped blocks the
-    allocator holds that it cannot reuse yet. 0 never waits. It changes no value."""
+    ``sync_every`` is host backpressure, as in the JAX package, which fetches a value
+    of the newest activation every ``sync_every`` puts and so drains the queue to the
+    compute frontier (JAX offload.py:177-187, 254-259): the loop calls
+    :meth:`computed` once each block's compute is enqueued, which records an event on
+    the compute stream tagged with the puts made so far, and the n-th put first waits
+    for every compute recorded ``sync_every`` − 1 or more puts before it (the loop has
+    put block j + 1 by the time block j's compute is recorded, so at retain 0 that is
+    the compute of block n − ``sync_every``). Counting puts, not computes, keeps the
+    bound where retained blocks compute with no put. That bounds how far the host runs
+    ahead of the compute, and so how many dropped blocks the allocator holds that it
+    cannot reuse yet. 0 never waits. It changes no value."""
 
     def __init__(self, device, sync_every: int = 0):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.sync_every = sync_every
-        self._pending: collections.deque = collections.deque()
+        self._pending: collections.deque = collections.deque()  # (puts made, compute event)
+        self._puts = 0
         if self.cuda:
             self.compute = torch.cuda.current_stream(self.device)
             self.side = side_stream(self.device)
@@ -77,17 +85,23 @@ class BlockStream:
         """Enqueue the block's copy → (device copy, its copy event or None)."""
         if not self.cuda:
             return tree_to(block, self.device), None
+        self._puts += 1
+        while self._pending and self._pending[0][0] <= self._puts - self.sync_every + 1:
+            self._pending.popleft()[1].synchronize()
         with torch.cuda.stream(self.side):
             dev = tree_to(block, self.device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.side)
         for b in dev.buffers():
             b.record_stream(self.compute)
-        if self.sync_every:
-            self._pending.append(done)
-            if len(self._pending) > self.sync_every:
-                self._pending.popleft().synchronize()
         return dev, done
+
+    def computed(self) -> None:
+        """Mark one block's compute as enqueued (see ``sync_every``)."""
+        if self.cuda and self.sync_every:
+            ev = torch.cuda.Event()
+            ev.record(self.compute)
+            self._pending.append((self._puts, ev))
 
     def ready(self, done: Optional[torch.cuda.Event]) -> None:
         """Make the compute stream wait for a copy before its next kernel."""
@@ -183,8 +197,10 @@ def streamed_denoise(
         img_e, txt_e, vec_silu, cos, sin = flux_pre(tops_dev, cfg, img, img_ids, txt, txt_ids, t_vec, y, g_vec, tape)
         for j in range(n_dbl):
             img_e, txt_e = _double_block(cfg, take(j), img_e, txt_e, vec_silu, cos, sin, tape)
+            stream.computed()
         x = torch.cat([txt_e, img_e], dim=1)
         for j in range(n_dbl, n):
             x = _single_block(cfg, take(j), x, vec_silu, cos, sin, tape)
+            stream.computed()
         img = _update(img, dt, flux_final(tops_dev, cfg, x[:, txt_len:], vec_silu, tape))
     return img

@@ -9,6 +9,12 @@ the JAX package runs in Pallas; False runs the rope pass and then
 Within a path, dispatch is by device: CUDA tensors launch the hand-written kernels,
 CPU tensors run their plain PyTorch versions. :func:`benchmark_blocks` times the kernel
 on the card.
+
+Under a mesh (``parallel/mesh.py``) each rank's q, k and v hold only its heads, so
+either path runs at the local head count with no collective. Under sequence
+parallelism each rank also takes its L/sp rows of q and of the q rope tables, runs them
+against the full k and v (Lq = L/sp, Lkv = L), and the output rows are all-gathered
+over sp (JAX ops/attention.py:219-251, its ``shard_map`` over ``seq_axis``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ def attention_core(
     cos: Optional[torch.Tensor] = None,
     sin: Optional[torch.Tensor] = None,
     use_pallas: bool = True,
+    seq_mesh=None,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Softmax attention over the joint (txt + img) sequence, optionally with rope.
 
@@ -61,6 +69,8 @@ def attention_core(
         and k with the rope pass and runs :func:`_sdpa`, differentiable end to end
         (the rope pass through its autograd Function and backward build, SDPA through
         its own backward): the training path.
+      seq_mesh, seq_axis: sequence parallelism over ``seq_mesh``'s ``seq_axis``: this
+        rank computes its L/sp q rows and all-gathers the output rows (L must divide).
     Returns:
       (B, L, N, H) in q's dtype.
     """
@@ -70,12 +80,23 @@ def attention_core(
     if cos is not None:
         cos2d = (cos[0, :, 0, :] if cos.dim() == 4 else cos).float().contiguous()
         sin2d = (sin[0, :, 0, :] if sin.dim() == 4 else sin).float().contiguous()
+    cos_q, sin_q = cos2d, sin2d
+    sp = 1 if seq_mesh is None else seq_mesh.size(seq_axis)
+    if sp > 1:
+        if l % sp:
+            raise ValueError(f"sequence parallelism needs L={l} divisible by sp={sp}")
+        rows = slice(seq_mesh.rank(seq_axis) * (l // sp), (seq_mesh.rank(seq_axis) + 1) * (l // sp))
+        qh = qh[:, rows]
+        if cos2d is not None:
+            cos_q, sin_q = cos2d[rows].contiguous(), sin2d[rows].contiguous()
     if use_pallas:
-        out = qknorm_attention(qh, kh, vh, 1.0 / (h**0.5), cos=cos2d, sin=sin2d)
+        out = qknorm_attention(qh, kh, vh, 1.0 / (h**0.5), cos=cos2d, sin=sin2d, cos_q=cos_q, sin_q=sin_q)
     else:
         if cos2d is not None:
-            qh, kh = rope_rotate(qh, kh, cos2d, sin2d)
+            qh, kh = rope_rotate(qh, kh, cos2d, sin2d, cos_q, sin_q)
         out = _sdpa(qh, kh, vh)
+    if sp > 1:
+        out = seq_mesh.all_gather(out, seq_axis, dim=1)
     return out.reshape(b, n, l, h).permute(0, 2, 1, 3)
 
 
@@ -86,11 +107,14 @@ def attention(
     cos: torch.Tensor,
     sin: torch.Tensor,
     use_pallas: bool = True,
+    seq_mesh=None,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """RoPE + attention + head merge (reference ``attention``, flux_model.py:41-45):
     (B, L, N, H) q/k/v → (B, L, N·H)."""
     b, l, n, h = q.shape
-    return attention_core(q, k, v, cos=cos, sin=sin, use_pallas=use_pallas).reshape(b, l, n * h)
+    return attention_core(q, k, v, cos=cos, sin=sin, use_pallas=use_pallas,
+                          seq_mesh=seq_mesh, seq_axis=seq_axis).reshape(b, l, n * h)
 
 
 # --------------------------------------------------------------------- measurement

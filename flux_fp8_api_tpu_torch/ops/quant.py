@@ -36,6 +36,13 @@ Any kind may carry a trainable low-rank adapter, ``lora_a`` (r, in) and ``lora_b
 differentiable dequantize and bf16 product instead (JAX quant.py:522-534): the
 serving kinds round the activation, which has no gradient.
 
+A Linear sharded over a tensor-parallel mesh (``parallel/mesh.py``) carries its
+``shard``: a column-parallel one computes its out-slice (the modulation linears then
+all-gather it), a row-parallel one all-reduces its partial product over tp before
+the epilogue and adds the bias once, after the reduction: the int32 partials on the
+int tiers (the exact sum, so the result is one rank's bit for bit), fp32 partials on
+fp8, float and the weight-only kinds, cast once.
+
 Scale semantics match the reference (float8_quantize.py:214-218) for fp8 and the JAX
 package's 127/amax law for the int kinds; every quantizer gives the bytes and scales
 the JAX package serves (its flow quantize and calibration run jitted, see
@@ -126,6 +133,8 @@ class Linear(nn.Module):
         self.register_buffer("bias", bias)
         self.register_buffer("lora_a", lora_a)
         self.register_buffer("lora_b", lora_b)
+        # parallel.mesh.LinearShard of a tensor-parallel slice; None: the whole layer
+        self.shard = None
 
     @property
     def in_features(self) -> int:
@@ -141,36 +150,42 @@ def _one(device) -> torch.Tensor:
     return torch.ones((), dtype=torch.float32, device=device)
 
 
-def quantize_linear_fp8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+def quantize_linear_fp8(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                        amax: Optional[torch.Tensor] = None) -> Linear:
     """Float (out, in) weight → fp8 Linear with a per-tensor scale (reference
     ``quantize_weight``, float8_quantize.py:195-207). ``in_scale`` starts at 1.0;
-    calibration replaces it."""
+    calibration replaces it. ``amax``: the weight's max|w| when ``weight`` is only a
+    tensor-parallel slice of it."""
     w32 = weight.float()
-    scale = amax_to_scale(w32.abs().max(), F8_WEIGHT_MAX)
+    scale = amax_to_scale(w32.abs().max() if amax is None else amax, F8_WEIGHT_MAX)
     q = to_fp8_saturated(w32, scale, F8_WEIGHT_MAX).to(WEIGHT_F8_DTYPE)
     one = _one(weight.device)
     return Linear("fp8", q=q, w_scale=scale, w_scale_inv=1.0 / scale,
                   in_scale=one, in_scale_inv=one.clone(), bias=bias)
 
 
-def quantize_linear_int8(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+def quantize_linear_int8(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                         amax: Optional[torch.Tensor] = None) -> Linear:
     """Float (out, in) weight → int8 Linear, per-out-channel scales mapping each
-    channel's amax to 127, round half to even (JAX quant.py:144)."""
+    channel's amax to 127, round half to even (JAX quant.py:144). ``amax``: the rows'
+    max|w| when ``weight`` holds only some of the in-features."""
     w32 = weight.float()
-    scale, scale_inv = _int_scales(w32.abs().amax(dim=1), INT8_MAX)  # (out,)
+    scale, scale_inv = _int_scales(w32.abs().amax(dim=1) if amax is None else amax, INT8_MAX)  # (out,)
     q = torch.round(torch.clamp(w32 * scale[:, None], -INT8_MAX, INT8_MAX)).to(torch.int8)
     one = _one(weight.device)
     return Linear("int8", q=q, w_scale=scale, w_scale_inv=scale_inv,
                   in_scale=one, in_scale_inv=one.clone(), bias=bias)
 
 
-def quantize_linear_int4(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> Linear:
+def quantize_linear_int4(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                         amax: Optional[torch.Tensor] = None) -> Linear:
     """Float (out, in) weight → packed int4 Linear, per-out-channel scales (the
-    gigaquant flow tier, JAX quant.py:170), half-split packed along in."""
+    gigaquant flow tier, JAX quant.py:170), half-split packed along in. ``amax`` as
+    for :func:`quantize_linear_int8`."""
     if weight.dim() != 2 or weight.shape[1] % 2:
         raise ValueError(f"int4 packing needs an (out, even in) weight, got {tuple(weight.shape)}")
     w32 = weight.float()
-    scale, scale_inv = _int_scales(w32.abs().amax(dim=1), INT4_MAX)
+    scale, scale_inv = _int_scales(w32.abs().amax(dim=1) if amax is None else amax, INT4_MAX)
     q = (torch.round(torch.clamp(w32 * scale[:, None], -INT4_MAX, INT4_MAX)) + INT4_MAX).to(torch.uint8)
     half = weight.shape[1] // 2
     one = _one(weight.device)
@@ -281,15 +296,25 @@ def dequantize_kernel(lin: Linear) -> torch.Tensor:
 def with_kernel(lin: Linear, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> Linear:
     """A new Linear of the same kind from a float (out, in) weight, keeping the tuned
     input scale (reference ``set_weight_tensor``,
-    float8_quantize.py:209-212)."""
+    float8_quantize.py:209-212). For a tensor-parallel slice (``lin.shard``) the new
+    weight is the slice, and the scales come from the whole weight's amax, a MAX over
+    tp: fp8's per-tensor one always, the int kinds' per-row ones on a row-parallel
+    slice, whose rows span the ranks. So each rank holds the one-rank result's slice."""
     bias = lin.bias if bias is None else bias
     if lin.kind == "float":
-        return Linear("float", weight=weight.to(lin.weight.dtype), bias=bias)
-    if lin.kind not in FLOW_QUANTIZERS:
+        fresh = Linear("float", weight=weight.to(lin.weight.dtype), bias=bias)
+    elif lin.kind not in FLOW_QUANTIZERS:
         raise ValueError(f"re-quantizing a weight-only ({lin.kind}) leaf is not supported — "
                          "weight-only tiers are load-time only (text encoders)")
-    fresh = FLOW_QUANTIZERS[lin.kind](weight, bias)
-    fresh.in_scale, fresh.in_scale_inv = lin.in_scale, lin.in_scale_inv
+    else:
+        amax, shard = None, lin.shard
+        if shard is not None and (lin.kind == "fp8" or shard.mode == "row"):
+            w32 = weight.float()
+            amax = w32.abs().max() if lin.kind == "fp8" else w32.abs().amax(dim=1)
+            amax = shard.mesh.all_reduce_max(amax.contiguous(), shard.axis)
+        fresh = FLOW_QUANTIZERS[lin.kind](weight, bias, amax)
+        fresh.in_scale, fresh.in_scale_inv = lin.in_scale, lin.in_scale_inv
+    fresh.shard = lin.shard
     return fresh
 
 
@@ -324,7 +349,14 @@ def linear_apply(
     ``h·Bᵀ`` where ``h = x·Aᵀ`` is rounded to the compute dtype and the product
     accumulates in fp32, added in the output's dtype (JAX quant.py:509-519)."""
     amax = x.abs().max().float() if collect_amax else None
-    out = _linear_base(lin, x, compute_dtype, fast_accum, dequant)
+    shard = lin.shard
+    if shard is not None and shard.mode == "row":
+        out = _linear_base(lin, x, compute_dtype, fast_accum, dequant,
+                           reduce=lambda p: shard.mesh.all_reduce_sum(p, shard.axis))
+    else:
+        out = _linear_base(lin, x, compute_dtype, fast_accum, dequant)
+        if shard is not None and shard.gather:
+            out = shard.mesh.all_gather(out, shard.axis, dim=-1)
     if lin.lora_a is not None:
         h = F.linear(x.to(compute_dtype), lin.lora_a.to(compute_dtype))
         out = out + F.linear(h, lin.lora_b.to(compute_dtype)).to(out.dtype)
@@ -338,11 +370,11 @@ def _saveable(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.clone() if x.requires_grad and w.is_inference() else w
 
 
-def fp8_linear_ref(lin: Linear, x8: torch.Tensor, compute_dtype) -> torch.Tensor:
+def fp8_linear_ref(lin: Linear, x8: torch.Tensor, compute_dtype, with_bias: bool = True) -> torch.Tensor:
     """Plain version of the ``fp8`` product on an e5m2 activation: fp8 values are exact
     in fp32, so this is one fp32 product with the scale and bias epilogue."""
     out = torch.matmul(x8.float(), lin.q.float().t()) * (lin.in_scale_inv * lin.w_scale_inv)
-    if lin.bias is not None:
+    if with_bias and lin.bias is not None:
         out = out + lin.bias.float()
     return out.to(compute_dtype)
 
@@ -375,11 +407,55 @@ def int_mm_ref(x8: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x8.double(), q.double().t()).to(torch.int32)
 
 
+def _block_scales(lin: Linear) -> torch.Tensor:
+    """The blockwise scales of this rank's in-features. A row-parallel slice keeps its
+    blocks' scales when tp divides the block count; otherwise (the JAX guard) the
+    scales stay whole and the slice, which then lies inside one block, takes that
+    block's column here."""
+    s, shard = lin.w_scale_inv, lin.shard
+    if shard is None or shard.mode != "row":
+        return s
+    size, in_local = shard.mesh.size(shard.axis), lin.in_features
+    in_full = in_local * size
+    nblocks = in_full // (WO_BLOCK if in_full % WO_BLOCK == 0 else in_full)
+    if nblocks % size == 0:
+        return s
+    block = in_full // nblocks
+    if block % in_local:
+        raise NotImplementedError(f"a {in_local}-wide row slice of {block}-wide scale blocks")
+    first = shard.mesh.rank(shard.axis) * in_local // block
+    return s[:, first:first + 1]
+
+
+def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ wᵀ of compute-dtype operands with the fp32 accumulator returned unrounded
+    (a row-parallel partial: rounding it to the compute dtype before the reduction
+    would round each rank's part where one rank rounds the whole sum once). On the
+    card cuBLAS's bf16 GEMM with an fp32 output; on the CPU the fp32 product."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = torch.mm(x2, w.t(), out_dtype=torch.float32) if x.is_cuda else torch.mm(x2.float(), w.float().t())
+    return out.reshape(*x.shape[:-1], w.shape[0])
+
+
+def _reduced(partial: torch.Tensor, lin: Linear, reduce, compute_dtype) -> torch.Tensor:
+    """A row-parallel epilogue: the partial product reduced in fp32 (as (rows, out)),
+    the bias added once, one cast."""
+    out = reduce(partial.float().reshape(-1, partial.shape[-1])).reshape(partial.shape)
+    if lin.bias is not None:
+        out = out + lin.bias.float()
+    return out.to(compute_dtype)
+
+
 def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool,
-                 dequant: bool = False) -> torch.Tensor:
+                 dequant: bool = False, reduce=None) -> torch.Tensor:
+    """The layer's product; ``reduce`` (a row-parallel shard's all-reduce) sums the
+    partial product over the ranks before the epilogue and the bias."""
     bias = None if lin.bias is None else lin.bias.to(compute_dtype)
     if lin.kind == "float":
-        return F.linear(x.to(compute_dtype), _saveable(lin.weight.to(compute_dtype), x), bias)
+        w = _saveable(lin.weight.to(compute_dtype), x)
+        if reduce is not None:
+            return _reduced(_f32_product(x.to(compute_dtype), w), lin, reduce, compute_dtype)
+        return F.linear(x.to(compute_dtype), w, bias)
 
     if dequant and lin.kind in ACTIVATION_KINDS:
         # the differentiable QLoRA forward (JAX quant.py:522-534): the weight
@@ -390,28 +466,36 @@ def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool,
         q = _unpack_int4(lin.q) if lin.kind == "int4" else lin.q
         scale = lin.w_scale_inv.to(compute_dtype)
         w = q.to(compute_dtype) * (scale if lin.kind == "fp8" else scale[:, None])
+        if reduce is not None:
+            return _reduced(_f32_product(x.to(compute_dtype), w), lin, reduce, compute_dtype)
         return F.linear(x.to(compute_dtype), w, bias)
 
     if lin.kind == "fp8":
         x8 = to_fp8_saturated(x.float(), lin.in_scale, F8_INPUT_MAX).to(INPUT_F8_DTYPE)
-        if x.is_cuda:
-            lead = x8.shape[:-1]
-            out = torch._scaled_mm(
-                x8.reshape(-1, x8.shape[-1]),
-                lin.q.t(),
-                scale_a=lin.in_scale_inv,
-                scale_b=lin.w_scale_inv,
-                bias=bias,
-                out_dtype=compute_dtype,
-                use_fast_accum=fast_accum,
-            )
-            return out.reshape(*lead, out.shape[-1])
-        return fp8_linear_ref(lin, x8, compute_dtype)
+        if not x.is_cuda:
+            if reduce is None:
+                return fp8_linear_ref(lin, x8, compute_dtype)
+            return _reduced(fp8_linear_ref(lin, x8, torch.float32, with_bias=False), lin, reduce, compute_dtype)
+        lead = x8.shape[:-1]
+        out = torch._scaled_mm(
+            x8.reshape(-1, x8.shape[-1]),
+            lin.q.t(),
+            scale_a=lin.in_scale_inv,
+            scale_b=lin.w_scale_inv,
+            bias=None if reduce is not None else bias,
+            out_dtype=torch.float32 if reduce is not None else compute_dtype,
+            use_fast_accum=fast_accum,
+        )
+        if reduce is not None:
+            out = _reduced(out, lin, reduce, compute_dtype)
+        return out.reshape(*lead, out.shape[-1])
 
     if lin.kind in ("int8", "int4"):
         x8 = quantize_activation_int8(x, lin.in_scale)
         q = _unpack_int4(lin.q) if lin.kind == "int4" else lin.q
         acc = int_mm(x8.reshape(-1, x8.shape[-1]), q)
+        if reduce is not None:  # the exact int32 sum over the ranks, then one epilogue
+            acc = reduce(acc)
         # dequantize by the reciprocal of the scale actually applied (bf16-rounded),
         # not the stored fp32 in_scale_inv (JAX quant.py:576-579); int32 × fp32
         # promotes to fp32 inside the one multiply, as acc.float() would in a pass of its own
@@ -424,5 +508,7 @@ def _linear_base(lin: Linear, x: torch.Tensor, compute_dtype, fast_accum: bool,
     if lin.kind in ("wo_fp8", "wo_int8"):
         w = lin.q.to(compute_dtype) * lin.w_scale_inv.to(compute_dtype)[:, None]
     else:
-        w = _blockwise_dequantize(lin.q, lin.w_scale_inv, 4 if lin.kind == "wo_int4" else 2, compute_dtype)
+        w = _blockwise_dequantize(lin.q, _block_scales(lin), 4 if lin.kind == "wo_int4" else 2, compute_dtype)
+    if reduce is not None:
+        return _reduced(_f32_product(x.to(compute_dtype), w), lin, reduce, compute_dtype)
     return F.linear(x.to(compute_dtype), w, bias)

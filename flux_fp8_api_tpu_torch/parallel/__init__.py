@@ -1,2 +1,3 @@
-"""Training (``train.py``); the device meshes and pipeline parallelism of the JAX
-package's ``parallel/`` wait for multi-GPU (ROADMAP §1 item 12)."""
+"""Training (``train.py``) and serving over a (dp, tp, sp) mesh of ranks (``mesh.py``,
+``launch.py``); pipeline parallelism (JAX ``parallel/pp.py``) waits for ROADMAP §1
+item 12."""

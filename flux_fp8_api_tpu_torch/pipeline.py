@@ -12,13 +12,23 @@ on the host. Offload runs as in JAX: the flow on the host, streamed block by blo
 under the denoise loop (``offload.py``) once its input scales are calibrated, or moved
 whole to the card and back around each request (calibration, and
 ``stream_flow_offload=False``); the VAE and the text encoders moved to the card only
-for their calls. Not ported yet: multi-device meshes (``NotImplementedError`` naming
-the ROADMAP item).
+for their calls.
+
+Under ``config.mesh`` (``{"dp": …, "tp": …, "sp": …}``) each rank of the mesh runs this
+pipeline as JAX pipeline.py:129-246 sets it up: under tp the flow relayouts to the
+head-major fused layout and keeps its Megatron shard, and the text encoders shard
+too; dp splits the batch rows (noise drawn whole from the seed on every rank, each
+keeping its rows); sp splits attention's q rows. The latents are all-gathered over dp
+and the first rank decodes them with its replicated VAE. Calibration takes each
+amax's MAX over the mesh. Not ported: pipeline parallelism (a pp axis), offload under
+a mesh, and the VAE's spatial bands (``NotImplementedError`` or a replicated decode,
+each naming its ROADMAP item).
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import io
 import logging
@@ -33,7 +43,7 @@ from PIL import Image
 
 from . import lora as lora_mod
 from . import offload as offload_mod
-from .calibration import apply_input_scales, merge_amax
+from .calibration import apply_input_scales, merge_amax, reduce_amaxes
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
 from .models.autoencoder import ae_decode, ae_encode
@@ -42,6 +52,7 @@ from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
 from .ops.quant import ACTIVATION_KINDS, Linear
 from .ops.schedule import get_schedule
+from .parallel.mesh import gather_flux_params, make_mesh, parse_axes, setup_flux, shard_encoder_params
 from .sampling import CacheConfig, denoise, make_denoise_step
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
 from .utils.loader import load_models_from_config
@@ -74,18 +85,20 @@ class FluxPipeline:
         prequantized: bool = False,
         verbose: bool = False,
         debug: bool = False,
+        mesh=None,
     ):
         if config is None:
             raise ValueError("ModelSpec config is required!")
-        if config.mesh:
-            raise NotImplementedError("multi-device meshes are not ported yet (ROADMAP: multi-GPU)")
         self.name = name
         self.config = config
         self.debug = debug
         self.verbose = verbose
+        # the rank's mesh (parallel/mesh.py), given by the launcher or built here from
+        # config.mesh (which needs the ranks' process group already up)
+        self.mesh = self._make_mesh(config, mesh)
 
-        self.device_flux = into_device(config.flux_device)
-        self.device_ae = into_device(config.ae_device)
+        self.device_flux = into_device(config.flux_device) if self.mesh is None else self.mesh.device
+        self.device_ae = into_device(config.ae_device) if self.mesh is None else self.mesh.device
         self.dtype = into_dtype(config.flow_dtype)
         self.ae_dtype = into_dtype(config.ae_dtype)
         # Stated numerics: fp32 matmuls and convs are full fp32, never TF32. Process-wide
@@ -113,6 +126,12 @@ class FluxPipeline:
                     bound, MAX_SAFE_LOGIT,
                 )
                 self.model_cfg = dataclasses.replace(model_cfg, use_pallas=False)
+        if self.mesh is not None:
+            model = self._place_flow(model)
+            if self.mesh.size("tp") > 1:  # the text encoders shard over the same axis
+                for enc in (clip, t5):
+                    if enc is not None:
+                        shard_encoder_params(enc.params, self.mesh, num_heads=enc.config.num_heads)
         self.offload_flow = config.offload_flow
         self.offload_vae = config.offload_vae
         self.offload_text_encoder = config.offload_text_encoder
@@ -143,6 +162,61 @@ class FluxPipeline:
 
         if config.compile_blocks or config.compile_extras:
             self.compile()
+
+    # -------------------------------------------------------------------------- mesh
+
+    @staticmethod
+    def _make_mesh(config: ModelSpec, mesh):
+        """The serving mesh of ``config.mesh`` (JAX pipeline.py:129-140): its axes
+        validated, pp and offload refused by name."""
+        if not config.mesh:
+            return None
+        shape = parse_axes(config.mesh)
+        if shape.get("pp", 1) > 1:
+            raise NotImplementedError(
+                "pipeline parallelism (a pp mesh axis) is not ported yet "
+                "(ROADMAP §1 item 12: pipeline parallelism)")
+        if config.offload_flow or config.offload_vae or config.offload_text_encoder:
+            raise NotImplementedError(
+                "offload under a mesh is not ported yet (ROADMAP §1 item 12: offload under a mesh)")
+        if mesh is None:
+            mesh = make_mesh(shape, device="cpu" if str(config.flux_device or "").startswith("cpu") else None)
+        if mesh.shape != shape:
+            raise ValueError(f"the mesh given is {mesh.shape}, the config asks for {shape}")
+        return mesh
+
+    def _place_flow(self, model):
+        """The flow's mesh set-up on this rank (JAX pipeline.py:187-246, ``_place_flow``
+        ``:371-383``; ``parallel/mesh.py:setup_flux``) → the rank's model."""
+        if self.model_cfg is None:
+            return model
+        model, self.model_cfg = setup_flux(model, self.model_cfg, self.mesh)
+        return model
+
+    def _denoise_cfg(self, joint_seq_len: int) -> FluxStatic:
+        """This request's model config: sp dropped when its joint (txt + img) length
+        does not divide the sp size (JAX pipeline.py:321-334); every sp rank then
+        computes the whole attention."""
+        cfg = self.model_cfg
+        if cfg.attn_seq_axis and joint_seq_len % self.mesh.size(cfg.attn_seq_axis):
+            logger.info("joint seq %d does not divide sp=%d: head-sharded attention only for this "
+                        "request", joint_seq_len, self.mesh.size(cfg.attn_seq_axis))
+            return dataclasses.replace(cfg, attn_seq_axis=None)
+        return cfg
+
+    def _put_flow_input(self, *xs):
+        """→ (this rank's rows of each activation, the rows): the dp split of the batch
+        where dp divides it, else the whole batch and None (JAX pipeline.py:405-414)."""
+        rows = None if self.mesh is None else self.mesh.batch_rows(xs[0].shape[0])
+        return (xs if rows is None else tuple(x[rows] for x in xs)), rows
+
+    def profile(self, log_dir: str):
+        """A ``torch.profiler`` trace of what runs inside the context (one or more
+        generates), written to ``log_dir`` for TensorBoard or Perfetto (JAX
+        pipeline.py:927-931)."""
+        from .profile_step import trace
+
+        return trace(log_dir, self.device_flux)
 
     # ------------------------------------------------------------------------- state
 
@@ -340,11 +414,14 @@ class FluxPipeline:
 
     # -------------------------------------------------------------------- calibration
 
-    def _calibration_denoise(self, img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent):
+    def _calibration_denoise(self, img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg=None):
         """Per-step loop that accumulates amax trials and freezes the input scales
-        after num_scale_trials steps (float8_quantize.py:220-246)."""
-        step_collect = make_denoise_step(self.model_cfg, collect_amax=True)
-        step_plain = make_denoise_step(self.model_cfg)
+        after num_scale_trials steps (float8_quantize.py:220-246); under a mesh each
+        trial's amaxes are the MAX over every rank. ``cfg``: the request's model
+        config (default ``model_cfg``)."""
+        cfg = self.model_cfg if cfg is None else cfg
+        step_collect = make_denoise_step(cfg, collect_amax=True)
+        step_plain = make_denoise_step(cfg)
         pairs = list(zip(timesteps[:-1], timesteps[1:]))
         if not silent:
             from tqdm import tqdm
@@ -355,7 +432,7 @@ class FluxPipeline:
                 img, amaxes = step_collect(
                     self.model_params, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance
                 )
-                self._amax_running = merge_amax(self._amax_running, amaxes)
+                self._amax_running = merge_amax(self._amax_running, reduce_amaxes(amaxes, self.mesh))
                 apply_input_scales(self.model_params, self._amax_running)
                 self._trials_done += 1
                 self._invalidate_stream()  # the input scales changed under the params
@@ -413,6 +490,11 @@ class FluxPipeline:
         t_prepare = time.perf_counter()
         img, img_ids, vec, txt, txt_ids = self.prepare(img, prompt)
         self.timings["prepare_seconds"] = time.perf_counter() - t_prepare
+        cfg = self.model_cfg
+        rows = None
+        if self.mesh is not None:
+            cfg = self._denoise_cfg(txt.shape[1] + img.shape[1])
+            (img, img_ids, vec, txt, txt_ids), rows = self._put_flow_input(img, img_ids, vec, txt, txt_ids)
 
         cache_stats: Dict[str, Any] = {}
         host_flow = None
@@ -422,7 +504,7 @@ class FluxPipeline:
         try:
             if self._needs_calibration:
                 img = self._calibration_denoise(
-                    img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent
+                    img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg
                 )
             elif streaming:
                 tops, dbl, sgl = self._ensure_stream_state()
@@ -434,10 +516,12 @@ class FluxPipeline:
                 )
             else:
                 img = denoise(
-                    self.model_params, self.model_cfg, img, img_ids, txt, txt_ids, vec,
+                    self.model_params, cfg, img, img_ids, txt, txt_ids, vec,
                     timesteps, guidance, fused=silent, progress=not silent,
-                    cache=cache, stats=cache_stats,
+                    cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
                 )
+            if rows is not None:  # every rank's rows, in order
+                img = self.mesh.all_gather(img, "dp", dim=0)
             _sync(img)
             self.timings["denoise_seconds"] = time.perf_counter() - t_denoise
         finally:
@@ -453,6 +537,10 @@ class FluxPipeline:
         else:
             self.timings.pop("cache_model_evals", None)
         self.last_latents = img
+        if self.mesh is not None and not self.mesh.is_root:
+            # the first rank decodes and answers (JAX's spatial VAE bands wait:
+            # ROADMAP §1 item 12)
+            return (None, seed) if return_seed else None
 
         t_decode = time.perf_counter()
         pixels = self.vae_decode(img, height, width)
@@ -502,9 +590,16 @@ class FluxPipeline:
                 "input scales are not calibrated yet — run generate() for at least "
                 f"{self.config.num_scale_trials} steps (or compile()) before saving"
             )
-        from .utils.checkpoint import save_prequantized
+        from .utils.checkpoint import relayout_flux_tree, save_prequantized
 
-        save_prequantized(path, self.model_params, extra_meta={
+        model = self.model_params
+        if self.mesh is not None and self.mesh.size("tp") > 1:
+            # files always hold the flat layout (JAX pipeline.py:935-966): the shards
+            # gathered, the relayout inverted; the first rank writes
+            model = relayout_flux_tree(gather_flux_params(model), self.model_cfg, inverse=True)
+        if self.mesh is not None and not self.mesh.is_root:
+            return
+        save_prequantized(path, model, extra_meta={
             "quantize_modulation": str(self.config.quantize_modulation),
             "quantize_flow_embedder_layers": str(self.config.quantize_flow_embedder_layers),
             "version": str(self.config.version),
@@ -545,7 +640,7 @@ class FluxPipeline:
 
     @classmethod
     def load_pipeline_from_config_path(
-        cls, path: str, flow_model_path: Optional[str] = None, debug: bool = False, **kwargs
+        cls, path: str, flow_model_path: Optional[str] = None, debug: bool = False, mesh=None, **kwargs
     ) -> "FluxPipeline":
         """reference flux_pipeline.py:665-679 (kwargs override config fields)."""
         config = load_config_from_path(path)
@@ -554,12 +649,15 @@ class FluxPipeline:
         for k, v in kwargs.items():
             if hasattr(config, k):
                 setattr(config, k, v)
-        return cls.load_pipeline_from_config(config, debug=debug)
+        return cls.load_pipeline_from_config(config, debug=debug, mesh=mesh)
 
     @classmethod
-    def load_pipeline_from_config(cls, config: ModelSpec, debug: bool = False) -> "FluxPipeline":
-        """reference flux_pipeline.py:681-729."""
-        models = load_models_from_config(config)
+    def load_pipeline_from_config(cls, config: ModelSpec, debug: bool = False, mesh=None) -> "FluxPipeline":
+        """reference flux_pipeline.py:681-729. Under ``config.mesh``, ``mesh`` is this
+        rank's (``parallel/launch.py`` builds it); the models load on its device,
+        the flow relayouted and sliced leaf by leaf as it is read or drawn."""
+        mesh = cls._make_mesh(config, mesh)
+        models = load_models_from_config(config, mesh)
         return cls(
             name=str(getattr(config.version, "value", config.version)),
             clip=models.clip,
@@ -570,4 +668,5 @@ class FluxPipeline:
             config=config,
             prequantized=models.flow_prequantized,
             debug=debug,
+            mesh=mesh,
         )

@@ -45,6 +45,23 @@ KINDS = (
 )
 
 
+def activities(device: torch.device) -> list:
+    """The profiler's activities for work on ``device``: the host, and the card's
+    kernels when it is one."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+
+
+def trace(log_dir: str, device: torch.device):
+    """A ``torch.profiler`` context that writes its trace (TensorBoard's layout, a
+    Chrome trace JSON) into ``log_dir`` when it exits: ``FluxPipeline.profile``."""
+    from torch.profiler import profile as torch_profile
+    from torch.profiler import tensorboard_trace_handler
+
+    return torch_profile(activities=activities(device), on_trace_ready=tensorboard_trace_handler(str(log_dir)))
+
+
 def kind_of(name: str) -> str:
     low = name.lower()
     for kind, keys in KINDS:
@@ -55,7 +72,6 @@ def kind_of(name: str) -> str:
 
 def profile(pipe: FluxPipeline, width: int, height: int, steps: int, prompt: str = "a photo of a red house") -> dict:
     """Profile ``steps`` denoise steps at width × height; → the per-step breakdown."""
-    from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     gen, _ = pipe.set_seed(5)
@@ -65,7 +81,7 @@ def profile(pipe: FluxPipeline, width: int, height: int, steps: int, prompt: str
         args = (pipe.model_params, pipe.model_cfg)
         img = denoise(*args, img, img_ids, txt, txt_ids, vec, timesteps[:3], 3.5)  # warm
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=activities(pipe.device_flux)) as prof:
             t = time.perf_counter()
             img = denoise(*args, img, img_ids, txt, txt_ids, vec, timesteps[2:], 3.5)
             torch.cuda.synchronize()

@@ -137,14 +137,28 @@ def _polyval(coefficients, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _relative_drift(ind: torch.Tensor, prev_ind: torch.Tensor, dp_mesh) -> torch.Tensor:
+    """mean|ind − prev| / mean|prev| over the whole batch. With the batch's rows split
+    over ``dp_mesh``'s dp ranks, the two sums are all-reduced first, so every rank
+    takes the one decision that JAX's mean over a dp-sharded batch gives (each rank's
+    own means would differ, ranks would skip different steps and the next collective
+    would deadlock)."""
+    if dp_mesh is None:
+        return (ind - prev_ind).abs().mean() / (prev_ind.abs().mean() + 1e-8)
+    sums = dp_mesh.all_reduce_sum(torch.stack([(ind - prev_ind).abs().sum(), prev_ind.abs().sum()]), "dp")
+    n = ind.numel() * dp_mesh.size("dp")
+    return (sums[0] / n) / (sums[1] / n + 1e-8)
+
+
 def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, txt, txt_ids, vec,
-                    timesteps, guidance: float, pairs) -> Tuple[torch.Tensor, int]:
+                    timesteps, guidance: float, pairs, dp_mesh=None) -> Tuple[torch.Tensor, int]:
     """The Euler loop with the step cache (JAX ``_denoise_scan_cached``, sampling.py:175-271);
     → (img, model evaluations). ``pairs`` iterates (t_curr, t_prev) over ``timesteps``.
 
     The skip decision is the host's: ``interval`` and forced steps need no device value,
-    ``dynamic`` reads its accumulated drift once per unforced step. Timestep differences
-    are fp32 tensors, as in the JAX scan (Python floats would give an fp64 slope)."""
+    ``dynamic`` reads its accumulated drift once per unforced step (``dp_mesh``: the
+    mesh whose dp ranks each hold some of the batch rows). Timestep differences are
+    fp32 tensors, as in the JAX scan (Python floats would give an fp64 slope)."""
     n_steps = len(timesteps) - 1
     dev = img.device
     ts = torch.tensor(timesteps, dtype=torch.float32, device=dev)
@@ -160,7 +174,7 @@ def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, tx
         if dynamic:
             ind = flux_cache_indicator(model, cfg, img, t_vec, vec, g_vec).float()
             if not evaluate:  # step 0 is forced (warmup >= 1), so prev_ind exists here
-                rel = (ind - prev_ind).abs().mean() / (prev_ind.abs().mean() + 1e-8)
+                rel = _relative_drift(ind, prev_ind, dp_mesh)
                 if cache.coefficients is not None:
                     rel = _polyval(cache.coefficients, rel)
                 accum = accum + rel.abs()
@@ -202,12 +216,15 @@ def denoise(
     progress: bool = False,
     cache: Optional[CacheConfig] = None,
     stats: Optional[Dict[str, Any]] = None,
+    dp_mesh=None,
 ) -> torch.Tensor:
     """Run the full denoise loop over ``timesteps`` (num_steps + 1 floats).
     ``fused=False`` with ``progress`` shows the per-step tqdm bar.
 
     ``cache`` with a mode other than "none" runs the step cache, and ``stats`` (if
-    given) receives ``stats["model_evals"]``, the number of model evaluations (an int)."""
+    given) receives ``stats["model_evals"]``, the number of model evaluations (an int).
+    ``dp_mesh``: the mesh over whose dp ranks the batch rows are split (the dynamic
+    cache's drift is reduced over it)."""
     pairs = list(zip(timesteps[:-1], timesteps[1:]))
     if progress and not fused:
         from tqdm import tqdm
@@ -215,7 +232,7 @@ def denoise(
         pairs = tqdm(pairs)
     if cache is not None and cache.mode != "none":
         img, n_evals = _denoise_cached(model, cfg, cache, img, img_ids, txt, txt_ids, vec,
-                                       timesteps, guidance, pairs)
+                                       timesteps, guidance, pairs, dp_mesh)
         if stats is not None:
             stats["model_evals"] = n_evals
         return img

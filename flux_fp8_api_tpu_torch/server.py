@@ -6,11 +6,11 @@ Endpoints and JSON shapes are the JAX server's:
 - POST /generate  {prompt, width, height, num_steps, guidance, seed, strength,
                    init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used);
                    a malformed ``cache`` answers 400, and a pipeline feature not
-                   ported yet (``NotImplementedError``: today only a multi-device
-                   mesh) 501
+                   ported yet (``NotImplementedError``) 501
 - POST /lora      {action: load|unload, path, name, scale} → JSON status
 - GET  /          the browser UI (``webui.py``)
-- GET  /health (with the fused LoRAs' names), GET /metrics
+- GET  /health (with the fused LoRAs' names, and the mesh of a meshed pipeline),
+  GET /metrics
 
 One lock serialises generate and LoRA calls. ``api.py`` serves the same handlers
 under FastAPI.
@@ -114,13 +114,15 @@ class PipelineServer:
         return 200, "application/json", json.dumps({"status": "success", "message": msg}).encode()
 
     def handle_health(self):
-        return 200, "application/json", json.dumps(
-            {
-                "status": "ok" if self.pipeline is not None else "loading",
-                "model": getattr(self.pipeline, "name", None),
-                "loras": [entry.name for entry in getattr(self.pipeline, "loras", [])],
-            }
-        ).encode()
+        out = {
+            "status": "ok" if self.pipeline is not None else "loading",
+            "model": getattr(self.pipeline, "name", None),
+            "loras": [entry.name for entry in getattr(self.pipeline, "loras", [])],
+        }
+        mesh = getattr(self.pipeline, "mesh", None)
+        if mesh is not None:  # a meshed pipeline: its axes and this rank's device
+            out["mesh"] = {"shape": mesh.shape, "backend": mesh.backend, "device": str(mesh.device)}
+        return 200, "application/json", json.dumps(out).encode()
 
     def handle_metrics(self):
         out = dict(self.metrics)

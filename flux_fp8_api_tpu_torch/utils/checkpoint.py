@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.flux import FluxStatic, LeafFn
+from ..models.flux import FluxStatic, LeafFn, _map_linears
 from ..ops.quant import Linear, dequantize_kernel, with_kernel
 from ..ops.rope import deinterleave_permutation
 from .config import AutoEncoderParams, into_device
@@ -340,6 +340,80 @@ def deinterleave_flux_tree(model: ParamTree, cfg: FluxStatic) -> ParamTree:
     return model
 
 
+def grouped_qkv_permutation(hidden_size: int, head_dim: int, extra: int = 0) -> np.ndarray:
+    """Flat → grouped out-axis permutation of a fused qkv(+mlp) weight (JAX
+    utils/checkpoint.py:326-348): the flat order (3, heads, head_dim) regroups
+    head-major into [q_n | k_n | v_n (| mlp_n)], and with ``extra`` (single-block
+    linear1's mlp tail) the mlp channels are sliced per head too. A contiguous tp slice
+    of the grouped axis then holds whole heads and their mlp slices."""
+    n_heads = hidden_size // head_dim
+    g = 0
+    if extra:
+        if extra % n_heads:
+            raise ValueError(f"mlp width {extra} must divide across {n_heads} heads")
+        g = extra // n_heads
+    idx = np.arange(head_dim)
+    groups = []
+    for n in range(n_heads):
+        base = n * head_dim
+        parts = [base + idx, hidden_size + base + idx, 2 * hidden_size + base + idx]
+        if extra:
+            parts.append(3 * hidden_size + n * g + np.arange(g))
+        groups.append(np.concatenate(parts))
+    return np.concatenate(groups)
+
+
+def linear2_in_permutation(hidden_size: int, head_dim: int, mlp_hidden: int) -> np.ndarray:
+    """Flat → grouped in-axis permutation of single-block linear2 (JAX
+    utils/checkpoint.py:351-368): [attn | mlp] becomes per-head groups
+    [attn_n | mlp_n], matching linear1's grouped out-axis, so a row-parallel slice
+    consumes exactly what its own heads produced."""
+    n_heads = hidden_size // head_dim
+    if mlp_hidden % n_heads:
+        raise ValueError(f"mlp width {mlp_hidden} must divide across {n_heads} heads")
+    g = mlp_hidden // n_heads
+    return np.concatenate([
+        np.concatenate([n * head_dim + np.arange(head_dim), hidden_size + n * g + np.arange(g)])
+        for n in range(n_heads)
+    ])
+
+
+def grouped_permutations(cfg: FluxStatic, inverse: bool = False) -> Dict[str, Tuple[str, np.ndarray]]:
+    """Leaf name → ("out" | "in", permutation) of the flat → grouped relayout, or of
+    grouped → flat with ``inverse``."""
+    hd = cfg.head_dim
+    perms = {
+        "img_attn_qkv": ("out", grouped_qkv_permutation(cfg.hidden_size, hd)),
+        "txt_attn_qkv": ("out", grouped_qkv_permutation(cfg.hidden_size, hd)),
+        "linear1": ("out", grouped_qkv_permutation(cfg.hidden_size, hd, extra=cfg.mlp_hidden)),
+        "linear2": ("in", linear2_in_permutation(cfg.hidden_size, hd, cfg.mlp_hidden)),
+    }
+    if inverse:
+        perms = {k: (axis, np.argsort(p)) for k, (axis, p) in perms.items()}
+    return perms
+
+
+def relayout_flux_leaf(path: Tuple[str, ...], lin: Linear, perms) -> Linear:
+    """One Linear of the relayout (``path`` as ``models/flux.py:_map_linears`` gives it;
+    ``perms`` from :func:`grouped_permutations`); leaves outside it pass."""
+    if path[0] not in ("double_blocks", "single_blocks") or path[-1] not in perms:
+        return lin
+    axis, perm = perms[path[-1]]
+    return _permute_linear_out(lin, perm) if axis == "out" else _permute_linear_in(lin, perm)
+
+
+def relayout_flux_tree(model: ParamTree, cfg: FluxStatic, inverse: bool = False) -> ParamTree:
+    """Relayout the fused qkv/linear1/linear2 channel axes between the "flat" layout
+    (one rank) and the "grouped" head-major one (tensor parallelism), in place (JAX
+    utils/checkpoint.py:371-396). A pure permutation: the model's outputs are
+    unchanged. ``inverse`` goes grouped → flat (files always hold the flat layout).
+    Works on float and quantized leaves; the int4 in-permutation round-trips
+    dequantize → permute → requantize, as in JAX."""
+    perms = grouped_permutations(cfg, inverse)
+    _map_linears(model, lambda path, lin: relayout_flux_leaf(path, lin, perms))
+    return model
+
+
 def _as_stf(path_or_file) -> SafetensorsFile:
     """A path or an open SafetensorsFile (the multi-GB header is parsed once and
     shared by the format detectors and the loader)."""
@@ -498,10 +572,12 @@ def save_prequantized(path, model: ParamTree, extra_meta: Optional[Dict[str, str
     save_safetensors(path, tensors, metadata=meta)
 
 
-def load_prequantized(path_or_file, cfg: FluxStatic, device=None) -> ParamTree:
+def load_prequantized(path_or_file, cfg: FluxStatic, device=None,
+                      leaf_fn: Optional[LeafFn] = None) -> ParamTree:
     """Reload a ``flux-fp8-api-tpu/prequant-v1`` file, written by either package,
     into the port's model on ``device`` (default cuda:0, ``into_device``), one block
-    slice at a time."""
+    slice at a time. ``leaf_fn(path, lin)`` transforms each Linear as it is read (a
+    mesh rank relayouts it and keeps its slice, so the whole tree is never held)."""
     device = into_device(device)
     f = _as_stf(path_or_file)
     if f.metadata.get("format") != PREQUANT_FORMAT:
@@ -520,7 +596,8 @@ def load_prequantized(path_or_file, cfg: FluxStatic, device=None) -> ParamTree:
         fields = {fld: read(f"{key}.{fld}", block, fld in _TRANSPOSED)
                   for fld in _LINEAR_FIELDS if f"{key}.{fld}" in f}
         fields["weight"] = fields.pop("kernel", None)
-        return Linear(linears[key], **fields)
+        lin = Linear(linears[key], **fields)
+        return lin if leaf_fn is None else leaf_fn(path, lin)
 
     def norm(path, block):
         return read(".".join(path), block)

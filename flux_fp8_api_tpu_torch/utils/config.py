@@ -72,8 +72,9 @@ class AutoEncoderParams(BaseModel):
 class ModelSpec(BaseModel):
     """Pipeline configuration, field-compatible with the JAX package's ModelSpec.
 
-    The ``mesh`` field, for the multi-device serving this port does not run yet, is
-    kept so that the pipeline can refuse it by name instead of silently dropping it.
+    ``mesh`` (e.g. ``{"dp": 1, "tp": 4}``) serves over a mesh of ranks
+    (``parallel/mesh.py``); ``FluxPipeline`` validates its axes. Pipeline parallelism
+    (a ``pp`` axis above 1) is not ported and raises there, naming its ROADMAP item.
     """
 
     version: ModelVersion
@@ -125,6 +126,9 @@ class ModelSpec(BaseModel):
     # (reference num_scale_trials=12, float8_quantize.py:42,220-246)
     num_scale_trials: int = 12
     mesh: Optional[dict] = None
+    # GPipe microbatches of pipeline-parallel serving (JAX parallel/pp.py); kept so
+    # the JAX configs load, pp itself is not ported
+    pp_microbatches: int = 1
     # serving buckets warmed by compile(): [[width, height], ...] at warmup_steps
     warmup_resolutions: Optional[List[List[int]]] = None
     warmup_steps: Optional[int] = None

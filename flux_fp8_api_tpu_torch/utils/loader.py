@@ -89,12 +89,32 @@ def flow_quant_kind(config: ModelSpec) -> Optional[str]:
     return kind
 
 
-def load_flow_model(config: ModelSpec):
+def _mesh_leaf_fn(cfg: FluxStatic, mesh, leaf_fn):
+    """(the grouped config, a leaf transform that quantizes with ``leaf_fn``, relayouts
+    to the grouped layout and keeps this rank's tp slice): each Linear is drawn or
+    read whole, transformed and dropped, so a rank never holds the whole flow."""
+    from ..parallel.mesh import check_flux_divisible, shard_flux_leaf
+    from .checkpoint import grouped_permutations, relayout_flux_leaf
+
+    check_flux_divisible(cfg, mesh.size("tp"))
+    perms = grouped_permutations(cfg)
+
+    def leaf(path, lin):
+        lin = lin if leaf_fn is None else leaf_fn(path, lin)
+        return shard_flux_leaf(path, relayout_flux_leaf(path, lin, perms), mesh)
+
+    return dataclasses.replace(cfg, fused_layout="grouped"), leaf
+
+
+def load_flow_model(config: ModelSpec, mesh=None):
     """→ (model, FluxStatic, prequantized). Reads ``ckpt_path`` when set (a
     ``flux-fp8-api-tpu/prequant-v1`` file, a reference-prequantized file or a float BFL
     file), else draws the model from a seed (reference util.py:240-256 plus the
     quantize-on-load step, float8_quantize.py:395-496). ``prequantized`` is True when
-    the file carries tuned input scales, so calibration can be skipped."""
+    the file carries tuned input scales, so calibration can be skipped. Under a tp
+    ``mesh`` the drawn or prequantized flow comes back relayouted and sliced leaf by
+    leaf (``FluxStatic.fused_layout`` "grouped"); a BFL file loads whole and the
+    pipeline shards it."""
     cfg = FluxStatic.from_params(
         config.params, compute_dtype=config.flow_dtype, fp8_fast_accum=config.fp8_fast_accum,
         use_pallas=config.use_pallas,
@@ -103,14 +123,20 @@ def load_flow_model(config: ModelSpec):
     leaf_fn = None
     if kind is not None:
         leaf_fn = quant_tier(kind, config.quantize_modulation, config.quantize_flow_embedder_layers)
-    device = into_device(config.flux_device)
+    device = into_device(config.flux_device) if mesh is None else mesh.device
+    stream_cfg, stream_fn = cfg, leaf_fn  # the transforms applied as leaves are built
+    if mesh is not None and mesh.size("tp") > 1:
+        stream_cfg, stream_fn = _mesh_leaf_fn(cfg, mesh, leaf_fn)
     if not config.ckpt_path:
-        model = init_flux_params(cfg, _generator(device, FLOW_SEED), torch.bfloat16, leaf_fn)
-        return model, cfg, False
+        model = init_flux_params(cfg, _generator(device, FLOW_SEED), torch.bfloat16, stream_fn)
+        return model, stream_cfg, False
 
     f = SafetensorsFile(config.ckpt_path)
     if f.metadata.get("format") == PREQUANT_FORMAT:
-        model, prequant = load_prequantized(f, cfg, device), True
+        # the file's leaves are quantized already: only the mesh's relayout and slice
+        prequant_fn = _mesh_leaf_fn(cfg, mesh, None)[1] if stream_cfg is not cfg else None
+        model, prequant = load_prequantized(f, cfg, device, leaf_fn=prequant_fn), True
+        cfg = stream_cfg
     elif is_prequantized_reference_file(f):
         # fp8 leaves as the file has them; without tuned input scales the reference
         # re-runs the amax trials (float8_quantize.py:139-185), so calibration runs
@@ -307,10 +333,14 @@ def load_text_encoders(config: ModelSpec):
     return clip, t5
 
 
-def load_models_from_config(config: ModelSpec) -> LoadedModels:
-    """reference util.py:325-333."""
+def load_models_from_config(config: ModelSpec, mesh=None) -> LoadedModels:
+    """reference util.py:325-333. Under a ``mesh`` every model loads on the rank's
+    device."""
+    if mesh is not None:
+        dev = str(mesh.device)
+        config = config.model_copy(update={"flux_device": dev, "ae_device": dev, "text_enc_device": dev})
     clip, t5 = load_text_encoders(config)
-    flow, flow_cfg, prequant = load_flow_model(config)
+    flow, flow_cfg, prequant = load_flow_model(config, mesh)
     # with a checkpoint the loader's detection is final: a reference-prequantized file
     # without input scales must calibrate even when the config claims
     # prequantized_flow (JAX loader.py:336-342); without one, the config flag holds

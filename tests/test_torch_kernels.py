@@ -96,6 +96,36 @@ def test_kernel_matches_plain_version(dev, h_latent, w_latent, rope, lq):
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
 
 
+@pytest.mark.parametrize("heads,h_latent,w_latent,sp", [
+    (12, 128, 128, 1),  # tp 2 at 1024²
+    (6, 128, 128, 1),   # tp 4: six heads fill half of the rope pass's second group of four
+    (24, 128, 128, 2),  # sp 2 at 1024²: Lq = 2304 against Lkv = 4608
+    (24, 90, 128, 2),   # sp 2 at 720×1024: Lq = 1696, not a multiple of K1's 128-row tile
+    (24, 64, 64, 2),    # sp 2 at 512²: Lq = 768 against Lkv = 1536
+    (12, 90, 128, 2),   # tp 2 × sp 2
+])
+def test_kernels_at_the_meshs_local_shapes(dev, heads, h_latent, w_latent, sp):
+    """What a mesh rank runs (parallel/mesh.py): its heads, and under sp the second
+    rank's q rows with their rows of the q tables against the whole k and v. The rope
+    pass is its plain version bit for bit, K1 within its tolerance."""
+    l = _l(h_latent, w_latent)
+    lq = l // sp
+    gen = torch.Generator(device=dev).manual_seed(heads * l)
+    q, k = _normed(gen, heads, l, 128), _normed(gen, heads, l, 128)
+    v = torch.randn(heads, l, 128, generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = _tables(dev, h_latent, w_latent)
+    rows = slice(l - lq, l)  # the last rank's rows
+    q, cos_q, sin_q = q[:, rows], cos[rows].contiguous(), sin[rows].contiguous()
+    before = dict(LAUNCHES)
+    qr, kr = rope_rotate(q, k, cos, sin, cos_q, sin_q)
+    out = qknorm_attention(q, k, v, 128**-0.5, cos=cos, sin=sin, cos_q=cos_q, sin_q=sin_q)
+    assert _launched(before) == {"rope_rotate": 2, "qknorm_attention": 1}
+    assert torch.equal(qr, rope_rotate_ref(q, cos_q, sin_q)) and torch.equal(kr, rope_rotate_ref(k, cos, sin))
+    ref = qknorm_attention_ref(q, k, v, 128**-0.5, cos, sin, cos_q, sin_q)
+    assert out.shape == (heads, lq, 128)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+
+
 def _l(h_latent, w_latent, txt=512):
     """The joint sequence of an image of h_latent × w_latent latents and 512 text tokens."""
     return txt + (h_latent // 2) * (w_latent // 2)

@@ -275,10 +275,16 @@ def test_export_into_a_calibrated_int8_base(jax_params):
     assert float((fused - merged).abs().max() / merged.abs().max()) < 0.05
 
 
-def test_grouped_layout_export_raises():
-    adapters = {"single_blocks": []}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlora.export_lora_adapters(adapters, port_cfg(fused_layout="grouped"))
+def test_grouped_layout_export_equals_jax_export(jax_params):
+    """The grouped (tensor-parallel) layout's export, which used to raise: its rows
+    and linear2's columns go back through the inverse head-major regroup, array for
+    array JAX's (JAX lora.py:592-620)."""
+    jad = random_jax_adapters(jax_params)
+    want = jlora.export_lora_adapters(jad, jax_cfg(fused_layout="grouped"))
+    got = tlora.export_lora_adapters(convert_adapters(flatten(jad)), port_cfg(fused_layout="grouped"))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].numpy().tobytes() == np.asarray(w, np.float32).tobytes(), k
 
 
 # ------------------------------------------------------- training a served pipeline

@@ -67,8 +67,8 @@ def port_model(cfg, kind=None, seed=0, device="cpu"):
     return tflux.init_flux_params(cfg, gen, torch.float32 if kind is None else torch.bfloat16, leaf_fn)
 
 
-def inputs(cfg, seed=0, h=8, w=8, txt_len=6, device="cpu"):
-    """(img, img_ids, txt, txt_ids, vec) from numpy, and a 3-step schedule."""
+def inputs(cfg, seed=0, h=8, w=8, txt_len=6, device="cpu", steps=3):
+    """(img, img_ids, txt, txt_ids, vec) from numpy, and a ``steps``-step schedule."""
     r = np.random.default_rng(seed)
     noise = torch.from_numpy(r.normal(size=(1, cfg.in_channels // 4, h, w)).astype(np.float32))
     x = (
@@ -78,7 +78,7 @@ def inputs(cfg, seed=0, h=8, w=8, txt_len=6, device="cpu"):
         tpacking.make_txt_ids(txt_len, 1),
         torch.from_numpy(r.normal(size=(1, cfg.vec_in_dim)).astype(np.float32)),
     )
-    return tuple(t.to(device) for t in x), get_schedule(3, h * w // 4, shift=True)
+    return tuple(t.to(device) for t in x), get_schedule(steps, h * w // 4, shift=True)
 
 
 def streamed(model, cfg, x, ts, device="cpu", **kw):
@@ -428,6 +428,60 @@ def test_card_streamed_equals_resident_across_streams(card):
         out = toffload.streamed_denoise(tops, dbl, sgl, card, *x, ts, 3.5, cfg, retain_bytes=retain,
                                         sync_every=sync_every)
         assert torch.equal(out, ref), (retain, sync_every)
+
+
+def _reserved_peak(fn) -> int:
+    """Bytes the caching allocator reserves from the card at its peak while ``fn`` runs,
+    above what it reserved before, from an empty cache. A freed block that a stream the
+    compute has not yet passed still reads counts here (the allocator cannot hand it
+    out again), not in ``max_memory_allocated``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_reserved()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_reserved() - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("retain", ["0", "mid"])
+def test_card_sync_every_bounds_the_hosts_lead_over_compute(card, monkeypatch, retain):
+    """``sync_every`` waits on the compute, as JAX's does (JAX offload.py:254-259):
+    with each single block's compute padded by a sleep, so that compute is slower
+    than the copies, ``sync_every`` 0 lets the host enqueue copies far ahead of the
+    compute and the allocator holds every dropped block that the compute has not
+    passed; at ``sync_every`` 2 the reserved peak stays within the resident loop's,
+    the retained blocks' and sync_every + 3 slices of the largest block that streams. At retain 0 waiting on the
+    copies instead (which keep up) bounded nothing: both peaks came out equal. At a
+    mid retain the retained blocks compute with no put at every step after the
+    first, so a wait counted in computes falls behind the puts by that many blocks
+    each step and bounds nothing after a few steps."""
+    # blocks of 16 MB (hidden 1024, fp8): each copy 0.4 ms against 10 ms of padded compute
+    flux = dict(CARD_FLUX, hidden_size=1024, num_heads=8, depth=1, depth_single_blocks=16)
+    cfg = tflux.FluxStatic.from_params(tconfig.FluxParams(**flux), compute_dtype="bfloat16")
+    host = tflux.init_flux_params(cfg, torch.Generator(card).manual_seed(1), torch.bfloat16,
+                                  tflux.quant_tier("fp8"))
+    steps = 2 if retain == "0" else 4
+    x, ts = inputs(cfg, seed=2, h=32, w=32, device=card, steps=4)
+    resident = _reserved_peak(lambda: tsampling.denoise(host, cfg, *x, ts[:steps + 1], 3.5))
+    pipe = FluxPipeline("flux-dev", model=host, model_cfg=cfg, config=spec(
+        params=flux, flux_device="cuda:0", flow_dtype="bfloat16", offload_flow=True, num_scale_trials=0))
+    tops, dbl, sgl = pipe._ensure_stream_state()
+    retain_bytes = 0 if retain == "0" else 8 * toffload.slice_nbytes(sgl)
+    kept = toffload.retained_blocks(dbl, sgl, retain_bytes)
+    blocks = list(dbl) + list(sgl)
+    kept_bytes = sum(tree_nbytes(b) for b, k in zip(blocks, kept) if k)
+    assert retain == "0" or 0 < sum(kept) < len(kept) - 4
+    # the unit: the largest block that streams
+    slice_ = max(tree_nbytes(b) for b, k in zip(blocks, kept) if not k)
+    real = toffload._single_block
+    monkeypatch.setattr(toffload, "_single_block", lambda *a: (torch.cuda._sleep(20_000_000), real(*a))[1])
+    peaks = {s: _reserved_peak(lambda: toffload.streamed_denoise(tops, dbl, sgl, card, *x, ts[:steps + 1], 3.5, cfg,
+                                                              retain_bytes=retain_bytes, sync_every=s))
+             for s in (0, 2)}
+    assert peaks[2] <= resident + kept_bytes + (2 + 3) * slice_, (peaks, resident, kept_bytes, slice_)
+    assert peaks[0] >= peaks[2] + 4 * slice_, (peaks, resident, kept_bytes, slice_)
 
 
 @pytest.mark.cuda

@@ -150,9 +150,10 @@ def test_calibration_protocol_matches_jax(models):
 
 
 def test_pipeline_refuses_what_is_not_ported(models):
-    """Meshes raise, naming their ROADMAP item. Offload, ported since, constructs and
-    serves with each flag (tests/test_torch_offload.py holds it against JAX), and so
-    does the step cache (tests/test_torch_step_cache.py)."""
+    """A pp mesh raises, naming its ROADMAP item (dp/tp/sp meshes serve:
+    tests/test_torch_mesh_serving.py). Offload, ported since, constructs and serves
+    with each flag (tests/test_torch_offload.py holds it against JAX), and so does the
+    step cache (tests/test_torch_step_cache.py)."""
     cfg, params, ae = models
     pcfg = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32")
     x = shared_inputs()
@@ -161,8 +162,8 @@ def test_pipeline_refuses_what_is_not_ported(models):
                             config=tiny_spec(flow_dtype="float32", **{field: True}))
         pipe._encode_prompts = lambda prompts: {p: (t(x["vec"]), t(x["txt"])) for p in prompts}
         assert pipe.generate("a cat", 64, 64, 2).getvalue()[:2] == b"\xff\xd8"
-    with pytest.raises(NotImplementedError, match="ROADMAP: multi-GPU"):
-        FluxPipeline("flux-dev", config=tiny_spec(mesh={"tp": 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 12: pipeline parallelism"):
+        FluxPipeline("flux-dev", config=tiny_spec(mesh={"pp": 2}))
     pipe = FluxPipeline("flux-dev", model=to_torch(params), model_cfg=pcfg, ae=to_torch(ae),
                         config=tiny_spec(flow_dtype="float32"))
     x = shared_inputs()
