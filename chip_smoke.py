@@ -156,10 +156,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
     load, POST /generate, /health naming the mesh. Ranks sharing one card time nothing
     of multi-GPU.
 
+18. pp, training and bands on the mesh (phase 17's files and references, or its own):
+    (c) the rope pass's backward build at a tp rank's 12 and 6 heads, L = 1536 and
+    4608, bit for bit its plain version, timed beside its bound; one rank's QLoRA step
+    (int8 file, 512², batch 2, rank 16) and whole 1024² VAE decode and encode; then
+    worlds sharing the card over gloo, each rank loading its slice: (a) pp 2 and
+    dp 2 x pp 2 (two images; T5 and CLIP offloaded), the fp8 file at full depth, a
+    ``MESH_STEPS``-step 1024² request from one rank's conditioning: latents bit for bit
+    one rank's at M = 1, dp 2 x pp 2 included (within ``MESH_FP8_REL_TOL`` at M > 1), 19 + 38/S K1 and
+    rope-pass launches per rank per evaluation, K1 on, the handoffs equal to the pinned
+    budget (``pp_flux_budget``); on pp 2 POST /generate through the first rank and a
+    cached request answering 400; (d) on pp 2, full-parameter SGD and AdamW steps at
+    2 + 4 blocks, full width, 512², under SDPA's memory-efficient backend, against one
+    rank's computed on each rank first, which must repeat itself bit for bit: the loss
+    and the block gradients bit for bit, each tensor around the stacks within
+    ``PP_TRAIN_REL_TOL`` and, with ∂vec_silu left unsummed over pp (planted), outside
+    it, the AdamW step bit for bit AdamW on the pp gradients; (b) tp 2 and dp 2 x tp 2: the QLoRA loss and adapter
+    gradients against one rank's within ``QLORA_MESH_LOSS_TOL`` / ``QLORA_MESH_GRAD_TOL``,
+    rope-pass forwards and backwards launched, no K1; (e) the 1024² decode in bands over
+    tp 4 and dp 2 x tp 2 (pixels' mean |Δ| within ``BAND_PIXEL_MEAN_TOL``), the 1024²
+    encode in bands over tp 2 (within ``BAND_REL_TOL``), and on tp 2 a 512² request with
+    the three offload flags bit for bit the resident pipeline's.
+
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
 time and error at L = 4608 from phase 3, 4 or 16; K1 and the rope pass also at phase
-17's local shapes, under ``mesh_shapes``),
+17's local shapes, the rope pass's backward at phase 18's, under ``mesh_shapes``),
 and ``{"ok": true, "device": {...}}``. Phases 7-13 free their pipelines before the
 next (phase 7's lives until phase 10 has saved it, and phase 10(a)'s reload until
 phase 13 has served it).
@@ -178,6 +200,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "config-dev.json"
@@ -613,6 +636,16 @@ def post(url: str, body: dict):
                                  headers={"content-type": "application/json"})
     with urllib.request.urlopen(req, timeout=600) as resp:
         return resp.status, dict(resp.headers), resp.read()
+
+
+def post_any(url: str, body: dict):
+    """:func:`post`, with an HTTP error's status, headers and body returned, not raised."""
+    import urllib.error
+
+    try:
+        return post(url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
 
 
 def phase_server(card: str):
@@ -2357,8 +2390,8 @@ def _planted(pipe, mesh, fault: str):
     elif fault == "sp order":
         real = pmesh.Mesh.all_gather
 
-        def reversed_rows(self, t, axis, dim):
-            out = real(self, t, axis, dim)
+        def reversed_rows(self, t, axis, dim, **kw):
+            out = real(self, t, axis, dim, **kw)
             return torch.cat(out.chunk(self.size(axis), dim)[::-1], dim) if axis == "sp" else out
 
         pmesh.Mesh.all_gather = reversed_rows
@@ -2510,11 +2543,53 @@ def mesh_kernels(card: str):
     return rows
 
 
-def phase_mesh(card: str):
+def mesh_references(card: str, tmp: Path):
+    """The one-rank references of phases 17 and 18: the int8 (config-dev-tp4.json) and
+    fp8 (config-dev.json) pipelines, each calibrated once and saved prequantized into
+    ``tmp`` with one rank's conditioning of MESH_PROMPT, and their MESH_STEPS-step
+    1024² latents → (refs, one_bytes)."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+
+    refs, one_bytes = {}, {}
+    # the one-rank references, each calibrated once and saved for the worlds
+    for quant, config in (("int8", TP4_CONFIG), ("fp8", CONFIG)):
+        t = time.perf_counter()
+        pipe = FluxPipeline.load_pipeline_from_config(_mesh_spec(config, mesh=None))
+        pipe.compile()
+        pipe.save_prequantized(str(tmp / f"{quant}.safetensors"))
+        one_bytes[quant] = (pmesh.sharded_bytes(pipe.model_params),
+                            sum(pmesh.sharded_bytes(pipe.model_params[s]) for s in ("double_blocks", "single_blocks")))
+        with torch.inference_mode():
+            torch.save([x.cpu() for x in pipe._encode_prompts([MESH_PROMPT])[MESH_PROMPT]],
+                       tmp / f"{quant}-cond.pt")
+            runs = [(1, MESH_SEED)] + ([(2, MESH_SEED)] + [(1, s) for s in MESH_FP8_SEEDS] if quant == "fp8" else [])
+            for n, seed in runs:
+                pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=seed,
+                              num_images=n, silent=True)
+                refs[(quant, n, seed)] = pipe.last_latents.cpu()
+            if quant == "fp8":  # the same request with _scaled_mm's accumulation promoted to fp32
+                pipe.model_cfg = dataclasses.replace(pipe.model_cfg, fp8_fast_accum=False)
+                pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED,
+                              silent=True)
+                refs[(quant, 1, "exact accum")] = pipe.last_latents.cpu()
+        print(f"[{card}] one rank {config.name} ({quant}): calibrated, saved and {MESH_STEPS}-step 1024x1024 "
+              f"references in {time.perf_counter() - t:.1f} s; flow {one_bytes[quant][0] / 2**30:.3f} GiB",
+              flush=True)
+        del pipe
+        release()
+    return refs, one_bytes
+
+
+def phase_mesh(card: str, hold: Optional[dict] = None):
     """(a) the kernels at the mesh's local shapes; the one-rank references of the
     int8 (config-dev-tp4.json) and fp8 (config-dev.json) pipelines, calibrated once and
     saved prequantized; (d) a world of one over NCCL against no mesh; (b) the worlds on
-    the shared card over gloo; (c) HTTP through the tp 4 world's first rank."""
+    the shared card over gloo; (c) HTTP through the tp 4 world's first rank. With
+    ``hold`` (a dict) the temporary directory and the references are kept there for
+    phase 18 (its caller removes the directory)."""
     import torch
 
     from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
@@ -2526,35 +2601,10 @@ def phase_mesh(card: str):
     t_phase = time.perf_counter()
     rows = mesh_kernels(card)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
-    refs, one_bytes = {}, {}
     try:
-        # the one-rank references, each calibrated once and saved for the worlds
-        for quant, config in (("int8", TP4_CONFIG), ("fp8", CONFIG)):
-            t = time.perf_counter()
-            pipe = FluxPipeline.load_pipeline_from_config(_mesh_spec(config, mesh=None))
-            pipe.compile()
-            pipe.save_prequantized(str(tmp / f"{quant}.safetensors"))
-            one_bytes[quant] = (pmesh.sharded_bytes(pipe.model_params),
-                                sum(pmesh.sharded_bytes(pipe.model_params[s]) for s in ("double_blocks", "single_blocks")))
-            with torch.inference_mode():
-                torch.save([x.cpu() for x in pipe._encode_prompts([MESH_PROMPT])[MESH_PROMPT]],
-                           tmp / f"{quant}-cond.pt")
-                runs = [(1, MESH_SEED)] + ([(2, MESH_SEED)] + [(1, s) for s in MESH_FP8_SEEDS] if quant == "fp8" else [])
-                for n, seed in runs:
-                    pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=seed,
-                                  num_images=n, silent=True)
-                    refs[(quant, n, seed)] = pipe.last_latents.cpu()
-                if quant == "fp8":  # the same request with _scaled_mm's accumulation promoted to fp32
-                    pipe.model_cfg = dataclasses.replace(pipe.model_cfg, fp8_fast_accum=False)
-                    pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED,
-                                  silent=True)
-                    refs[(quant, 1, "exact accum")] = pipe.last_latents.cpu()
-            print(f"[{card}] one rank {config.name} ({quant}): calibrated, saved and {MESH_STEPS}-step 1024x1024 "
-                  f"references in {time.perf_counter() - t:.1f} s; flow {one_bytes[quant][0] / 2**30:.3f} GiB",
-                  flush=True)
-            del pipe
-            release()
-
+        refs, one_bytes = mesh_references(card, tmp)
+        if hold is not None:
+            hold.update(tmp=tmp, refs=refs)
         # (d) a world of one over NCCL, bit for bit against no mesh
         import torch.distributed as dist
 
@@ -2599,7 +2649,8 @@ def phase_mesh(card: str):
             check_mesh_world(card, what, shape, quant, n, ranks, torch.load(out / "latents.pt"),
                              torch.load(out / "extra.pt"), refs, one_bytes[quant], wall)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if hold is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     print(f"[{card}] phase mesh: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
@@ -2668,6 +2719,8 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
     enc_budget = {} if tp == 1 else {repr(("all_reduce_sum", "float32", (512, 4096))): 4,
                                      repr(("all_reduce_sum", "float32", (77, 768))): 4}
     for r in ranks:
+        # the VAE's bands (phase 18(e)) are counted apart from the flow's budget
+        r["collectives"] = {k: v for k, v in r["collectives"].items() if not k.startswith("('band_")}
         got = {k: v for k, v in r["launches"].items() if v}
         if got != {"qknorm_attention": 57 * evals, "rope_rotate": 57 * evals}:
             fail("mesh", f"{what} rank {r['rank']}: launches {got}, expected 57 x {evals} each")
@@ -2709,6 +2762,641 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
                        if not min(r["layers, bias"][leaf] for r in ranks) > MESH_LAYER_REL_TOL})
     if unseen:
         fail("mesh", f"{what}: planted faults read within their tolerance: {unseen}")
+
+
+# ------------------------------------------------ phase 18: pp, training and bands on the mesh
+
+# the 2 + 4-block flux-dev cut of phase 16(d): full width, depth cut (full depth needs
+# ~24 GB of bf16 weights and ~96 GB with AdamW's moments and the gradients)
+CUT_FLUX = dict(in_channels=64, vec_in_dim=768, context_in_dim=4096, hidden_size=3072, mlp_ratio=4.0, num_heads=24,
+                depth=2, depth_single_blocks=4, axes_dim=[16, 56, 56], theta=10_000, qkv_bias=True,
+                guidance_embed=True)
+TRAIN_MESH_SIZE = 512  # the QLoRA and full-parameter steps of phase 18, as phase 16 trains
+P18_SIZE = 1024  # the requests, the decode and the encode of phase 18
+OFFLOAD_MESH_SIZE = 512  # the request with every offload flag
+# QLoRA on a mesh against one rank, from the same batch, draws and adapters (bf16): a
+# row-parallel product sums the ranks' fp32 partials where one rank's GEMM sums its
+# products, and a dp rank runs one example where one rank runs the batch, so the two
+# land an ulp apart here and there. Predicted in PERF.md before the first run: loss
+# within 2e-3 relative, the adapter gradients within 3e-2 of one rank's in norm.
+QLORA_MESH_LOSS_TOL = 1e-2
+QLORA_MESH_GRAD_TOL = 0.1
+# pp 2 full-parameter steps against one rank's (bf16, M = 1): a stage runs one rank's
+# ops on one rank's shapes, so the blocks' gradients are one rank's bit for bit; the
+# stages' ∂vec_silu is summed over pp where one rank accumulates it block by block, so
+# the layers before the stacks (the embedders, and through vec every modulation's
+# input) move by bf16 ulps. The limit holds each of those tensors on its own (in a
+# norm over every gradient the blocks would swamp them); predicted in PERF.md before
+# the run that first read it: each within 1e-2 of one rank's, the planted fault above 0.2.
+PP_TRAIN_REL_TOL = 5e-2
+# the VAE in bands against one rank's whole decode and encode (bf16 convs; a band's
+# convs run on other shapes and may take other algorithms): predicted before the
+# first run, the decode's mean |Δ| below 0.5 uint8 steps and the encoded latent
+# within 1e-2 of one rank's in norm.
+BAND_PIXEL_MEAN_TOL = 1.0
+BAND_REL_TOL = 5e-2
+
+
+def mesh_rope_backward(card: str):
+    """(c) the rope pass's backward build at a tp rank's heads (12 at tp 2, 6 at tp 4),
+    L = 1536 (512²) and 4608 (1024²): bit for bit its plain version, timed beside its
+    bound."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention import fold_heads
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import rope_rotate_backward, rope_rotate_ref_backward
+
+    dev = torch.device("cuda")
+    rows = []
+    for size in (512, 1024):
+        cos, sin = rope_tables(size, size)
+        l = cos.shape[0]
+        for world, heads in (("tp2", 12), ("tp4", 6)):
+            g = torch.Generator(device=dev).manual_seed(l + heads)
+            gq = torch.randn((heads, l, 128), generator=g, device=dev).to(torch.bfloat16)
+            gk = fold_heads(torch.randn((1, l, heads, 128), generator=g, device=dev).to(torch.bfloat16))
+            dq, dk = rope_rotate_backward(gq, gk, cos, sin)
+            if not (torch.equal(dq, rope_rotate_ref_backward(gq, cos, sin))
+                    and torch.equal(dk, rope_rotate_ref_backward(gk, cos, sin))):
+                fail("pp and training mesh", f"(c) {world} L={l}: the backward build differs from its plain version")
+            ms = cuda_time_ms(lambda: rope_rotate_backward(gq, gk, cos, sin), 50)
+            plain_ms = cuda_time_ms(lambda: (rope_rotate_ref_backward(gq, cos, sin),
+                                             rope_rotate_ref_backward(gk, cos, sin)), 5)
+            bound_ms, bound_by = rope_bound(heads, l)
+            rows.append({"world": world, "heads": heads, "lq": l, "lkv": l, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0})
+            print(f"[{card}] (c) rope pass backward at {world}'s {heads} heads, L={l}: bit for bit its plain "
+                  f"version; {ms:.4f} ms (plain {plain_ms:.3f}, bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"{100 * bound_ms / ms:.0f}% of it)", flush=True)
+    return rows
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _flat_rel(a: dict, b: dict) -> float:
+    """‖a − b‖ / ‖b‖ over every tensor of two {name: tensor} maps with the same names."""
+    if sorted(a) != sorted(b):
+        fail("pp and training mesh", f"tensor names differ: {sorted(set(a) ^ set(b))[:5]}")
+    diff = sum(float((a[k].double() - b[k].double()).square().sum()) for k in b)
+    return (diff / sum(float(b[k].double().square().sum()) for k in b)) ** 0.5
+
+
+def _qlora_inputs(cfg, dev):
+    """The QLoRA step's batch and draws (512², batch 2, from seeds)."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.parallel.train import draw, make_dummy_batch
+
+    g = torch.Generator(device=dev).manual_seed(200)
+    batch = make_dummy_batch(cfg, 2, TRAIN_MESH_SIZE // 8, TRAIN_MESH_SIZE // 8, 512, g)
+    t, noise = draw(batch, g)
+    return batch, t, noise
+
+
+def mesh_train_references(card: str, tmp: Path) -> dict:
+    """One rank's side of (b) and (e), written into ``tmp``: the int8 QLoRA loss and
+    adapter gradients (rank 16, B ≠ 0) from the saved int8 file; the VAE's whole
+    decode of seeded latents and encode of a seeded 1024² image."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.lora import adapter_tensors, init_lora_adapters, merge_lora_adapters
+    from flux_fp8_api_tpu_torch.models.autoencoder import ae_decode, ae_encode
+    from flux_fp8_api_tpu_torch.parallel.train import flow_matching_loss, train_cfg, whole_tensors
+    from flux_fp8_api_tpu_torch.utils.loader import load_autoencoder, load_flow_model
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    spec = _mesh_spec(TP4_CONFIG, ckpt_path=str(tmp / "int8.safetensors"), prequantized_flow=True, mesh=None)
+    model, cfg, _ = load_flow_model(spec)
+    adapters = init_lora_adapters(model, 16, torch.Generator(device=dev).manual_seed(201))
+    with torch.no_grad():
+        g = torch.Generator(device=dev).manual_seed(202)
+        for entry in (e for stack in adapters.values() for e in stack):
+            for ab in entry.values():  # B ≠ 0, so that A gets gradients too
+                ab["b"].copy_(torch.randn(ab["b"].shape, generator=g, device=dev) * 1e-2)
+    batch, t, noise = _qlora_inputs(cfg, dev)
+    loss = flow_matching_loss(merge_lora_adapters(model, adapters), train_cfg(cfg, True, dequant=True), batch,
+                              t=t, noise=noise)
+    tensors = adapter_tensors(adapters)
+    grads = torch.autograd.grad(loss, tensors)
+    names = [n for n, _ in _adapter_names(adapters)]
+    ref = {"loss": float(loss.detach()), "grads": {n: gr.cpu() for n, gr in zip(names, grads)},
+           "adapters": whole_tensors(adapters)}
+    torch.save(ref, tmp / "qlora-ref.pt")
+    del model, adapters, grads, loss
+    release()
+
+    ae_spec = _mesh_spec(CONFIG, mesh=None)
+    ae = load_autoencoder(ae_spec)
+    g = torch.Generator(device=dev).manual_seed(210)
+    h, z = P18_SIZE // 8, ae_spec.ae_params.z_channels
+    latents = torch.randn((1, h, h, z), generator=g, device=dev).to(torch.bfloat16)
+    image = (torch.rand((1, P18_SIZE, P18_SIZE, 3), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    with torch.inference_mode():
+        decoded = ae_decode(ae, ae_spec.ae_params, latents).float()
+        encoded = ae_encode(ae, ae_spec.ae_params, image, torch.Generator(device=dev).manual_seed(211)).float()
+    torch.save({"latents": latents.cpu(), "image": image.cpu(), "decoded": decoded.cpu(), "encoded": encoded.cpu()},
+               tmp / "vae-ref.pt")
+    del ae
+    release()
+    print(f"[{card}] (b, e) one rank's QLoRA step (int8, {TRAIN_MESH_SIZE}², batch 2, loss {ref['loss']:.6f}) "
+          f"and whole VAE decode and encode at {P18_SIZE}²: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ref
+
+
+def _adapter_names(adapters):
+    """(name, tensor) in ``adapter_tensors``' order."""
+    return [(f"{stack}.{i}.{leaf}.{k}", ab[k]) for stack, blocks in adapters.items()
+            for i, entry in enumerate(blocks) for leaf, ab in entry.items() for k in ("a", "b")]
+
+
+def _p18_serve(mesh, job, out: dict) -> None:
+    """(a) pp serving on this rank: the pipeline from the fp8 file, a MESH_STEPS-step
+    1024² request from one rank's conditioning with its launches and collectives; with
+    ``serve``, POST /generate through the first rank and a cached request (400)."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+    from flux_fp8_api_tpu_torch.parallel.launch import MeshPipeline, follower_loop
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.server import PipelineServer
+
+    t = time.perf_counter()
+    spec = _mesh_spec(CONFIG, ckpt_path=job["fp8"], prequantized_flow=True, mesh=job["mesh"],
+                      offload_text_encoder=job.get("offload_te", False))
+    pipe = FluxPipeline.load_pipeline_from_config(spec, mesh=mesh)
+    out["load_s"] = time.perf_counter() - t
+    one_vec, one_txt = (x.to(mesh.device) for x in torch.load(job["cond"]))
+    encode = pipe._encode_prompts
+    pipe._encode_prompts = lambda prompts: {p: (one_vec, one_txt) for p in prompts}
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    pmesh.reset_collectives()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        pipe.generate(MESH_PROMPT, width=P18_SIZE, height=P18_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
+                      num_images=job["num_images"], silent=True)
+    torch.cuda.synchronize()
+    out.update(generate_s=time.perf_counter() - t, launches=dict(LAUNCHES),
+               collectives={repr(k): v for k, v in pmesh.COLLECTIVES.items()},
+               blocks={s: len(pipe.model_params[s]) for s in ("double_blocks", "single_blocks")},
+               use_pallas=pipe.model_cfg.use_pallas, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if mesh.is_root:
+        torch.save(pipe.last_latents.cpu(), Path(job["out"]) / "pp-latents.pt")
+    pipe._encode_prompts = encode
+    if job.get("serve"):
+        if mesh.is_root:
+            front = MeshPipeline(pipe)
+            server = PipelineServer(front, host="127.0.0.1", port=0)
+            server.start_background()
+            try:
+                from PIL import Image
+
+                url = f"http://127.0.0.1:{server.port}"
+                body = {"prompt": "a lighthouse at dusk", "width": P18_SIZE, "height": P18_SIZE,
+                        "num_steps": MESH_STEPS, "seed": 5}
+                t = time.perf_counter()
+                status, _, payload = post(url + "/generate", body)
+                im = Image.open(io.BytesIO(payload)) if status == 200 else None
+                out["http"] = {"status": status, "s": time.perf_counter() - t,
+                               "size": None if im is None else list(im.size)}
+                status, _, payload = post_any(url + "/generate", {**body, "cache": {"mode": "interval"}})
+                out["http_cached"] = {"status": status, "body": payload.decode(errors="replace")[:200]}
+            finally:
+                server.shutdown()
+                front.stop()
+        else:
+            follower_loop(pipe)
+    del pipe
+    release()
+
+
+def _p18_qlora(mesh, job, out: dict) -> None:
+    """(b) one QLoRA step's loss and adapter gradients on this rank's int8 shard, from
+    one rank's batch, draws and adapters; the first rank writes them whole."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.lora import adapter_tensors, merge_lora_adapters
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+    from flux_fp8_api_tpu_torch.parallel.train import (
+        dp_loss_and_grads, flow_matching_loss, local_adapters, train_cfg, whole_tensors,
+    )
+    from flux_fp8_api_tpu_torch.utils.loader import load_flow_model
+
+    t = time.perf_counter()
+    spec = _mesh_spec(TP4_CONFIG, ckpt_path=job["int8"], prequantized_flow=True, mesh=job["mesh"])
+    model, cfg, _ = load_flow_model(spec, mesh)
+    model, cfg = pmesh.setup_flux(model, cfg, mesh)
+    ref = torch.load(job["qlora_ref"])
+    adapters = local_adapters(ref["adapters"], cfg, mesh.device)
+    batch, t_draw, noise = _qlora_inputs(cfg, mesh.device)
+    tcfg = train_cfg(cfg, True, dequant=True)
+    tensors = adapter_tensors(adapters)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    loss, grads = dp_loss_and_grads(
+        lambda b, tt, nn: flow_matching_loss(merge_lora_adapters(model, adapters), tcfg, b, t=tt, noise=nn),
+        tensors, mesh, batch, None, "uniform", t_draw, noise)
+    torch.cuda.synchronize()
+    out["qlora"] = {"s": time.perf_counter() - t, "launches": dict(LAUNCHES), "loss": float(loss)}
+    by_id = {id(p): g for p, g in zip(tensors, grads)}
+    grad_tree = {s: [{leaf: {k: by_id[id(ab[k])] for k in ("a", "b")} for leaf, ab in e.items()} for e in blocks]
+                 for s, blocks in adapters.items()}
+    whole = whole_tensors(grad_tree, cfg)
+    if mesh.is_root:
+        torch.save({"loss": float(loss), "grads": whole}, Path(job["out"]) / "qlora.pt")
+    del model, adapters, grads, grad_tree
+    release()
+
+
+def _p18_pp_train(mesh, job, out: dict) -> None:
+    """(d) the pp 2 full-parameter SGD and AdamW steps at 2 + 4 blocks, full width,
+    against one rank's computed on this rank first (twice: one rank must repeat itself
+    bit for bit), all under SDPA's memory-efficient backend, whose backward repeats
+    itself (the default cuDNN and the flash backends' do not: PERF.md, PR 12): the
+    gradients of this stage's blocks and of the layers around them; the same with
+    ∂vec_silu left unsummed over pp (a planted fault); the tensors after one pp AdamW
+    step against an AdamW step of the pp gradients."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flux_fp8_api_tpu_torch.models.flux import FluxStatic, init_flux_params
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+    from flux_fp8_api_tpu_torch.parallel.pp import make_pp_runner, make_pp_train_step
+    from flux_fp8_api_tpu_torch.parallel.train import (
+        StateMap, adamw, dp_loss_and_grads, draw, flat_tensors, flow_matching_loss, make_dummy_batch, train_cfg,
+        trainable_tensors,
+    )
+    from flux_fp8_api_tpu_torch.utils.config import FluxParams
+
+    dev = mesh.device
+    small = FluxStatic.from_params(FluxParams(**CUT_FLUX), use_pallas=False)
+    g = torch.Generator(device=dev).manual_seed(220)
+    batch = make_dummy_batch(small, 1, TRAIN_MESH_SIZE // 8, TRAIN_MESH_SIZE // 8, 512, g)
+    t_draw, noise = draw(batch, g)
+    keep = {"double_blocks": pmesh.stage_blocks(small.depth, mesh),
+            "single_blocks": pmesh.stage_blocks(small.depth_single_blocks, mesh)}
+
+    def init(stage_only: bool):
+        return init_flux_params(small, torch.Generator(device=dev).manual_seed(221), torch.bfloat16,
+                                keep=keep if stage_only else None)
+
+    def named(model, values, cfg=None) -> dict:
+        """{global name: value} of the tree's trainable tensors on this rank, on the card."""
+        canon, tensors = StateMap(model, cfg), trainable_tensors(model)
+        ids = {id(p): k for k, p in flat_tensors(model).items()}
+        return {canon.own(ids[id(p)]): v.detach().clone() for p, v in zip(tensors, values)}
+
+    t = time.perf_counter()
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        model = init(False)
+        tensors = trainable_tensors(model)
+        runs = []
+        for _ in range(2):
+            loss, grads = dp_loss_and_grads(
+                lambda b, tt, nn: flow_matching_loss(model, train_cfg(small, True), b, t=tt, noise=nn),
+                tensors, None, batch, None, "uniform", t_draw, noise)
+            runs.append((float(loss), named(model, grads)))
+        (ref_loss, ref_grads), (rerun_loss, rerun_grads) = runs
+        del model, grads, tensors, runs
+        release()
+
+        # the pp stage's
+        model, cfg = pmesh.setup_flux(init(True), small, mesh)
+        tensors = trainable_tensors(model)
+        before = named(model, tensors, cfg)
+        runner = make_pp_runner(mesh, 1, remat=True)
+        tcfg = dataclasses.replace(train_cfg(cfg, False), mesh=mesh)
+
+        def pp_grads_now() -> tuple:
+            for p in tensors:
+                p.grad = None
+            loss, grads = dp_loss_and_grads(
+                lambda b, tt, nn: flow_matching_loss(model, tcfg, b, t=tt, noise=nn, stack_runner=runner),
+                tensors, mesh, batch, None, "uniform", t_draw, noise, backward=True)
+            out = float(loss), named(model, grads, cfg)  # this stage's and the replicated layers'
+            for p in tensors:
+                p.grad = None
+            return out
+
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        pp_loss, pp_grads = pp_grads_now()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        summed = mesh.all_reduce_sum
+        # planted fault: each stage keeps its own ∂vec_silu (the pp sum of PPRunner.backward skipped)
+        mesh.all_reduce_sum = lambda x, axis: x if axis == "pp" else summed(x, axis)
+        try:
+            _, fault_grads = pp_grads_now()
+        finally:
+            del mesh.all_reduce_sum
+        _, sgd_loss = make_pp_train_step(cfg, mesh, 1, lr=1e-3)(model, batch, None, t_draw, noise)
+        del model, tensors
+        release()
+        model, cfg = pmesh.setup_flux(init(True), small, mesh)
+        opt_init, step = make_pp_train_step(cfg, mesh, 1, adamw(1e-4))
+        opt = opt_init(model)
+        _, _, ad_loss = step(model, opt, batch, None, t_draw, noise)
+        after = named(model, trainable_tensors(model), cfg)
+    mine = sorted(pp_grads)
+    blocks = [k for k in mine if k.startswith(("double_blocks", "single_blocks"))]
+    around = [k for k in mine if k not in blocks]
+    # the pp AdamW step against AdamW on the pp gradients, from the same tensors
+    expect = [before[k].clone() for k in mine]
+    local = adamw(1e-4)(expect)
+    for x, k in zip(expect, mine):
+        x.grad = pp_grads[k]
+    local.step()
+
+    def worst(grads) -> float:
+        return max(_rel(grads[k], ref_grads[k]) for k in around if ref_grads[k].float().norm() > 0)
+
+    out["pp_train"] = {
+        "s": time.perf_counter() - t, "launches": launches, "loss": pp_loss, "ref_loss": ref_loss,
+        "sgd_loss": float(sgd_loss), "adamw_loss": float(ad_loss), "tensors": len(mine), "around": len(around),
+        "stage_blocks": {s: list(r) for s, r in keep.items()},
+        "rerun_loss": rerun_loss, "rerun_exact": all(torch.equal(rerun_grads[k], ref_grads[k]) for k in ref_grads),
+        "block_grads_exact": all(torch.equal(pp_grads[k], ref_grads[k]) for k in blocks),
+        "grad_rel": _flat_rel(pp_grads, {k: ref_grads[k] for k in mine}),
+        "around_worst_rel": worst(pp_grads), "fault_worst_rel": worst(fault_grads),
+        "update_exact": all(torch.equal(after[k], x) for k, x in zip(mine, expect)),
+    }
+    del model, opt, ref_grads, rerun_grads, before, after, pp_grads, fault_grads, expect, local
+    release()
+
+
+def _p18_vae(mesh, job, out: dict) -> None:
+    """(e) the VAE in bands through FluxPipeline: the decode of one rank's latents and,
+    with ``encode``, the encode of its image, against one rank's whole ones."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.models.autoencoder import ae_encode
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.utils.loader import load_autoencoder
+
+    t = time.perf_counter()
+    spec = _mesh_spec(CONFIG, mesh=job["mesh"], ae_device=str(mesh.device))
+    ref = torch.load(job["vae_ref"])
+    pipe = FluxPipeline("flux-dev", ae=load_autoencoder(spec), config=spec, mesh=mesh)
+    res = {}
+    with torch.inference_mode():
+        lat = ref["latents"].to(mesh.device)
+        x = lat.permute(0, 3, 1, 2)  # NCHW
+        from flux_fp8_api_tpu_torch.ops.packing import pack_latents
+
+        pixels = pipe.vae_decode(pack_latents(x.float()), P18_SIZE, P18_SIZE)
+        want = torch.floor(torch.clamp((torch.clamp(ref["decoded"], -1.0, 1.0) + 1.0) * 127.5, 0, 255)).to(torch.uint8)
+        diff = (torch.from_numpy(pixels).short() - want.short()).abs()
+        res["decode"] = {"axes": pipe.ae_band_axes(P18_SIZE // 8), "mean": float(diff.float().mean()), "max": int(diff.max())}
+        if job.get("encode"):
+            band = pipe._bands(P18_SIZE, 2 ** (len(spec.ae_params.ch_mult) - 1))
+            img = ref["image"].to(mesh.device)
+            z = ae_encode(pipe.ae_params, spec.ae_params, band.rows(img, 1),
+                          torch.Generator(device=mesh.device).manual_seed(211), band)
+            res["encode"] = {"axes": band.axes, "rel": _rel(z.cpu(), ref["encoded"])}
+    res["s"] = time.perf_counter() - t
+    out["vae"] = res
+    del pipe
+    release()
+
+
+def _p18_offload(mesh, job, out: dict) -> None:
+    """(e) a tp 2 request with the three offload flags against the same request on the
+    resident tp 2 pipeline (the prompt through the sharded encoders), bit for bit;
+    the offloaded flow's shard on the host between requests."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.models.conditioner import TextEncoder
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+
+    t = time.perf_counter()
+    spec = _mesh_spec(CONFIG, ckpt_path=job["fp8"], prequantized_flow=True, mesh=job["mesh"])
+    pipe = FluxPipeline.load_pipeline_from_config(spec, mesh=mesh)
+    body = dict(width=OFFLOAD_MESH_SIZE, height=OFFLOAD_MESH_SIZE, num_steps=MESH_STEPS, seed=7, silent=True)
+    with torch.inference_mode():
+        resident = pipe.generate(MESH_PROMPT, **body)
+        lat = pipe.last_latents.cpu()
+    off_spec = _mesh_spec(CONFIG, ckpt_path=job["fp8"], prequantized_flow=True, mesh=job["mesh"],
+                          offload_flow=True, offload_vae=True, offload_text_encoder=True)
+
+    def offloaded(enc):
+        return TextEncoder(enc.kind, enc.params, enc.config, enc.tokenizer, enc.max_length, enc.dtype, enc.device,
+                           offload=True)
+
+    off = FluxPipeline("flux-dev", clip=offloaded(pipe.clip), t5=offloaded(pipe.t5), model=pipe.model_params,
+                       model_cfg=pipe.model_cfg, ae=pipe.ae_params, config=off_spec, prequantized=True, mesh=mesh)
+    del pipe
+    release()
+    held = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        got = off.generate(MESH_PROMPT, **body)
+    host = all(b.device.type == "cpu" for b in off.model_params.buffers())
+    out["offload"] = {"s": time.perf_counter() - t, "latents_equal": bool(torch.equal(off.last_latents.cpu(), lat)),
+                      "jpeg_equal": (got is None and resident is None) or (got.getvalue() == resident.getvalue()),
+                      "host": host, "card_gib_between": held / 2**30}
+    del off
+    release()
+
+
+def _phase18_rank(job: dict) -> None:
+    """One rank of a phase-18 world: its parts in order, its results in
+    ``rank<r>.json``."""
+    from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(job["mesh"], backend="gloo")
+    out = {"rank": mesh.global_rank, "coords": mesh.coords}
+    parts = {"serve": _p18_serve, "qlora": _p18_qlora, "pp_train": _p18_pp_train, "vae": _p18_vae,
+             "offload": _p18_offload}
+    out["part_s"] = {}
+    for part in job["parts"]:
+        t = time.perf_counter()
+        parts[part](mesh, job, out)
+        out["part_s"][part] = time.perf_counter() - t
+    (Path(job["out"]) / f"rank{mesh.global_rank}.json").write_text(json.dumps(out))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def pp_flux_budget(shape: dict, params, batch: int, l_txt: int, l_img: int) -> list:
+    """The collectives of one evaluation of the flow (``params``: its FluxParams) on
+    each stage of a pp ``shape``, M = 1 (the pinned budget): per pipelined stack the
+    stage's handoff of the (B, L, hidden) bf16 activations to the next stage (send /
+    recv: img then txt for the doubles, the joined x for the singles) and the last
+    stage's result broadcast to every stage; a stack the stages do not divide runs
+    whole on each with none. → [budget of stage 0, stage 1, …]."""
+    s, hs = shape["pp"], params.hidden_size
+    stacks = ((params.depth, [(batch, l_img, hs), (batch, l_txt, hs)]),
+              (params.depth_single_blocks, [(batch, l_txt + l_img, hs)]))
+    out = []
+    for stage in range(s):
+        b: dict = {}
+        for depth, carry in stacks:
+            if depth % s:
+                continue
+            for shp in carry:
+                for kind, on in (("broadcast", True), ("send", stage < s - 1), ("recv", stage > 0)):
+                    if on:
+                        b[(kind, "bfloat16", shp)] = b.get((kind, "bfloat16", shp), 0) + 1
+        out.append(b)
+    return out
+
+
+def phase_pp_and_training_mesh(card: str, held: Optional[dict] = None):
+    """Phase 18 (module docstring): (c) the rope backward at tp-local heads; one rank's
+    references; then worlds sharing the card over gloo: pp 2 (a: serving, HTTP and a
+    cached request; d: full-parameter steps), dp 2 × pp 2 (a: two images), tp 2 (b:
+    QLoRA; e: the img2img encode in bands and the request with every offload) and
+    dp 2 × tp 2 (b; e: the decode in bands), tp 4 (e: the decode). ``held``: phase 17's
+    temporary directory and references, else they are made here."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    rows = mesh_rope_backward(card)
+    own = held is None
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pp_")) if own else held["tmp"]
+    try:
+        refs = mesh_references(card, tmp)[0] if own else held["refs"]
+        qref = mesh_train_references(card, tmp)
+        files = {"fp8": str(tmp / "fp8.safetensors"), "int8": str(tmp / "int8.safetensors"),
+                 "cond": str(tmp / "fp8-cond.pt"), "qlora_ref": str(tmp / "qlora-ref.pt"),
+                 "vae_ref": str(tmp / "vae-ref.pt")}
+        worlds = (
+            ("pp 2", {"pp": 2}, {"parts": ["serve", "pp_train"], "num_images": 1, "serve": True}),
+            ("dp 2 x pp 2, two images", {"dp": 2, "pp": 2}, {"parts": ["serve"], "num_images": 2, "offload_te": True}),
+            ("tp 2", {"tp": 2}, {"parts": ["qlora", "vae", "offload"], "encode": True}),
+            ("dp 2 x tp 2", {"dp": 2, "tp": 2}, {"parts": ["qlora", "vae"]}),
+            ("tp 4", {"tp": 4}, {"parts": ["vae"]}),
+        )
+        for what, shape, extra in worlds:
+            out = tmp / ("p18-" + "-".join(f"{a}{n}" for a, n in shape.items()))
+            out.mkdir()
+            job = {"mesh": shape, "out": str(out), **files, **extra}
+            world = math.prod(shape.values())
+            t = time.perf_counter()
+            run_ranks(_phase18_rank, world, (job,))
+            ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+            check_phase18_world(card, what, shape, job, ranks, refs, qref, time.perf_counter() - t)
+    finally:
+        if own:
+            shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[{card}] phase pp and training mesh: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def check_phase18_world(card, what, shape, job, ranks, refs, qref, wall):
+    """Each part's checks on a phase-18 world (module docstring)."""
+    import torch
+
+    out = Path(job["out"])
+    parts = {k: round(max(r["part_s"][k] for r in ranks), 1) for k in job["parts"]}
+    print(f"[{card}] phase 18 world {what}: {len(ranks)} ranks on one card over gloo, wall {wall:.1f} s, "
+          f"parts {parts} s (ranks sharing one card time nothing of multi-GPU)", flush=True)
+    if "serve" in job["parts"]:
+        n, dp, s = job["num_images"], shape.get("dp", 1), shape["pp"]
+        spec = _mesh_spec(CONFIG)
+        p, l_img = spec.params, (P18_SIZE // 16) ** 2
+        latents = torch.load(out / "pp-latents.pt")
+        ref = refs[("fp8", n, MESH_SEED)]
+        exact, rel = bool(torch.equal(latents, ref)), _rel(latents, ref)
+        budgets = pp_flux_budget(shape, p, n // dp, spec.text_enc_max_length, l_img)
+        # each stage's blocks: a depth slice of a stack the stages divide, else all of it
+        per_eval = sum(d if d % s else d // s for d in (p.depth, p.depth_single_blocks))
+        for r in ranks:
+            launches = {k: v for k, v in r["launches"].items() if v}
+            if launches != {"qknorm_attention": per_eval * MESH_STEPS, "rope_rotate": per_eval * MESH_STEPS}:
+                fail("pp and training mesh", f"(a) {what} rank {r['rank']}: launches {launches}, expected "
+                                             f"{per_eval} x {MESH_STEPS} each")
+            want = {repr((k, *rest)): v * MESH_STEPS for (k, *rest), v in budgets[r["coords"]["pp"]].items()}
+            got = {k: v for k, v in r["collectives"].items() if k.split("'")[1] in ("send", "recv", "broadcast")}
+            r["handoffs"] = got
+            if got != want:
+                fail("pp and training mesh", f"(a) {what} rank {r['rank']}: handoffs {got}, the pinned budget {want}")
+            if dp > 1 and r["collectives"].get(repr(("all_gather", "bfloat16", (n // dp, l_img, p.in_channels)))) != 1:
+                fail("pp and training mesh", f"(a) {what} rank {r['rank']}: the latents' dp gather {r['collectives']}")
+            if not r["use_pallas"]:
+                fail("pp and training mesh", f"(a) {what}: K1 is off on a pp stage")
+        print(f"[{card}] (a) {what}: latents {'bit for bit' if exact else 'not bit for bit'} one rank's "
+              f"(‖a - b‖/‖b‖ {rel:.3e}); every rank {per_eval} K1 and rope-pass launches per evaluation "
+              f"({p.depth} + {p.depth_single_blocks}/{s}); "
+              f"blocks per stage {ranks[0]['blocks']}; handoffs per rank {[r['handoffs'] for r in ranks]}; load "
+              f"{max(r['load_s'] for r in ranks):.1f} s, generate {max(r['generate_s'] for r in ranks):.1f} s, peak "
+              f"{max(r['peak_gib'] for r in ranks):.2f} GiB per rank", flush=True)
+        if spec.pp_microbatches == 1:  # each stage runs one rank's ops on one rank's shapes
+            if not exact:
+                fail("pp and training mesh", f"(a) {what}: M = 1 latents differ from one rank's ({rel:.3e})")
+        elif not rel <= MESH_FP8_REL_TOL:
+            fail("pp and training mesh", f"(a) {what}: latents {rel:.3e} from one rank's (tol {MESH_FP8_REL_TOL})")
+        http = ranks[0].get("http")
+        if job.get("serve") and http is not None:
+            cached = ranks[0]["http_cached"]
+            if http["status"] != 200 or http["size"] != [P18_SIZE, P18_SIZE] or cached["status"] != 400 \
+                    or "pp" not in cached["body"]:
+                fail("pp and training mesh", f"(a) HTTP through the pp world's first rank: {http}, cached {cached}")
+            print(f"[{card}] (a) HTTP on {what}: POST /generate {P18_SIZE}x{P18_SIZE} {http['s']:.1f} s; a cached request "
+                  f"answers {cached['status']}: {cached['body']}", flush=True)
+    if "pp_train" in job["parts"]:
+        for r in ranks:
+            p = r["pp_train"]
+            ok = (p["rerun_exact"] and p["block_grads_exact"] and p["around_worst_rel"] <= PP_TRAIN_REL_TOL
+                  and p["fault_worst_rel"] > PP_TRAIN_REL_TOL and p["update_exact"] and p["loss"] == p["ref_loss"]
+                  and math.isfinite(p["adamw_loss"]) and math.isfinite(p["sgd_loss"]))
+            rope = {k: v for k, v in p["launches"].items() if v}
+            print(f"[{card}] (d) {what} stage {r['coords']['pp']} (blocks {p['stage_blocks']}): full-parameter "
+                  f"SGD and AdamW steps at 2 + 4 blocks, {TRAIN_MESH_SIZE}², bf16, SDPA memory-efficient: loss "
+                  f"{p['loss']:.6f} (one rank {p['ref_loss']:.6f}, again {p['rerun_loss']:.6f}, its gradients bit "
+                  f"for bit its own: {p['rerun_exact']}); block gradients bit for bit one rank's: "
+                  f"{p['block_grads_exact']}; the {p['around']} tensors around the stacks, worst "
+                  f"‖a - b‖/‖b‖ {p['around_worst_rel']:.3e} (tol {PP_TRAIN_REL_TOL}), with ∂vec_silu unsummed over "
+                  f"pp (planted) {p['fault_worst_rel']:.3e}; all gradients {p['grad_rel']:.3e}; the AdamW step bit "
+                  f"for bit AdamW on the pp gradients: {p['update_exact']}; launches {rope}; {p['s']:.1f} s",
+                  flush=True)
+            if not ok or not (rope.get("rope_rotate") and rope.get("rope_rotate_backward")) or rope.get("qknorm_attention"):
+                fail("pp and training mesh", f"(d) {what} stage {r['coords']['pp']}: {p}")
+    if "qlora" in job["parts"]:
+        got = torch.load(out / "qlora.pt")
+        loss_rel = abs(got["loss"] - qref["loss"]) / abs(qref["loss"])
+        grad_rel = _flat_rel(got["grads"], qref["grads"])
+        launches = {k: v for k, v in ranks[0]["qlora"]["launches"].items() if v}
+        print(f"[{card}] (b) {what}: QLoRA step on the int8 base at {TRAIN_MESH_SIZE}², batch 2, rank 16: loss "
+              f"{got['loss']:.6f} vs one rank's {qref['loss']:.6f} (rel {loss_rel:.2e}, tol {QLORA_MESH_LOSS_TOL}); "
+              f"adapter gradients ‖a - b‖/‖b‖ {grad_rel:.3e} (tol {QLORA_MESH_GRAD_TOL}); launches per rank "
+              f"{launches}; {max(r['qlora']['s'] for r in ranks):.1f} s with the load", flush=True)
+        if not (loss_rel <= QLORA_MESH_LOSS_TOL and grad_rel <= QLORA_MESH_GRAD_TOL):
+            fail("pp and training mesh", f"(b) {what}: loss rel {loss_rel}, grads rel {grad_rel}")
+        if not (launches.get("rope_rotate") and launches.get("rope_rotate_backward")) or launches.get("qknorm_attention"):
+            fail("pp and training mesh", f"(b) {what}: launches {launches}")
+    if "vae" in job["parts"]:
+        for r in ranks:
+            v = r["vae"]
+            d = v["decode"]
+            if d["axes"] is None or d["mean"] > BAND_PIXEL_MEAN_TOL:
+                fail("pp and training mesh", f"(e) {what} rank {r['rank']}: band decode {v}")
+            if "encode" in v and not v["encode"]["rel"] <= BAND_REL_TOL:
+                fail("pp and training mesh", f"(e) {what} rank {r['rank']}: band encode {v}")
+        v = ranks[0]["vae"]
+        enc = f"; encode over {v['encode']['axes']} ‖a - b‖/‖b‖ {v['encode']['rel']:.3e}" if "encode" in v else ""
+        print(f"[{card}] (e) {what}: {P18_SIZE}² decode in bands over {v['decode']['axes']}: pixels mean |Δ| "
+              f"{v['decode']['mean']:.4f}, max {v['decode']['max']} from one rank's whole decode{enc}; "
+              f"{max(r['vae']['s'] for r in ranks):.1f} s", flush=True)
+    if "offload" in job["parts"]:
+        for r in ranks:
+            o = r["offload"]
+            if not (o["latents_equal"] and o["jpeg_equal"] and o["host"]):
+                fail("pp and training mesh", f"(e) {what} rank {r['rank']}: offload {o}")
+        o = ranks[0]["offload"]
+        print(f"[{card}] (e) {what}: a {OFFLOAD_MESH_SIZE}² request with the three offload flags is the resident world's bit for "
+              f"bit (latents and JPEG); the flow's shard on the host between requests, "
+              f"{o['card_gib_between']:.2f} GiB on the card; {o['s']:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2753,7 +3441,13 @@ def main() -> int:
     phase_fidelity(card_line)
     phase_offload(card_line)
     train_launches, bwd = phase_training(card_line)
-    mesh_rows = phase_mesh(card_line)
+    held: dict = {}
+    try:
+        mesh_rows = phase_mesh(card_line, held)
+        bwd_rows = phase_pp_and_training_mesh(card_line, held)
+    finally:
+        if "tmp" in held:
+            shutil.rmtree(held["tmp"], ignore_errors=True)
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
@@ -2785,6 +3479,9 @@ def main() -> int:
     kernels.append(row("rope_rotate_backward", "flux_fp8_api_tpu_torch/csrc/rope_rotate.cu",
                        "flux_fp8_api_tpu/ops/rope.py:93", train_launches["rope_rotate_backward"],
                        bwd[4608]["max_abs_err"], bwd[4608]))
+    # phase 18's tp-local heads
+    kernels[-1]["mesh_shapes"] = [{k: m[k] for k in (*shape, "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                                  for m in bwd_rows]
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -259,13 +259,19 @@ _TOP_PATHS = {
 }
 
 
-def _locate(model: ParamTree, key: str) -> Optional[Tuple[ParamTree, str]]:
+def _locate(model: ParamTree, key: str, cfg: Optional[FluxStatic] = None) -> Optional[Tuple[ParamTree, str]]:
     """(parent module, leaf name) of the Linear a BFL module key names, or None where
     the model has no such Linear (a block index past its depth, guidance_in on
-    schnell, a key the tree does not hold)."""
+    schnell, a key the tree does not hold, a block of another pp stage). Block indices
+    are global: a pp stage's stack holds its slice (``parallel/mesh.py:stage_blocks``)."""
     m = re.match(r"(double_blocks|single_blocks)\.(\d+)\.(.+)", key)
     if m:
         stack, idx, name = model[m.group(1)], int(m.group(2)), _BLOCK_LEAF_BY_BFL.get(m.group(3))
+        if cfg is not None and cfg.mesh is not None:
+            from .parallel.mesh import stage_blocks
+
+            keep = stage_blocks(cfg.depth if m.group(1) == "double_blocks" else cfg.depth_single_blocks, cfg.mesh)
+            idx = idx - keep.start if idx in keep else len(stack)
         if name is None or idx >= len(stack):
             return None
         return stack[idx], name
@@ -306,7 +312,7 @@ def fuse_lora(model: ParamTree, cfg: FluxStatic, lora_sd: StateDict, keys: List[
         if a is None or b is None:
             continue  # plain-weight keys (e.g. qk-norm scales) are skipped, as the
             # reference's get_lora_for_key → None path does (lora_loading.py:686)
-        where = _locate(model, key)
+        where = _locate(model, key, cfg)
         if where is None:
             continue
         parent, name = where

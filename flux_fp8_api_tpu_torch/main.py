@@ -6,6 +6,7 @@ endpoints.
     python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev.json
     python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev-tp4.json
     python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev.json --mesh tp=2,sp=2
+    python -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev-prequant.json -f FILE --mesh dp=2,pp=2
     torchrun --nproc-per-node 4 -m flux_fp8_api_tpu_torch.main --config-path configs/config-dev-tp4.json
 
 A config with a ``mesh`` (or ``--mesh``) serves over that many ranks, one process each
@@ -74,9 +75,9 @@ def parse_args(argv=None):
                              "(quantized data + weight/input scales) to PATH, then exit "
                              "instead of serving; reload it with -PF")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="Multi-GPU serving mesh, e.g. 'dp=1,tp=4' or 'tp=2,sp=2': shards the "
-                             "flow over (data, tensor, sequence) parallel axes, one rank per process "
-                             "(overrides the config file's mesh field)")
+                        help="Multi-GPU serving mesh, e.g. 'dp=1,tp=4', 'tp=2,sp=2' or 'dp=2,pp=2': "
+                             "shards the flow over (data, tensor, sequence, pipeline) parallel axes, "
+                             "one rank per process (overrides the config file's mesh field)")
     parser.add_argument("--dist-backend", type=str, default="nccl", choices=["nccl", "gloo"],
                         help="torch.distributed backend of a mesh: nccl (one rank per card) or "
                              "gloo (ranks may share a card, or run on the host)")

@@ -1,7 +1,9 @@
 """Text-encoder wrapper: tokenizer + encoder + weight-only tier
 (JAX counterpart: ``flux_fp8_api_tpu.models.conditioner``; reference ``HFEmbedder``,
 modules/conditioner.py:38-117). Resident on one device, or offloaded to the host
-(T5 optionally streamed per layer); sharding is not ported yet.
+(T5 optionally streamed per layer, only without a mesh). Under tp the pipeline shards
+the params in place (``parallel/mesh.py:shard_encoder_params``), an offloaded encoder's
+host tree, so that each move to the card carries the rank's slice.
 
 Checkpoints load from local HF-style directories (``config.json`` + safetensors,
 optionally sharded through ``model.safetensors.index.json``); ``from_pretrained``

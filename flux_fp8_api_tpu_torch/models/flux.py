@@ -34,7 +34,7 @@ from ..ops.math import (
     silu,
     timestep_embedding,
 )
-from ..ops.quant import FLOW_QUANTIZERS, Linear, linear_apply
+from ..ops.quant import FLOW_QUANTIZERS, Linear, linear_apply, tp_copy
 from ..ops.rope import embed_nd_cos_sin
 from ..utils.config import FluxParams, into_dtype
 from ..utils.tree import ParamTree
@@ -189,13 +189,17 @@ def init_flux_params(
     generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16,
     leaf_fn: Optional[LeafFn] = None,
+    keep: Optional[Dict[str, range]] = None,
 ) -> ParamTree:
     """Random-init model on ``generator``'s device, built leaf by leaf: each Linear is
     drawn, passed through ``leaf_fn`` (e.g. :func:`quant_tier`) and only then is the next
-    drawn, so a quantized model never holds the whole float tree at once.
+    drawn, so a quantized model never holds the whole float tree at once. ``keep``:
+    {stack: global block indices} kept (a pp stage's slice); the other blocks are
+    drawn, so every stage draws the same weights, and dropped.
 
     Kernels follow the JAX init: U(±√(3/in)), biases U(±1/√in), norm scales ones.
     """
+    keep = keep or {}
     device = generator.device
 
     def linear(path, in_f, out_f, bias=True):
@@ -254,8 +258,12 @@ def init_flux_params(
         "time_in": embedder("time_in", 256),
         "vector_in": embedder("vector_in", cfg.vec_in_dim),
         "guidance_in": embedder("guidance_in", 256) if cfg.guidance_embed else None,
-        "double_blocks": torch.nn.ModuleList(double_block() for _ in range(cfg.depth)),
-        "single_blocks": torch.nn.ModuleList(single_block() for _ in range(cfg.depth_single_blocks)),
+        "double_blocks": torch.nn.ModuleList(
+            [b for i, b in ((i, double_block()) for i in range(cfg.depth))
+             if i in keep.get("double_blocks", range(cfg.depth))]),
+        "single_blocks": torch.nn.ModuleList(
+            [b for i, b in ((i, single_block()) for i in range(cfg.depth_single_blocks))
+             if i in keep.get("single_blocks", range(cfg.depth_single_blocks))]),
         "final_layer": {
             "linear": linear(("final_layer", "linear"), hs, cfg.in_channels),
             "adaln": linear(("final_layer", "adaln"), hs, 2 * hs),
@@ -306,6 +314,13 @@ def _split_qkv(qkv: torch.Tensor, head_dim: int, layout: str = "flat"):
     return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
 
+def _norm_scale(blk, name: str, lin: Linear) -> torch.Tensor:
+    """A q/k-norm scale, shared by every head: under tp a rank applies it to its heads
+    only, so its ∂ is summed over tp (``tp_copy``; the identity without a gradient)."""
+    scale = blk[name]
+    return scale if lin.shard is None else tp_copy(scale, lin.shard.mesh, lin.shard.axis)
+
+
 def _attention(cfg: FluxStatic, q, k, v, cos, sin):
     return attention(q, k, v, cos, sin, use_pallas=cfg.use_pallas,
                      seq_mesh=cfg.mesh if cfg.attn_seq_axis else None, seq_axis=cfg.attn_seq_axis)
@@ -326,15 +341,15 @@ def _double_block(cfg: FluxStatic, blk, img, txt, vec_silu, cos, sin, tape: _Tap
     img_q, img_k, img_v = _split_qkv(
         tape.lin("img_attn_qkv", blk["img_attn_qkv"], img_modulated, dtype), hd, layout
     )
-    img_q = rms_norm(img_q, blk["img_attn_qnorm"])
-    img_k = rms_norm(img_k, blk["img_attn_knorm"])
+    img_q = rms_norm(img_q, _norm_scale(blk, "img_attn_qnorm", blk["img_attn_qkv"]))
+    img_k = rms_norm(img_k, _norm_scale(blk, "img_attn_knorm", blk["img_attn_qkv"]))
 
     txt_modulated = modulate(layer_norm(txt), t_shift1, t_scale1)
     txt_q, txt_k, txt_v = _split_qkv(
         tape.lin("txt_attn_qkv", blk["txt_attn_qkv"], txt_modulated, dtype), hd, layout
     )
-    txt_q = rms_norm(txt_q, blk["txt_attn_qnorm"])
-    txt_k = rms_norm(txt_k, blk["txt_attn_knorm"])
+    txt_q = rms_norm(txt_q, _norm_scale(blk, "txt_attn_qnorm", blk["txt_attn_qkv"]))
+    txt_k = rms_norm(txt_k, _norm_scale(blk, "txt_attn_knorm", blk["txt_attn_qkv"]))
 
     # joint attention over concat(txt, img) (flux_model.py:380-385)
     q = torch.cat([txt_q, img_q], dim=1)
@@ -383,8 +398,8 @@ def _single_block(cfg: FluxStatic, blk, x, vec_silu, cos, sin, tape: _Tape):
         lin1 = lin1.reshape(b, l, width // (3 * hd + g), 3 * hd + g)
         q, k, v = _split_qkv(lin1[..., : 3 * hd].reshape(b, l, -1), hd, "grouped")
         mlp = lin1[..., 3 * hd:]  # (B, L, N, g)
-    q = rms_norm(q, blk["qnorm"])
-    k = rms_norm(k, blk["knorm"])
+    q = rms_norm(q, _norm_scale(blk, "qnorm", blk["linear1"]))
+    k = rms_norm(k, _norm_scale(blk, "knorm", blk["linear1"]))
     attn = _attention(cfg, q, k, v, cos, sin)
 
     if cfg.fused_layout == "flat":
@@ -478,6 +493,7 @@ def flux_apply(
     y: torch.Tensor,
     guidance: Optional[torch.Tensor] = None,
     collect_amax: bool = False,
+    stack_runner=None,
 ):
     """Full forward (reference ``Flux.forward``, flux_model.py:672-716).
 
@@ -488,12 +504,21 @@ def flux_apply(
       collect_amax: also return the per-linear input amaxes (calibration): top-level
         names like ``"img_in"`` / ``"time_in.in_layer"`` / ``"final_layer.linear"``,
         and ``"double_blocks"``/``"single_blocks"`` dicts of (depth,) tensors.
+      stack_runner: how the two block stacks run (JAX flux.py:555-633):
+        ``runner(body, carry, blocks, extras, depth) -> carry`` with
+        ``body(carry, blk, extras) -> carry``; the double stack's carry is
+        ``(img, txt)``, the single stack's the joined ``x``, the extras ``(vec_silu,
+        cos, sin)``. None runs them as loops here;
+        :func:`~..parallel.pp.make_pp_runner` pipelines them over a pp axis.
 
     Returns:
       (B, L_img, in_channels) prediction, or (pred, amaxes) with ``collect_amax``.
     """
     if img.dim() != 3 or txt.dim() != 3:
         raise ValueError("Input img and txt tensors must have 3 dimensions.")
+    if collect_amax and stack_runner is not None:
+        # calibration is a one-rank protocol; a pipelined stage sees only its blocks
+        raise ValueError("collect_amax requires the default scan runner")
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and collect_amax:
         raise ValueError("collect_amax (calibration) does not combine with remat under grad")
@@ -506,6 +531,20 @@ def flux_apply(
         if remat:
             return checkpoint(block_fn, *args, use_reentrant=False)
         return block_fn(*args)
+
+    if stack_runner is not None:
+        extras = (vec_silu, cos, sin)
+
+        def double_body(carry, blk, ex):
+            return _double_block(cfg, blk, *carry, *ex, _Tape.of(cfg))
+
+        def single_body(x, blk, ex):
+            return _single_block(cfg, blk, x, *ex, _Tape.of(cfg))
+
+        img, txt = stack_runner(double_body, (img, txt), model["double_blocks"], extras, cfg.depth)
+        x = stack_runner(single_body, torch.cat([txt, img], dim=1), model["single_blocks"], extras,
+                         cfg.depth_single_blocks)
+        return flux_final(model, cfg, x[:, txt_len:], vec_silu, tape)
 
     double_amaxes, single_amaxes = [], []
     for blk in model["double_blocks"]:

@@ -334,6 +334,92 @@ def with_input_scale(lin: Linear, amax: torch.Tensor) -> Linear:
     return lin
 
 
+# ------------------------------------------------------------ tp under autograd
+#
+# A sharded Linear's collectives as Megatron's conjugate pair, so that a gradient
+# crosses them: ``tp_copy`` (f) is the identity forward and sums ∂ over tp backward,
+# at a column-parallel input; ``tp_reduce`` (g) sums over tp forward and passes ∂
+# through backward, at a row-parallel output (the ∂ of a replicated output is the same
+# on every rank already: summing it again would give tp times the gradient);
+# ``tp_gather`` concatenates the ranks' columns forward and keeps the rank's slice of
+# ∂ backward. Without a gradient each is the mesh's plain collective (or nothing).
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_sum(g.float().clone(), ctx.axis).to(g.dtype), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce_sum(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.mesh, ctx.axis
+        return g.chunk(mesh.size(axis), ctx.dim)[mesh.rank(axis)].contiguous(), None, None, None
+
+
+def _grad_on(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def tp_copy(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """f: x forward; ∂ summed over ``axis`` backward."""
+    return _Copy.apply(x, mesh, axis) if _grad_on(x) else x
+
+
+def tp_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """g: Σ over ``axis`` forward (in place without a gradient); ∂ unchanged backward."""
+    return _Reduce.apply(x, mesh, axis) if _grad_on(x) else mesh.all_reduce_sum(x, axis)
+
+
+def tp_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``; backward the rank's slice of ∂."""
+    return _Gather.apply(x, mesh, axis, dim) if _grad_on(x) else mesh.all_gather(x, axis, dim)
+
+
+def _lora_branch(lin: Linear, x: torch.Tensor, out: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``out + (x·Aᵀ)·Bᵀ``: ``h = x·Aᵀ`` rounded to the compute dtype, the product
+    accumulated in fp32 and added in the output's dtype (JAX quant.py:509-519). The
+    adapters are whole on every rank; on a column-parallel shard the branch keeps the
+    rank's rows of B, on a row-parallel one ``x_local·A_localᵀ`` is summed over tp
+    first and the branch is added once, to the reduced output. A replicated adapter
+    used on the rank's part of the work gets its ∂ summed over tp (``tp_copy``)."""
+    a, b, shard = lin.lora_a.to(compute_dtype), lin.lora_b.to(compute_dtype), lin.shard
+    if shard is None:
+        h = F.linear(x.to(compute_dtype), a)
+    else:
+        mesh, axis = shard.mesh, shard.axis
+        size, rank = mesh.size(axis), mesh.rank(axis)
+        a = tp_copy(a, mesh, axis)
+        if shard.mode == "col":
+            b = tp_copy(b, mesh, axis).chunk(size, 0)[rank]
+            h = F.linear(x.to(compute_dtype), a)
+        else:
+            a = a.chunk(size, 1)[rank]
+            h = tp_reduce(_f32_product(x.to(compute_dtype), a), mesh, axis).to(compute_dtype)
+    return out + F.linear(h, b).to(out.dtype)
+
+
 def linear_apply(
     lin: Linear,
     x: torch.Tensor,
@@ -352,14 +438,17 @@ def linear_apply(
     shard = lin.shard
     if shard is not None and shard.mode == "row":
         out = _linear_base(lin, x, compute_dtype, fast_accum, dequant,
-                           reduce=lambda p: shard.mesh.all_reduce_sum(p, shard.axis))
-    else:
-        out = _linear_base(lin, x, compute_dtype, fast_accum, dequant)
-        if shard is not None and shard.gather:
-            out = shard.mesh.all_gather(out, shard.axis, dim=-1)
+                           reduce=lambda p: tp_reduce(p, shard.mesh, shard.axis))
+        if lin.lora_a is not None:
+            out = _lora_branch(lin, x, out, compute_dtype)
+        return out, amax
+    if shard is not None:
+        x = tp_copy(x, shard.mesh, shard.axis)
+    out = _linear_base(lin, x, compute_dtype, fast_accum, dequant)
     if lin.lora_a is not None:
-        h = F.linear(x.to(compute_dtype), lin.lora_a.to(compute_dtype))
-        out = out + F.linear(h, lin.lora_b.to(compute_dtype)).to(out.dtype)
+        out = _lora_branch(lin, x, out, compute_dtype)
+    if shard is not None and shard.gather:
+        out = tp_gather(out, shard.mesh, shard.axis, -1)
     return out, amax
 
 
@@ -427,13 +516,37 @@ def _block_scales(lin: Linear) -> torch.Tensor:
     return s[:, first:first + 1]
 
 
+class _F32Product(torch.autograd.Function):
+    """``torch.mm(x, wᵀ, out_dtype=fp32)`` (which has no derivative) under autograd: the
+    backward runs in the operands' dtype, as a compute-dtype ``F.linear``'s would (the
+    incoming ∂ of a rounded output holds compute-dtype values)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = g.t() @ x2 if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ wᵀ of compute-dtype operands with the fp32 accumulator returned unrounded
     (a row-parallel partial: rounding it to the compute dtype before the reduction
     would round each rank's part where one rank rounds the whole sum once). On the
     card cuBLAS's bf16 GEMM with an fp32 output; on the CPU the fp32 product."""
     x2 = x.reshape(-1, x.shape[-1])
-    out = torch.mm(x2, w.t(), out_dtype=torch.float32) if x.is_cuda else torch.mm(x2.float(), w.float().t())
+    if not x.is_cuda:
+        out = torch.mm(x2.float(), w.float().t())
+    elif _grad_on(x2, w):
+        out = _F32Product.apply(x2, w)
+    else:
+        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
     return out.reshape(*x.shape[:-1], w.shape[0])
 
 

@@ -1,3 +1,3 @@
-"""Training (``train.py``) and serving over a (dp, tp, sp) mesh of ranks (``mesh.py``,
-``launch.py``); pipeline parallelism (JAX ``parallel/pp.py``) waits for ROADMAP §1
-item 12."""
+"""Training (``train.py``) and serving over a (dp, tp, sp, pp) mesh of ranks
+(``mesh.py``, ``launch.py``), with pipeline parallelism over the depth of the block
+stacks (``pp.py``)."""

@@ -22,6 +22,10 @@ The rules are the JAX package's:
 - **dp** splits the batch rows (:meth:`Mesh.batch_rows`).
 - **sp** splits only attention's q rows (``ops/attention.py``); the linears stay
   replicated over sp.
+- **pp** gives each stage a contiguous depth slice of every block stack that its size
+  divides (:func:`stage_blocks`, JAX ``flux_param_shardings(pp_axis=...)``); a stack
+  it does not divide stays whole on every stage. Stages hand activations on with
+  :meth:`Mesh.send` / :meth:`Mesh.recv` (``parallel/pp.py``).
 
 Port layout reminder: a Linear's weight is (out, in), so column-parallel slices dim 0
 and row-parallel dim 1 (JAX's (in, out) kernel slices the other way round). The flow's
@@ -46,6 +50,9 @@ from ..ops.quant import INT4_MAX, Linear, _unpack_int4
 logger = logging.getLogger(__name__)
 
 SERVING_AXES = ("dp", "tp", "sp", "pp")
+# the axes a VAE band split may run over together (JAX pipeline.py:357-369): make_mesh
+# builds one process group over them where both have more than one rank
+BAND_AXES = ("dp", "tp")
 # process-group timeout of the compute collectives: a rank that fails mid-request
 # makes the others raise after this long instead of hanging forever
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
@@ -59,6 +66,9 @@ COLLECTIVES: "collections.Counter[Tuple[str, str, Tuple[int, ...]]]" = collectio
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+
+
+Axis = Union[str, Tuple[str, ...]]
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -87,21 +97,39 @@ class Mesh:
         self.control = control
         self.backend = backend
 
-    def size(self, axis: Optional[str]) -> int:
-        """Ranks along ``axis`` (1 for an axis the mesh lacks); None: the whole mesh."""
-        return self.world if axis is None else int(self.shape.get(axis, 1))
+    def _axes(self, axis: Axis) -> Tuple[str, ...]:
+        """``axis`` as a tuple of the mesh's axes in the mesh's order."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        return tuple(a for a in self.shape if a in names)
 
-    def rank(self, axis: str) -> int:
-        """This rank's coordinate along ``axis`` (0 for an axis the mesh lacks)."""
-        return self.coords.get(axis, 0)
+    def size(self, axis: Optional[Axis]) -> int:
+        """Ranks along ``axis`` (1 for an axis the mesh lacks; a tuple: the product);
+        None: the whole mesh."""
+        if axis is None:
+            return self.world
+        return math.prod(self.shape[a] for a in self._axes(axis))
 
-    def group(self, axis: Optional[str]):
-        """The process group of ``axis`` (None: the whole world)."""
+    def rank(self, axis: Axis) -> int:
+        """This rank's coordinate along ``axis`` (0 for an axis the mesh lacks; a tuple:
+        row-major over its axes in the mesh's order, the rank's place in the group)."""
+        axes = self._axes(axis)
+        return int(np.ravel_multi_index([self.coords[a] for a in axes], [self.shape[a] for a in axes])) if axes else 0
+
+    def group(self, axis: Optional[Axis]):
+        """The process group of ``axis`` (None: the whole world; a tuple of axes: the
+        group over them, which :func:`make_mesh` builds for :data:`BAND_AXES`)."""
         if axis is None:
             return None
         if self.groups is None:
             raise RuntimeError(f"this mesh of {self.shape} has no process groups")
-        return self.groups[axis]
+        axes = self._axes(axis)
+        return self.groups[axes[0] if len(axes) == 1 else axes]
+
+    def peer(self, axis: str, coord: int) -> int:
+        """The global rank of the rank at ``coord`` along ``axis`` and at this rank's
+        coordinates on every other axis."""
+        coords = dict(self.coords, **{axis: coord})
+        return int(np.ravel_multi_index([coords[a] for a in self.shape], tuple(self.shape.values())))
 
     @property
     def is_root(self) -> bool:
@@ -118,12 +146,13 @@ class Mesh:
     def _count(self, kind: str, t: torch.Tensor) -> None:
         COLLECTIVES[(kind, _dtype_name(t.dtype), tuple(t.shape))] += 1
 
-    def all_reduce_sum(self, t: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
-        """Σ over ``axis`` (None: the whole mesh), in place on ``t``; returns it."""
+    def all_reduce_sum(self, t: torch.Tensor, axis: Optional[Axis], count_as: str = "all_reduce_sum") -> torch.Tensor:
+        """Σ over ``axis`` (None: the whole mesh), in place on ``t``; returns it.
+        ``count_as``: the kind it is counted under in :data:`COLLECTIVES`."""
         if self._live(axis):
             import torch.distributed as dist
 
-            self._count("all_reduce_sum", t)
+            self._count(count_as, t)
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group(axis))
         return t
 
@@ -136,19 +165,60 @@ class Mesh:
             dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group(axis))
         return t
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: Axis, dim: int, count_as: str = "all_gather") -> torch.Tensor:
         """The ranks' ``t`` along ``axis``, concatenated along ``dim`` in rank order.
         It travels as bytes (a gather copies them, and gloo takes neither bf16 nor
-        int16)."""
+        int16). ``count_as``: the kind it is counted under in :data:`COLLECTIVES`."""
         if not self._live(axis):
             return t
         import torch.distributed as dist
 
-        self._count("all_gather", t)
+        self._count(count_as, t)
         wire = t.contiguous().view(torch.uint8)
         parts = [torch.empty_like(wire) for _ in range(self.size(axis))]
         dist.all_gather(parts, wire, group=self.group(axis))
         return torch.cat([p.view(t.dtype) for p in parts], dim=dim)
+
+    def _host_staged(self, t: torch.Tensor) -> bool:
+        """gloo sends and receives host tensors only: a CUDA tensor stages through the
+        host (ranks sharing a card, or a host-only process group)."""
+        return t.is_cuda and self.backend != "nccl"
+
+    def send(self, t: torch.Tensor, axis: str, dst: int) -> None:
+        """Send ``t`` to the rank at coordinate ``dst`` along ``axis`` (a pipeline
+        stage's handoff); its bytes travel, staged through the host under gloo."""
+        import torch.distributed as dist
+
+        self._count("send", t)
+        wire = t.contiguous().view(torch.uint8)
+        if self._host_staged(wire):
+            wire = wire.cpu()
+        dist.send(wire, self.peer(axis, dst))
+
+    def recv(self, like: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+        """A tensor of ``like``'s shape, dtype and device from the rank at coordinate
+        ``src`` along ``axis`` (the other end of :meth:`send`)."""
+        import torch.distributed as dist
+
+        self._count("recv", like)
+        out = torch.empty_like(like, memory_format=torch.contiguous_format)
+        wire = out.view(torch.uint8)
+        buf = torch.empty_like(wire, device="cpu") if self._host_staged(wire) else wire
+        dist.recv(buf, self.peer(axis, src))
+        if buf is not wire:
+            wire.copy_(buf)
+        return out
+
+    def broadcast(self, t: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+        """The contiguous ``t`` of the rank at coordinate ``src`` along ``axis`` on every
+        rank of the axis, in place (as bytes: gloo takes no bf16); returns it."""
+        if not self._live(axis):
+            return t
+        import torch.distributed as dist
+
+        self._count("broadcast", t)
+        dist.broadcast(t.view(torch.uint8), self.peer(axis, src), group=self.group(axis))
+        return t
 
     def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
         """Rank ``src``'s picklable ``obj`` on every rank, over the control group (gloo,
@@ -251,14 +321,19 @@ def make_mesh(shape: Dict[str, int], backend: str = "nccl", device: Optional[str
         torch.cuda.set_device(dev)
     groups: Dict[str, Any] = {}
     ranks = np.arange(n).reshape(tuple(shape.values()))
-    for i, axis in enumerate(shape):
-        # one group per line of the mesh along this axis; every rank creates every
+    combos = [(a,) for a in shape]
+    if all(shape.get(a, 1) > 1 for a in BAND_AXES):
+        combos.append(tuple(a for a in shape if a in BAND_AXES))
+    for axes in combos:
+        # one group per line of the mesh along these axes; every rank creates every
         # group, in the same order (new_group is collective)
-        lines = np.moveaxis(ranks, i, -1).reshape(-1, shape[axis])
+        idx = [list(shape).index(a) for a in axes]
+        n_line = math.prod(shape[a] for a in axes)
+        lines = np.moveaxis(ranks, idx, list(range(-len(idx), 0))).reshape(-1, n_line)
         for line in lines:
-            g = dist.new_group([int(r) for r in line]) if shape[axis] > 1 else None
+            g = dist.new_group([int(r) for r in line]) if n_line > 1 else None
             if me in line:
-                groups[axis] = g
+                groups[axes[0] if len(axes) == 1 else axes] = g
     control = dist.new_group(list(range(n)), backend="gloo", timeout=CONTROL_TIMEOUT)
     return Mesh(shape, me, dev, groups=groups, control=control, backend=dist.get_backend())
 
@@ -356,6 +431,20 @@ def shard_flux_leaf(path: Tuple[str, ...], lin: Linear, mesh: Mesh, tp_axis: str
     return out
 
 
+def stage_blocks(depth: int, mesh: Optional[Mesh]) -> range:
+    """The global indices of a depth-``depth`` block stack that this rank's pp stage
+    holds (JAX ``flux_param_shardings(pp_axis=...)``, :82-196): a contiguous slice of
+    depth/S blocks when the S stages divide the depth, else the whole stack (it stays
+    replicated and every stage runs it). The one rule of the loader, the shard, the
+    LoRA fuse and the runner."""
+    s = 1 if mesh is None else mesh.size("pp")
+    if s == 1 or depth % s:
+        return range(depth)
+    n = depth // s
+    first = mesh.rank("pp") * n
+    return range(first, first + n)
+
+
 def check_flux_divisible(cfg, tp: int) -> None:
     """Heads, the hidden size and the mlp width must split over tp into whole heads."""
     if tp > 1 and (cfg.num_heads % tp or cfg.mlp_hidden % cfg.num_heads):
@@ -364,14 +453,18 @@ def check_flux_divisible(cfg, tp: int) -> None:
 
 
 def setup_flux(model, cfg, mesh: Mesh):
-    """The flow's mesh set-up on this rank (JAX pipeline.py:187-246) → (model, cfg):
-    the attention's shard axes (dp and tp), or ``use_pallas=False`` for the whole
-    model where the heads do not divide their product, as in JAX; the sequence axis;
-    under tp the grouped layout and this rank's shard. A model the loader already
-    relayouted and sliced leaf by leaf passes through."""
+    """The flow's mesh set-up on this rank (JAX pipeline.py:142-246) → (model, cfg):
+    under pp this stage's depth slices (:func:`slice_flux_stages`); the attention's
+    shard axes (dp and tp), or ``use_pallas=False`` for the whole model where the heads
+    do not divide their product, as in JAX; the sequence axis; under tp the grouped
+    layout and this rank's shard. A model the loader already relayouted and sliced
+    passes through. Under pp the max-free kernel stays on: a port rank holds whole
+    heads, so JAX's reason to serve pp with XLA attention does not arise here."""
     from ..utils.checkpoint import relayout_flux_tree
 
     axes = tuple(a for a in ("dp", "tp") if mesh.size(a) > 1)
+    if model is not None and mesh.size("pp") > 1:
+        model = slice_flux_stages(model, cfg, mesh)
     if cfg.use_pallas and axes and cfg.num_heads % int(np.prod([mesh.size(a) for a in axes])):
         logger.info("mesh: %d heads do not divide the %s axes — serving with use_pallas=False",
                     cfg.num_heads, axes)
@@ -388,6 +481,42 @@ def setup_flux(model, cfg, mesh: Mesh):
     logger.info("mesh %s: rank %d on %s, attention over %s%s, %s layout", mesh.shape, mesh.global_rank,
                 mesh.device, axes or "no axis", " + sp rows" if cfg.attn_seq_axis else "", cfg.fused_layout)
     return model, cfg
+
+
+def slice_flux_stages(model, cfg, mesh: Mesh):
+    """Keep this pp stage's blocks of each stack (:func:`stage_blocks`), in place; a
+    stack already cut to its slice passes. Returns the model."""
+    for stack, depth in (("double_blocks", cfg.depth), ("single_blocks", cfg.depth_single_blocks)):
+        keep = stage_blocks(depth, mesh)
+        blocks = model[stack]
+        if len(blocks) == depth and len(keep) < depth:
+            setattr(model, stack, torch.nn.ModuleList(blocks[i] for i in keep))
+    return model
+
+
+def gather_flux_stages(model, cfg, mesh: Mesh):
+    """A host copy of the flux tree with every pp stage's blocks (every rank of the pp
+    axis must call it): each buffer of the j-th local block gathered from the stages,
+    whose slices are contiguous and in stage order."""
+    from ..utils.tree import tree_to
+
+    full = tree_to(model, "cpu")
+    s = mesh.size("pp")
+    for stack, depth in (("double_blocks", cfg.depth), ("single_blocks", cfg.depth_single_blocks)):
+        if len(stage_blocks(depth, mesh)) == depth:
+            continue
+        local = model[stack]
+        stages = [[tree_to(blk, "cpu") for blk in local] for _ in range(s)]
+        for j, blk in enumerate(local):
+            for name, mod in blk.named_modules():
+                for key, t in mod._buffers.items():
+                    if t is None:
+                        continue
+                    parts = mesh.all_gather(t[None], "pp", 0).cpu()
+                    for st in range(s):
+                        stages[st][j].get_submodule(name)._buffers[key] = parts[st].clone()
+        setattr(full, stack, torch.nn.ModuleList(b for st in stages for b in st))
+    return full
 
 
 def shard_flux_params(model, mesh: Mesh, tp_axis: str = "tp"):
@@ -471,7 +600,8 @@ def encoder_param_shardings(params, mesh: Mesh, tp_axis: str = "tp", num_heads: 
 
 
 def shard_encoder_params(params, mesh: Mesh, tp_axis: str = "tp", num_heads: Optional[int] = None):
-    """Keep this rank's slice of every T5/CLIP block Linear, in place; returns params."""
+    """Keep this rank's slice of every T5/CLIP block Linear, in place (a slice already
+    taken stays); returns params."""
     size, rank = mesh.size(tp_axis), mesh.rank(tp_axis)
     if size == 1:
         return params
@@ -479,7 +609,7 @@ def shard_encoder_params(params, mesh: Mesh, tp_axis: str = "tp", num_heads: Opt
         for leaf, spec in table.items():
             lin = blk[leaf]
             kdim = spec["q" if lin.q is not None else "weight"]
-            if kdim is None:
+            if kdim is None or lin.shard is not None:  # replicated, or this rank's slice already
                 continue
             fields = {name: (getattr(lin, name) if spec.get(name) is None or getattr(lin, name) is None
                              else _chunk(getattr(lin, name), spec[name], size, rank))

@@ -1,4 +1,4 @@
-"""Flow-matching training on one device (JAX counterpart:
+"""Flow-matching training, on one device or over a (dp, tp) mesh (JAX counterpart:
 ``flux_fp8_api_tpu.parallel.train``).
 
 The objective is rectified flow, the one FLUX models are trained with: the model
@@ -20,6 +20,17 @@ Randomness comes from ``torch.Generator``s, so a seed draws other t and ε than 
 JAX package's keys; every loss and step takes explicit ``t`` and ``noise`` as well, so
 draws can be carried across. Train state is one ``torch.save`` file in a directory,
 written atomically (orbax is the JAX package's).
+
+On a mesh (the model as ``mesh.py:setup_flux`` leaves it, ``cfg.mesh`` its mesh) every
+step takes the whole batch on every rank: t and ε are drawn whole, as on one rank, and
+each dp rank takes its rows. The loss is the mean over the whole batch, so each rank's
+gradients are its rows' share, summed over dp. Under tp the linears carry Megatron's
+conjugate pair (``ops/quant.py``), and a replicated tensor used inside the split region
+(a q/k-norm scale, an adapter) gets its ∂ summed over tp there. The moments of
+:class:`OptaxAdamW` are laid out like their parameters. The state file holds whole
+tensors in the flat layout at global block indices, gathered on the first rank, so a
+state written on one mesh restores on another or on one rank (JAX's orbax restore,
+parallel/train.py:184-190).
 """
 
 from __future__ import annotations
@@ -28,7 +39,9 @@ import dataclasses
 import math
 import os
 import tempfile
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -40,6 +53,8 @@ from ..ops.schedule import get_lin_function
 from ..utils.tree import ParamTree
 
 STATE_FILE = "train_state.pt"
+# 2: whole tensors at global block indices, the optimizer state keyed by tensor name
+STATE_FORMAT = 2
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -68,32 +83,90 @@ def flow_matching_loss(
     t_sampling: str = "uniform",
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    stack_runner=None,
 ) -> torch.Tensor:
     """Rectified-flow MSE in fp32: ``x_t = (1 − t)·x₀ + t·ε``, target ``ε − x₀``.
 
     ``batch``: ``latents`` (B, L, C) packed clean latents, ``txt``, ``y``, ``img_ids``,
     ``txt_ids``. t is drawn first (:func:`sample_timesteps`), then ε ~ N(0, 1) in fp32
     cast to the latents' dtype, both from ``generator``; given ``t`` or ``noise`` are
-    used instead of a draw."""
+    used instead of a draw. ``stack_runner``: as in ``flux_apply`` (pp)."""
     x0 = batch["latents"]
     b = x0.shape[0]
-    if t is None:
-        t = sample_timesteps(generator, b, x0.shape[1], t_sampling)
-    if noise is None:
-        noise = torch.randn(x0.shape, generator=generator, device=x0.device).to(x0.dtype)
+    t, noise = draw(batch, generator, t_sampling, t, noise)
     t = t.to(x0.device, torch.float32)
     t_b = t.to(x0.dtype)[:, None, None]
     x_t = (1.0 - t_b) * x0 + t_b * noise
     guidance = torch.full((b,), 1.0, dtype=torch.float32, device=x0.device) if cfg.guidance_embed else None
-    pred = flux_apply(model, cfg, x_t, batch["img_ids"], batch["txt"], batch["txt_ids"], t, batch["y"], guidance)
+    pred = flux_apply(model, cfg, x_t, batch["img_ids"], batch["txt"], batch["txt_ids"], t, batch["y"], guidance,
+                      stack_runner=stack_runner)
     target = noise - x0
     return torch.mean((pred.float() - target.float()) ** 2)
 
 
+def draw(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator], t_sampling: str = "uniform",
+         t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+    """(t, ε) for the whole batch: t first, then ε, from ``generator``, where not given."""
+    x0 = batch["latents"]
+    if t is None:
+        t = sample_timesteps(generator, x0.shape[0], x0.shape[1], t_sampling)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device).to(x0.dtype)
+    return t, noise
+
+
 def train_cfg(cfg: FluxStatic, remat: bool, dequant: bool = False) -> FluxStatic:
-    """The configuration a train step runs: the differentiable attention path,
-    ``remat`` as asked, and for adapters the dequantize path of the quantized linears."""
-    return dataclasses.replace(cfg, use_pallas=False, remat=remat, dequant_linears=dequant or cfg.dequant_linears)
+    """The configuration a train step runs: the differentiable attention path (no
+    sequence split), ``remat`` as asked, and for adapters the dequantize path of the
+    quantized linears."""
+    return dataclasses.replace(cfg, use_pallas=False, attn_seq_axis=None, remat=remat,
+                               dequant_linears=dequant or cfg.dequant_linears)
+
+
+def dp_loss_and_grads(loss_fn, tensors: List[torch.Tensor], mesh, batch, generator, t_sampling: str,
+                      t=None, noise=None, backward: bool = False):
+    """The loss over the whole batch and its gradients, on one rank or a mesh: the
+    draws whole, this dp rank's rows through ``loss_fn(batch, t, noise)``, the rows'
+    share of the gradients summed over dp → (loss, grads). ``backward``: the gradients
+    are taken by ``loss.backward()`` into each tensor's ``.grad`` (the pp step, whose
+    stages backpropagate outside the graph of the loss), which the tensors keep."""
+    t, noise = draw(batch, generator, t_sampling, t, noise)
+    rows = None if mesh is None else mesh.batch_rows(batch["latents"].shape[0])
+    if rows is not None:
+        batch = {k: v[rows] for k, v in batch.items()}
+        t, noise = t[rows], noise[rows]
+    loss = loss_fn(batch, t, noise)
+    if backward:
+        loss.backward()
+        grads = [p.grad for p in tensors]
+    else:
+        grads = _grads(loss, tensors)
+    loss = loss.detach()
+    if rows is not None:  # each dp rank's mean is 1/dp of the whole batch's
+        n = mesh.size("dp")
+        loss = mesh.all_reduce_sum(loss.float().clone(), "dp") / n
+        grads = [None if g is None else (mesh.all_reduce_sum(g.float().clone(), "dp") / n).to(g.dtype) for g in grads]
+        if backward:
+            for p, g in zip(tensors, grads):
+                p.grad = g
+    return loss, grads
+
+
+def split_axes(model: ParamTree, tensors: List[torch.Tensor], cfg: FluxStatic) -> List[Optional[str]]:
+    """Per tensor, the mesh axis it is split over (its slices make the whole tensor),
+    or None where every rank holds it whole: a tp slice of a sharded Linear."""
+    from .mesh import _linear_spec
+
+    mesh, axes = cfg.mesh, {}
+    if mesh is None:
+        return [None] * len(tensors)
+    for module in model.modules():
+        if isinstance(module, Linear) and module.shard is not None:
+            spec = _linear_spec(module.shard.mode)
+            for name, t in module._buffers.items():
+                if t is not None and spec.get(name) is not None and t.dim() > spec[name]:
+                    axes[id(t)] = module.shard.axis
+    return [axes.get(id(t)) for t in tensors]
 
 
 def trainable_tensors(model: ParamTree) -> List[torch.Tensor]:
@@ -132,12 +205,20 @@ def sgd_update(params: List[torch.Tensor], grads: List[torch.Tensor], lr: float 
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, split=None, mesh=None) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: with ‖g‖ the norm over every gradient, each g
     is kept while ‖g‖ < ``max_norm`` and otherwise becomes ``(g / ‖g‖)·max_norm``. The
     norm is accumulated in fp32 (optax's, in the gradients' dtype); no host sync: the
-    choice is a ``torch.where``."""
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    choice is a ``torch.where``. On a ``mesh``, ``split`` (:func:`split_axes`) names
+    the axis each gradient is sliced over: those squares are summed over it."""
+    split = split or [None] * len(grads)
+    sq = {}
+    for g, axis in zip(grads, split):
+        sq[axis] = sq.get(axis, 0) + torch.sum(g.float() * g.float())
+    total = sq.pop(None, 0)
+    for axis, part in sq.items():
+        total = total + mesh.all_reduce_sum(part.reshape(1).clone(), axis)[0]
+    norm = torch.sqrt(total)
     return [torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
 
@@ -192,30 +273,49 @@ def adamw(lr: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float 
     return lambda params: OptaxAdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
 
 
-def optimizer_update(opt: torch.optim.Optimizer, params, grads, max_grad_norm: Optional[float] = None) -> None:
+def optimizer_update(opt: torch.optim.Optimizer, params, grads, max_grad_norm: Optional[float] = None,
+                     split=None, mesh=None) -> None:
     """One optimizer step of ``params`` with ``grads``, clipped first when
     ``max_grad_norm`` is given (``optax.chain(clip_by_global_norm(max_grad_norm),
-    optimizer)``); the grads are cleared after."""
+    optimizer)``; on a mesh over ``split``, :func:`clip_by_global_norm`); the grads
+    are cleared after."""
     if max_grad_norm is not None:
-        grads = clip_by_global_norm(grads, max_grad_norm)
+        grads = clip_by_global_norm(grads, max_grad_norm, split, mesh)
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
 
 
+def _mesh_step(tcfg: FluxStatic, t_sampling: str = "uniform"):
+    """→ ``loss_and_grads(model, tensors, batch, generator, t, noise)``: the loss over
+    the whole batch and its gradients, on one rank or on ``tcfg.mesh``
+    (:func:`dp_loss_and_grads`)."""
+
+    def loss_and_grads(model, tensors, batch, generator, t, noise):
+        def loss_fn(local, t_l, noise_l):
+            return flow_matching_loss(model, tcfg, local, generator, t_sampling, t_l, noise_l)
+
+        return dp_loss_and_grads(loss_fn, tensors, tcfg.mesh, batch, generator, t_sampling, t, noise)
+
+    return loss_and_grads
+
+
 def make_train_step(cfg: FluxStatic, remat: bool = True, lr: float = 1e-4):
-    """→ ``step(params, batch, generator, t=None, noise=None) -> (params, loss)``: one
+    """→ ``step(params, batch, generator=None, t=None, noise=None) -> (params, loss)``: one
     SGD step of every float tensor of ``params`` (updated in place; the same tree is
     returned). Training runs the differentiable attention path (``use_pallas=False``)
-    and, with ``remat`` (default on), recomputes each block in backward."""
+    and, with ``remat`` (default on), recomputes each block in backward. On a mesh
+    (``cfg.mesh``) ``batch`` is the whole batch on every rank and the tree this rank's
+    shard."""
     tcfg = train_cfg(cfg, remat)
+    loss_and_grads = _mesh_step(tcfg)
 
     def step(params, batch, generator=None, t=None, noise=None):
         tensors = trainable_tensors(params)
-        loss = flow_matching_loss(params, tcfg, batch, generator, t=t, noise=noise)
-        sgd_update(tensors, _grads(loss, tensors), lr)
-        return params, loss.detach()
+        loss, grads = loss_and_grads(params, tensors, batch, generator, t, noise)
+        sgd_update(tensors, grads, lr)
+        return params, loss
 
     return step
 
@@ -226,17 +326,19 @@ def make_optimizer_train_step(cfg: FluxStatic, optimizer: OptimizerFactory, rema
     ``(init_fn, step_fn)``: ``init_fn(params) -> opt`` builds ``optimizer(tensors)``
     over every float tensor of the tree; ``step_fn(params, opt, batch, generator,
     t=None, noise=None) -> (params, opt, loss)`` updates in place. ``max_grad_norm``
-    clips first, as ``optax.chain(clip_by_global_norm(max_grad_norm), ...)`` does."""
+    clips first, as ``optax.chain(clip_by_global_norm(max_grad_norm), ...)`` does. On a
+    mesh as :func:`make_train_step`; the moments are laid out like the parameters."""
     tcfg = train_cfg(cfg, remat)
+    loss_and_grads = _mesh_step(tcfg, t_sampling)
 
     def init_fn(params):
         return optimizer(trainable_tensors(params))
 
     def step_fn(params, opt, batch, generator=None, t=None, noise=None):
         tensors = trainable_tensors(params)
-        loss = flow_matching_loss(params, tcfg, batch, generator, t_sampling, t, noise)
-        optimizer_update(opt, tensors, _grads(loss, tensors), max_grad_norm)
-        return params, opt, loss.detach()
+        loss, grads = loss_and_grads(params, tensors, batch, generator, t, noise)
+        optimizer_update(opt, tensors, grads, max_grad_norm, split_axes(params, tensors, tcfg), tcfg.mesh)
+        return params, opt, loss
 
     return init_fn, step_fn
 
@@ -252,18 +354,22 @@ def make_lora_train_step(cfg: FluxStatic, optimizer: OptimizerFactory, remat: bo
     (the serving kinds round the activation, which has no gradient) and ``remat``, as
     JAX forces them. The base's tensors never require grad and are never written, so
     its bytes stay as they were; the adapters are updated in place. The result goes
-    to serving through ``lora.save_lora_adapters`` → ``pipeline.load_lora``."""
+    to serving through ``lora.save_lora_adapters`` → ``pipeline.load_lora``. On a
+    mesh the base is this rank's shard and the adapters are whole on every rank (JAX
+    replicates them), in the base's layout: a column-parallel leaf's branch keeps the
+    rank's rows of B, a row-parallel leaf's reduces ``x·Aᵀ`` over tp first
+    (``ops/quant.py``)."""
     tcfg = train_cfg(cfg, remat, dequant=True)
+    loss_and_grads = _mesh_step(tcfg, t_sampling)
 
     def init_fn(adapters: Adapters):
         return optimizer([p.requires_grad_() for p in adapter_tensors(adapters)])
 
     def step_fn(adapters: Adapters, opt, base: ParamTree, batch, generator=None, t=None, noise=None):
         tensors = adapter_tensors(adapters)
-        loss = flow_matching_loss(merge_lora_adapters(base, adapters), tcfg, batch, generator,
-                                  t_sampling, t, noise)
-        optimizer_update(opt, tensors, _grads(loss, tensors), max_grad_norm)
-        return adapters, opt, loss.detach()
+        loss, grads = loss_and_grads(merge_lora_adapters(base, adapters), tensors, batch, generator, t, noise)
+        optimizer_update(opt, tensors, grads, max_grad_norm)
+        return adapters, opt, loss
 
     return init_fn, step_fn
 
@@ -290,7 +396,7 @@ def make_dummy_batch(cfg: FluxStatic, batch: int, h_latent: int, w_latent: int, 
 # ------------------------------------------------------------------- save / resume
 
 
-def _flat(tree) -> Dict[str, torch.Tensor]:
+def flat_tensors(tree) -> Dict[str, torch.Tensor]:
     """Path → tensor of a module's buffers, or of a nested dict/list of tensors."""
     if isinstance(tree, torch.nn.Module):
         return dict(tree.named_buffers())
@@ -310,47 +416,238 @@ def _flat(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_train_state(path, params, opt_state, step: int, overwrite: bool = False) -> None:
-    """Write ``{params, opt_state, step}`` into the directory ``path`` as one
+class StateMap:
+    """The map between a rank's tensors and the state file's whole ones: the file
+    holds each tensor whole, in the flat fused layout, under its global block index.
+    ``cfg`` (None: one rank, flat) gives the layout and the mesh (tp slices, pp
+    stages)."""
+
+    STACKS = {"double_blocks": "depth", "single_blocks": "depth_single_blocks"}
+
+    def __init__(self, params, cfg: Optional[FluxStatic]):
+        from ..utils.checkpoint import grouped_permutations
+
+        self.cfg = cfg
+        self.mesh = None if cfg is None else cfg.mesh
+        self.perms = grouped_permutations(cfg) if cfg is not None and cfg.fused_layout == "grouped" else {}
+        self.modules = dict(params.named_modules()) if isinstance(params, torch.nn.Module) else {}
+
+    def _where(self, name: str):
+        """(stack, local block, leaf, field) of a block tensor, else None."""
+        parts = name.split(".")
+        if parts[0] in self.STACKS and len(parts) >= 3:
+            return parts[0], int(parts[1]), parts[2], parts[-1]
+        return None
+
+    def _stage(self, stack: str) -> Optional[range]:
+        """This pp stage's global blocks of ``stack`` where the stages split it, else None."""
+        from .mesh import stage_blocks
+
+        if self.mesh is None:
+            return None
+        depth = getattr(self.cfg, self.STACKS[stack])
+        keep = stage_blocks(depth, self.mesh)
+        return keep if len(keep) < depth else None
+
+    def _perm(self, where, inverse: bool):
+        """(dim, index) of the layout permutation of this tensor, or None."""
+        if where is None or where[2] not in self.perms:
+            return None
+        axis, perm = self.perms[where[2]]
+        field = where[3]
+        dim = {("out", "weight"): 0, ("out", "bias"): 0, ("out", "b"): 0, ("in", "weight"): 1,
+               ("in", "a"): 1}.get((axis, field))
+        if dim is None:
+            return None
+        return dim, torch.as_tensor(np.argsort(perm) if inverse else perm)
+
+    def _tp(self, name: str):
+        """(dim, mesh, axis) of a tensor sliced over tp, or None."""
+        from .mesh import _linear_spec
+
+        lin = self.modules.get(name.rsplit(".", 1)[0])
+        if not isinstance(lin, Linear) or lin.shard is None:
+            return None
+        dim = _linear_spec(lin.shard.mode).get(name.rsplit(".", 1)[1])
+        return None if dim is None else (dim, lin.shard.mesh, lin.shard.axis)
+
+    def names(self, name: str) -> List[str]:
+        """The global names behind this rank's tensor ``name``: one per pp stage where
+        the stages split its stack (in stage order), else ``name``."""
+        where = self._where(name)
+        stage = None if where is None else self._stage(where[0])
+        if stage is None:
+            return [name]
+        rest = name.split(".", 2)[2]
+        return [f"{where[0]}.{where[1] + s * len(stage)}.{rest}" for s in range(self.mesh.size("pp"))]
+
+    def whole(self, name: str, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """→ {global name: whole host tensor} of this rank's ``t`` (every rank calls
+        it for every tensor, in the same order: it gathers)."""
+        t = t.detach()
+        tp = self._tp(name)
+        if tp is not None:
+            t = tp[1].all_gather(t, tp[2], tp[0])
+        perm = self._perm(self._where(name), inverse=True)
+        if perm is not None:
+            t = t.index_select(perm[0], perm[1].to(t.device))
+        names = self.names(name)
+        if len(names) == 1:
+            return {name: t.cpu()}
+        return dict(zip(names, self.mesh.all_gather(t.contiguous()[None], "pp", 0).cpu()))
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole tensor ``t`` saved for ``name``."""
+        perm = self._perm(self._where(name), inverse=False)
+        if perm is not None:
+            t = t.index_select(perm[0], perm[1])
+        tp = self._tp(name)
+        if tp is not None:
+            n = t.shape[tp[0]] // tp[1].size(tp[2])
+            t = t.narrow(tp[0], tp[1].rank(tp[2]) * n, n)
+        return t
+
+    def own(self, name: str) -> str:
+        """The global name of this rank's tensor ``name``."""
+        names = self.names(name)
+        return names[self.mesh.rank("pp")] if len(names) > 1 else name
+
+
+def whole_tensors(tree, cfg: Optional[FluxStatic] = None, tensors=None) -> Dict[str, torch.Tensor]:
+    """{name at its global block index: whole host tensor} of the tree's (or
+    adapters') tensors, or of only ``tensors``: as the state file holds them
+    (:class:`StateMap`). On a mesh every rank must call it: it gathers."""
+    canon = StateMap(tree, cfg)
+    want = None if tensors is None else {id(x) for x in tensors}
+    out: Dict[str, torch.Tensor] = {}
+    for name, x in flat_tensors(tree).items():
+        if want is None or id(x) in want:
+            out.update(canon.whole(name, x))
+    return out
+
+
+def local_adapters(whole: Dict[str, torch.Tensor], cfg: Optional[FluxStatic] = None, device=None) -> Adapters:
+    """Adapters from ``{"stack.i.leaf.a|b": whole tensor}`` (flat layout, as
+    :func:`whole_tensors` gives them) in ``cfg``'s fused layout, each a leaf that
+    requires grad: what every rank of a mesh trains."""
+    canon = StateMap({}, cfg)
+    out: Adapters = {}
+    for key in sorted(whole, key=lambda k: (k.split(".")[0], int(k.split(".")[1]), k)):
+        stack, i, leaf, ab = key.split(".")
+        blocks = out.setdefault(stack, [])
+        while len(blocks) <= int(i):
+            blocks.append({})
+        x = canon.local(key, whole[key]).to(device).contiguous()
+        blocks[int(i)].setdefault(leaf, {})[ab] = x.requires_grad_()
+    return out
+
+
+def _opt_names(params, opt) -> List[Tuple[str, torch.Tensor]]:
+    """(name in the tree, tensor) of every tensor the optimizer steps."""
+    names = {id(t): k for k, t in flat_tensors(params).items()}
+    return [(names[id(p)], p) for group in opt.param_groups for p in group["params"]]
+
+
+def save_train_state(path, params, opt_state, step: int, overwrite: bool = False,
+                     cfg: Optional[FluxStatic] = None) -> None:
+    """Write ``{format, params, opt_state, step}`` into the directory ``path`` as one
     ``torch.save`` file: a temporary file in that directory, then ``os.replace``, so a
     reader never sees half a state. ``params`` is a tree (module) or adapters;
-    ``opt_state`` a ``torch.optim`` optimizer (its ``state_dict``) or None. Raises
-    when a state is there already, unless ``overwrite`` (the trainer's one rolling
-    state)."""
-    os.makedirs(path, exist_ok=True)
+    ``opt_state`` a ``torch.optim`` optimizer or None. Raises when a state is there
+    already, unless ``overwrite`` (the trainer's one rolling state).
+
+    Every tensor is written whole, in the flat layout, at its global block index: with
+    ``cfg`` on a mesh (``cfg.mesh``) every rank calls this, the tp slices and pp
+    stages are gathered and the first rank writes; ``cfg.fused_layout`` "grouped" is
+    inverted. An optimizer's per-tensor state is keyed by its tensor's name and goes
+    through the same map. On a mesh a failure of the first rank (the file exists, the
+    write fails) raises on every rank."""
+    canon = StateMap(params, cfg)
+    mesh = canon.mesh
     target = os.path.join(path, STATE_FILE)
-    if os.path.exists(target) and not overwrite:
-        raise FileExistsError(f"{target} exists (pass overwrite=True to replace it)")
-    state = {
-        "params": {k: v.detach() for k, v in _flat(params).items()},
-        "opt_state": opt_state.state_dict() if hasattr(opt_state, "state_dict") else opt_state,
-        "step": int(step),
-    }
-    fd, tmp = tempfile.mkstemp(dir=path, prefix=".train_state.", suffix=".tmp")
-    os.close(fd)
-    try:
-        torch.save(state, tmp)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    root = mesh is None or mesh.is_root
+    error: Optional[BaseException] = None
+    if root:
+        try:
+            os.makedirs(path, exist_ok=True)
+            if os.path.exists(target) and not overwrite:
+                raise FileExistsError(f"{target} exists (pass overwrite=True to replace it)")
+        except OSError as exc:
+            error = exc
+    _raise_together(mesh, error, "saving the train state failed on the first rank")
+    whole: Dict[str, torch.Tensor] = {}
+    for name, t in flat_tensors(params).items():
+        whole.update(canon.whole(name, t))
+    opt = None
+    if hasattr(opt_state, "param_groups"):
+        opt = {"state": {}, "param_groups": [{k: v for k, v in g.items() if k != "params"}
+                                             for g in opt_state.param_groups]}
+        for name, p in _opt_names(params, opt_state):
+            entries = {g: {} for g in canon.names(name)}
+            for k, v in opt_state.state.get(p, {}).items():
+                parts = canon.whole(name, v) if isinstance(v, torch.Tensor) and v.shape == p.shape and v.dim() else {}
+                for g in entries:
+                    entries[g][k] = parts.get(g, v)
+            opt["state"].update(entries)
+    if root:
+        state = {"format": STATE_FORMAT, "params": whole, "opt_state": opt if opt is not None else opt_state,
+                 "step": int(step)}
+        tmp = None
+        try:
+            fd, tmp = tempfile.mkstemp(dir=path, prefix=".train_state.", suffix=".tmp")
+            os.close(fd)
+            torch.save(state, tmp)
+            os.replace(tmp, target)
+        except Exception as exc:  # raised below, on every rank
+            error = exc
+        finally:
+            if tmp is not None and os.path.exists(tmp):
+                os.remove(tmp)
+    # no rank goes on (and reads) before the file is there
+    _raise_together(mesh, error, "saving the train state failed on the first rank")
 
 
-def restore_train_state(path, params_template, opt_state_template):
+def _raise_together(mesh, error: Optional[BaseException], other: str) -> None:
+    """Raise ``error`` where it was caught and a RuntimeError(``other``) on every other
+    rank of ``mesh`` (no rank is left waiting in a collective), or nothing."""
+    failed = error is not None
+    if mesh is not None:
+        failed = mesh.any_failed(failed)
+    if error is not None:
+        raise error
+    if failed:
+        raise RuntimeError(other)
+
+
+def restore_train_state(path, params_template, opt_state_template, cfg: Optional[FluxStatic] = None):
     """→ ``(params, opt_state, step)`` from :func:`save_train_state`'s directory. The
     templates (the same tree or adapters, and the same kind of optimizer) receive the
-    saved values in place, on their own devices, and are returned."""
+    saved values in place, on their own devices, and are returned. With ``cfg`` on a
+    mesh each rank takes its part of the whole tensors: its stage's blocks, the
+    grouped layout, its tp slice (the shard rules), whatever mesh wrote the file."""
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
-    saved = state["params"]
-    dest = _flat(params_template)
-    if sorted(saved) != sorted(dest):
+    if state.get("format") != STATE_FORMAT:
+        raise ValueError(f"train state at {path} has format {state.get('format', 1)}, this version reads "
+                         f"format {STATE_FORMAT} (whole tensors and optimizer state keyed by name): "
+                         "start the run anew or restore it with the version that wrote it")
+    canon = StateMap(params_template, cfg)
+    dest = flat_tensors(params_template)
+    names = {g for k in dest for g in canon.names(k)}
+    if sorted(state["params"]) != sorted(names):
         raise ValueError(f"train state at {path} does not match the template's tensors")
     with torch.no_grad():
         for k, t in dest.items():
-            t.copy_(saved[k])
-    opt = opt_state_template
-    if hasattr(opt, "load_state_dict"):
-        opt.load_state_dict(state["opt_state"])
-    elif state["opt_state"] is not None:
-        opt = state["opt_state"]
+            t.copy_(canon.local(k, state["params"][canon.own(k)]))
+    opt, saved = opt_state_template, state["opt_state"]
+    if hasattr(opt, "param_groups") and saved is not None:
+        for group, hyper in zip(opt.param_groups, saved["param_groups"]):
+            group.update({k: v for k, v in hyper.items() if k != "params"})
+        for name, p in _opt_names(params_template, opt):
+            entries = {}
+            for k, v in saved["state"].get(canon.own(name), {}).items():
+                moment = isinstance(v, torch.Tensor) and v.dim() > 0  # saved whole, like its tensor
+                entries[k] = canon.local(name, v).to(p.device).clone() if moment else v
+            opt.state[p] = entries
+    elif saved is not None:
+        opt = saved
     return params_template, opt, state["step"]

@@ -14,15 +14,18 @@ whole to the card and back around each request (calibration, and
 ``stream_flow_offload=False``); the VAE and the text encoders moved to the card only
 for their calls.
 
-Under ``config.mesh`` (``{"dp": …, "tp": …, "sp": …}``) each rank of the mesh runs this
-pipeline as JAX pipeline.py:129-246 sets it up: under tp the flow relayouts to the
-head-major fused layout and keeps its Megatron shard, and the text encoders shard
-too; dp splits the batch rows (noise drawn whole from the seed on every rank, each
-keeping its rows); sp splits attention's q rows. The latents are all-gathered over dp
-and the first rank decodes them with its replicated VAE. Calibration takes each
-amax's MAX over the mesh. Not ported: pipeline parallelism (a pp axis), offload under
-a mesh, and the VAE's spatial bands (``NotImplementedError`` or a replicated decode,
-each naming its ROADMAP item).
+Under ``config.mesh`` (``{"dp": …, "tp": …, "sp": …, "pp": …}``) each rank of the mesh
+runs this pipeline as JAX pipeline.py:129-255 sets it up: under tp the flow relayouts
+to the head-major fused layout and keeps its Megatron shard, and the text encoders
+shard too; dp splits the batch rows (noise drawn whole from the seed on every rank,
+each keeping its rows); sp splits attention's q rows; pp gives each stage its depth
+slice of the block stacks and pipelines them (``parallel/pp.py``, composing with dp
+only). The latents are all-gathered over dp. The VAE decodes (and an init image
+encodes) in horizontal bands over the dp and tp ranks where their count divides the
+rows (``models/autoencoder.py:Bands``), and the first rank answers. Calibration takes
+each amax's MAX over the mesh. Offload under a mesh keeps each rank's own shard tree
+on the host and moves it whole around each request; the flow streams block by block
+only without a mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,13 +49,16 @@ from . import offload as offload_mod
 from .calibration import apply_input_scales, merge_amax, reduce_amaxes
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
-from .models.autoencoder import ae_decode, ae_encode
+from .models.autoencoder import Bands, ae_decode, ae_encode
 from .models.flux import FluxStatic, max_logit_bound
 from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
 from .ops.quant import ACTIVATION_KINDS, Linear
 from .ops.schedule import get_schedule
-from .parallel.mesh import gather_flux_params, make_mesh, parse_axes, setup_flux, shard_encoder_params
+from .parallel.mesh import (
+    gather_flux_params, gather_flux_stages, make_mesh, parse_axes, setup_flux, shard_encoder_params,
+)
+from .parallel.pp import make_pp_runner
 from .sampling import CacheConfig, denoise, make_denoise_step
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
 from .utils.loader import load_models_from_config
@@ -116,8 +122,11 @@ class FluxPipeline:
             # MAX_SAFE_LOGIT; the bound is static in the norm scales, so it is decided
             # once per set of weights: above it, this pipeline serves through the rope
             # pass and F.scaled_dot_product_attention (use_pallas=False), as the JAX
-            # package serves through XLA attention.
+            # package serves through XLA attention. A pp stage may hold only its
+            # blocks: the bound is the MAX over the stages.
             bound = max_logit_bound(model, model_cfg)
+            if self.mesh is not None:
+                bound = float(self.mesh.all_reduce_max(torch.tensor([bound], device=self.mesh.device), "pp")[0])
             if bound > MAX_SAFE_LOGIT:
                 logger.warning(
                     "qk-norm scales give an attention |logit| bound of %.0f > %.0f: the "
@@ -126,12 +135,24 @@ class FluxPipeline:
                     bound, MAX_SAFE_LOGIT,
                 )
                 self.model_cfg = dataclasses.replace(model_cfg, use_pallas=False)
+        # under pp the GPipe stack runner (parallel/pp.py) and each stage's depth slice
+        self._pp_runner = None
+        if self.mesh is not None and self.mesh.size("pp") > 1:
+            self._pp_runner = make_pp_runner(self.mesh, config.pp_microbatches,
+                                             dp_axis="dp" if "dp" in self.mesh.shape else None)
         if self.mesh is not None:
             model = self._place_flow(model)
             if self.mesh.size("tp") > 1:  # the text encoders shard over the same axis
                 for enc in (clip, t5):
                     if enc is not None:
+                        # an offloaded encoder's host tree is the one sharded: each move
+                        # to the card carries the shard (JAX re-shards at to_device)
                         shard_encoder_params(enc.params, self.mesh, num_heads=enc.config.num_heads)
+                        if getattr(enc, "offload", False) and self.mesh.device.type == "cuda":
+                            pin_tree_(enc.host_params)
+            for enc in (clip, t5):
+                if getattr(enc, "stream", False):  # streaming happens only without a mesh, as in JAX
+                    enc.stream = False
         self.offload_flow = config.offload_flow
         self.offload_vae = config.offload_vae
         self.offload_text_encoder = config.offload_text_encoder
@@ -146,6 +167,11 @@ class FluxPipeline:
         self._needs_calibration = (
             not prequantized and self._is_quantized() and config.num_scale_trials > 0
         )
+        if self._needs_calibration and self._pp_runner is not None:
+            # calibration is a one-rank protocol (flux_apply refuses it under a runner):
+            # refused here, not at the first generate (JAX pipeline.py:267-273)
+            raise ValueError("pp serving requires calibrated input scales: load a prequantized "
+                             "checkpoint (save_prequantized) or set num_scale_trials=0")
         self._amax_running = None
         self._trials_done = 0
 
@@ -167,18 +193,27 @@ class FluxPipeline:
 
     @staticmethod
     def _make_mesh(config: ModelSpec, mesh):
-        """The serving mesh of ``config.mesh`` (JAX pipeline.py:129-140): its axes
-        validated, pp and offload refused by name."""
+        """The serving mesh of ``config.mesh`` (JAX pipeline.py:129-186): its axes
+        validated; a pp axis composes only with dp and must divide a stack's depth (a
+        stack it does not divide stays whole on every stage, with a warning)."""
         if not config.mesh:
             return None
         shape = parse_axes(config.mesh)
-        if shape.get("pp", 1) > 1:
-            raise NotImplementedError(
-                "pipeline parallelism (a pp mesh axis) is not ported yet "
-                "(ROADMAP §1 item 12: pipeline parallelism)")
-        if config.offload_flow or config.offload_vae or config.offload_text_encoder:
-            raise NotImplementedError(
-                "offload under a mesh is not ported yet (ROADMAP §1 item 12: offload under a mesh)")
+        stages = shape.get("pp", 1)
+        if stages > 1:
+            bad = [a for a in ("tp", "sp") if shape.get(a, 1) > 1]
+            if bad:
+                raise ValueError(f"pp does not compose with {bad}: serve with dp/tp/sp (freely "
+                                 "composable) or dp+pp")
+            depths = {"double_blocks": config.params.depth, "single_blocks": config.params.depth_single_blocks}
+            for k, d in depths.items():
+                if d % stages:
+                    logger.warning("pp=%d doesn't divide %s depth %d: that stack stays whole on every stage "
+                                   "(a plain loop, no pipeline)", stages, k, d)
+            if all(d % stages for d in depths.values()):
+                raise ValueError(f"pp={stages} divides neither stack depth ({depths['double_blocks']} doubles, "
+                                 f"{depths['single_blocks']} singles) — every rank would hold and run the "
+                                 "full model; use dp/tp/sp instead")
         if mesh is None:
             mesh = make_mesh(shape, device="cpu" if str(config.flux_device or "").startswith("cpu") else None)
         if mesh.shape != shape:
@@ -209,6 +244,25 @@ class FluxPipeline:
         where dp divides it, else the whole batch and None (JAX pipeline.py:405-414)."""
         rows = None if self.mesh is None else self.mesh.batch_rows(xs[0].shape[0])
         return (xs if rows is None else tuple(x[rows] for x in xs)), rows
+
+    def ae_band_axes(self, h: int, multiple: int = 1):
+        """The mesh axes a VAE input of ``h`` rows splits over (JAX
+        ``_ae_input_sharding``, pipeline.py:357-369): dp and tp together when their
+        product divides ``h``, else the first of them alone that divides it, else None
+        (whole on one rank). ``multiple``: what each band's rows must also divide (the
+        encoder's stride-2 levels need even bands)."""
+        if self.mesh is None:
+            return None
+        axes = [a for a in ("dp", "tp") if self.mesh.size(a) > 1]
+        for cand in ([tuple(axes)] if len(axes) > 1 else []) + [(a,) for a in axes]:
+            n = self.mesh.size(cand)
+            if h % n == 0 and (h // n) % multiple == 0:
+                return cand
+        return None
+
+    def _bands(self, h: int, multiple: int = 1) -> Optional[Bands]:
+        axes = self.ae_band_axes(h, multiple)
+        return None if axes is None else Bands(self.mesh, axes)
 
     def profile(self, log_dir: str):
         """A ``torch.profiler`` trace of what runs inside the context (one or more
@@ -324,8 +378,14 @@ class FluxPipeline:
             arr = self.resize_center_crop(init_image, height, width)
             nhwc = torch.from_numpy(arr.astype(np.float32) / 127.5 - 1.0)[None]
             t_encode = time.perf_counter()
-            z = ae_encode(self._ae_on_device(), self.config.ae_params,
-                          nhwc.to(self.device_ae, self.ae_dtype), generator)  # (1, h, w, z)
+            # in bands over the mesh where they divide the rows into even bands at every
+            # stride-2 level of the encoder
+            band = self._bands(height, 2 ** (len(self.config.ae_params.ch_mult) - 1))
+            args = (self._ae_on_device(), self.config.ae_params, nhwc.to(self.device_ae, self.ae_dtype), generator)
+            if band is None:
+                z = ae_encode(*args)  # (1, h, w, z)
+            else:  # the band's rows in, the whole latent out
+                z = ae_encode(*args[:2], band.rows(args[2], 1), generator, band)
             z = z.permute(0, 3, 1, 2).to(self.device_flux, self.dtype).repeat(num_images, 1, 1, 1)
             _sync(z)
             self.timings["encode_seconds"] = time.perf_counter() - t_encode
@@ -471,9 +531,14 @@ class FluxPipeline:
         the flow streams (JAX pipeline.py:677-684). ``timings["cache_model_evals"]``
         then counts the evaluations run."""
         cache = CacheConfig.parse(cache)
-        # streamed offload (offload.py) once the input scales are frozen; calibration
-        # and stream_flow_offload=False move the whole tree to the card and back
-        streaming = self.offload_flow and self.config.stream_flow_offload and not self._needs_calibration
+        # streamed offload (offload.py) once the input scales are frozen and without a
+        # mesh; calibration, a mesh and stream_flow_offload=False move the whole tree
+        # (a rank's shard) to the card and back
+        streaming = (self.offload_flow and self.config.stream_flow_offload and not self._needs_calibration
+                     and self.mesh is None)
+        if cache.mode != "none" and self._pp_runner is not None:
+            raise ValueError("the step cache does not run under pipeline parallelism (pp): send the "
+                             "request without a cache")
         if cache.mode != "none" and (self._needs_calibration or streaming):
             logger.warning("step cache ignored: calibration trials pending or streamed offload active")
             cache = CacheConfig(mode="none")
@@ -519,6 +584,7 @@ class FluxPipeline:
                     self.model_params, cfg, img, img_ids, txt, txt_ids, vec,
                     timesteps, guidance, fused=silent, progress=not silent,
                     cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
+                    stack_runner=self._pp_runner,
                 )
             if rows is not None:  # every rank's rows, in order
                 img = self.mesh.all_gather(img, "dp", dim=0)
@@ -538,8 +604,9 @@ class FluxPipeline:
             self.timings.pop("cache_model_evals", None)
         self.last_latents = img
         if self.mesh is not None and not self.mesh.is_root:
-            # the first rank decodes and answers (JAX's spatial VAE bands wait:
-            # ROADMAP §1 item 12)
+            # the first rank answers; the others decode their bands, where there are any
+            if self._bands(2 * math.ceil(height / 16)) is not None:
+                self.vae_decode(img, height, width)
             return (None, seed) if return_seed else None
 
         t_decode = time.perf_counter()
@@ -555,9 +622,15 @@ class FluxPipeline:
         the device (reference flux_pipeline.py:422-448 + :373-397)."""
         x = unpack_latents(latents.float(), height, width)  # (B, C, h, w)
         x = x.permute(0, 2, 3, 1).to(self.device_ae, self.ae_dtype)  # NHWC
-        y = ae_decode(self._ae_on_device(), self.config.ae_params, x).float()
-        pixels = torch.floor(torch.clamp((torch.clamp(y, -1.0, 1.0) + 1.0) * 127.5, 0.0, 255.0))
-        return pixels.to(torch.uint8).cpu().numpy()
+        band = self._bands(x.shape[1])  # the rows in bands over the mesh, where they divide
+        if band is None:
+            y = ae_decode(self._ae_on_device(), self.config.ae_params, x).float()
+        else:
+            y = ae_decode(self._ae_on_device(), self.config.ae_params, band.rows(x, 1), band).float()
+        pixels = torch.floor(torch.clamp((torch.clamp(y, -1.0, 1.0) + 1.0) * 127.5, 0.0, 255.0)).to(torch.uint8)
+        if band is not None:
+            pixels = band.gather(pixels, 1)
+        return pixels.cpu().numpy()
 
     def into_bytes(self, pixels: np.ndarray, jpeg_quality: int = 99) -> io.BytesIO:
         return self.img_encoder.encode_array(pixels, quality=jpeg_quality)
@@ -593,6 +666,8 @@ class FluxPipeline:
         from .utils.checkpoint import relayout_flux_tree, save_prequantized
 
         model = self.model_params
+        if self._pp_runner is not None:  # every stage's blocks
+            model = gather_flux_stages(model, self.model_cfg, self.mesh)
         if self.mesh is not None and self.mesh.size("tp") > 1:
             # files always hold the flat layout (JAX pipeline.py:935-966): the shards
             # gathered, the relayout inverted; the first rank writes

@@ -113,14 +113,15 @@ def _update(img, dt, pred):
     return img + dt * pred
 
 
-def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False):
+def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False, stack_runner=None):
     """Bind the model config; returns ``step(model, img, img_ids, txt, txt_ids, vec,
-    t_curr, t_prev, guidance)`` → img, or (img, amaxes) with ``collect_amax``."""
+    t_curr, t_prev, guidance)`` → img, or (img, amaxes) with ``collect_amax``.
+    ``stack_runner``: as in ``flux_apply`` (pp)."""
 
     def step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance):
         t_vec, dt = _euler(cfg, img, t_curr, t_prev)
         out = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
-                         collect_amax=collect_amax)
+                         collect_amax=collect_amax, stack_runner=stack_runner)
         if collect_amax:
             pred, amaxes = out
             return _update(img, dt, pred), amaxes
@@ -217,6 +218,7 @@ def denoise(
     cache: Optional[CacheConfig] = None,
     stats: Optional[Dict[str, Any]] = None,
     dp_mesh=None,
+    stack_runner=None,
 ) -> torch.Tensor:
     """Run the full denoise loop over ``timesteps`` (num_steps + 1 floats).
     ``fused=False`` with ``progress`` shows the per-step tqdm bar.
@@ -224,7 +226,11 @@ def denoise(
     ``cache`` with a mode other than "none" runs the step cache, and ``stats`` (if
     given) receives ``stats["model_evals"]``, the number of model evaluations (an int).
     ``dp_mesh``: the mesh over whose dp ranks the batch rows are split (the dynamic
-    cache's drift is reduced over it)."""
+    cache's drift is reduced over it). ``stack_runner`` plugs a block-stack strategy
+    into ``flux_apply`` (``parallel/pp.py``); the step cache refuses one, as in JAX
+    (sampling.py:280-318)."""
+    if cache is not None and cache.mode != "none" and stack_runner is not None:
+        raise ValueError("the step cache requires the default scan runner (it does not run under pp)")
     pairs = list(zip(timesteps[:-1], timesteps[1:]))
     if progress and not fused:
         from tqdm import tqdm
@@ -236,7 +242,7 @@ def denoise(
         if stats is not None:
             stats["model_evals"] = n_evals
         return img
-    step = make_denoise_step(cfg)
+    step = make_denoise_step(cfg, stack_runner=stack_runner)
     for t_curr, t_prev in pairs:
         img = step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance)
     return img

@@ -5,8 +5,9 @@ Endpoints and JSON shapes are the JAX server's:
 
 - POST /generate  {prompt, width, height, num_steps, guidance, seed, strength,
                    init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used);
-                   a malformed ``cache`` answers 400, and a pipeline feature not
-                   ported yet (``NotImplementedError``) 501
+                   a malformed ``cache``, or any cache under pipeline parallelism,
+                   answers 400, and a pipeline feature not ported yet
+                   (``NotImplementedError``) 501
 - POST /lora      {action: load|unload, path, name, scale} → JSON status
 - GET  /          the browser UI (``webui.py``)
 - GET  /health (with the fused LoRAs' names, and the mesh of a meshed pipeline),
@@ -73,6 +74,12 @@ class PipelineServer:
             args["cache"] = CacheConfig.parse(args.get("cache"))
         except (TypeError, ValueError) as e:
             return (*_error(400, str(e)), {})
+        mesh = getattr(self.pipeline, "mesh", None)
+        if args["cache"].mode != "none" and mesh is not None and mesh.size("pp") > 1:
+            # validated here, before the request reaches the mesh (the JAX package
+            # raises inside the request, a 500)
+            return (*_error(400, "the step cache does not run under pipeline parallelism (pp): "
+                                 "send the request without a cache"), {})
         t0 = time.perf_counter()
         with self.lock:
             try:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -154,9 +155,12 @@ def linear_shape(cfg: FluxStatic, path: Tuple[str, ...]) -> Tuple[int, int, bool
     return out_f, in_f, (cfg.qkv_bias if name.endswith("_qkv") else True)
 
 
-def assemble_flux(cfg: FluxStatic, linear: Callable, norm: Callable) -> ParamTree:
+def assemble_flux(cfg: FluxStatic, linear: Callable, norm: Callable, keep=None) -> ParamTree:
     """The flux tree in the random init's order, its leaves from ``linear(path,
-    block)`` and ``norm(path, block)`` (block None outside the depth stacks)."""
+    block)`` and ``norm(path, block)`` (block None outside the depth stacks).
+    ``keep``: {stack: global block indices} to build (a pp stage's slice,
+    ``parallel/mesh.py:stage_blocks``); the others are never read."""
+    keep = keep or {}
 
     def block(stack, keys, norms, i):
         entries = {k: linear((stack, k), i) for k in keys}
@@ -168,9 +172,11 @@ def assemble_flux(cfg: FluxStatic, linear: Callable, norm: Callable) -> ParamTre
         skip = e == "guidance_in" and not cfg.guidance_embed
         tree[e] = None if skip else {k: linear((e, k), None) for k in ("in_layer", "out_layer")}
     tree["double_blocks"] = torch.nn.ModuleList(
-        block("double_blocks", _DOUBLE_KEYMAP, _DOUBLE_NORMMAP, i) for i in range(cfg.depth))
+        block("double_blocks", _DOUBLE_KEYMAP, _DOUBLE_NORMMAP, i)
+        for i in keep.get("double_blocks", range(cfg.depth)))
     tree["single_blocks"] = torch.nn.ModuleList(
-        block("single_blocks", _SINGLE_KEYMAP, _SINGLE_NORMMAP, i) for i in range(cfg.depth_single_blocks))
+        block("single_blocks", _SINGLE_KEYMAP, _SINGLE_NORMMAP, i)
+        for i in keep.get("single_blocks", range(cfg.depth_single_blocks)))
     tree["final_layer"] = {k: linear(("final_layer", k), None) for k in _FINAL_KEYMAP}
     return ParamTree(tree)
 
@@ -243,10 +249,12 @@ def load_flux_checkpoint(
     strict: bool = False,
     leaf_fn: Optional[LeafFn] = None,
     device=None,
+    keep=None,
 ) -> ParamTree:
     """BFL flux safetensors → the port's flux model on ``device`` (reference
     load_flow_model, util.py:240-256), reference-prequantized files included. Each
-    float Linear goes through ``leaf_fn`` as soon as it is read.
+    float Linear goes through ``leaf_fn`` as soon as it is read; ``keep`` as in
+    :func:`assemble_flux` (the other blocks' keys count as read).
 
     Tolerant like the reference (``strict=False`` + ``print_load_warning``): missing
     linears and biases zero-fill, missing qk-norm scales are identity, extra keys are
@@ -268,7 +276,12 @@ def load_flux_checkpoint(
         report.miss(key)
         return torch.ones(cfg.head_dim, dtype=dtype, device=device)  # identity qk-norm
 
-    model = assemble_flux(cfg, linear, norm)
+    model = assemble_flux(cfg, linear, norm, keep)
+    for stack, blocks in (keep or {}).items():
+        for k in sd.keys():
+            m = re.match(rf"{stack}\.(\d+)\.", k)
+            if m and int(m.group(1)) not in blocks:
+                report.consume(k)
     report.finish(sd.keys(), strict=strict)
     # files store the interleaved rope layout; the runtime is half-split
     return deinterleave_flux_tree(model, cfg)
@@ -573,11 +586,12 @@ def save_prequantized(path, model: ParamTree, extra_meta: Optional[Dict[str, str
 
 
 def load_prequantized(path_or_file, cfg: FluxStatic, device=None,
-                      leaf_fn: Optional[LeafFn] = None) -> ParamTree:
+                      leaf_fn: Optional[LeafFn] = None, keep=None) -> ParamTree:
     """Reload a ``flux-fp8-api-tpu/prequant-v1`` file, written by either package,
     into the port's model on ``device`` (default cuda:0, ``into_device``), one block
     slice at a time. ``leaf_fn(path, lin)`` transforms each Linear as it is read (a
-    mesh rank relayouts it and keeps its slice, so the whole tree is never held)."""
+    mesh rank relayouts it and keeps its slice, so the whole tree is never held);
+    ``keep`` as in :func:`assemble_flux` (a pp stage reads its blocks only)."""
     device = into_device(device)
     f = _as_stf(path_or_file)
     if f.metadata.get("format") != PREQUANT_FORMAT:
@@ -602,5 +616,5 @@ def load_prequantized(path_or_file, cfg: FluxStatic, device=None,
     def norm(path, block):
         return read(".".join(path), block)
 
-    return assemble_flux(cfg, linear, norm)
+    return assemble_flux(cfg, linear, norm, keep)
 

@@ -73,8 +73,8 @@ class ModelSpec(BaseModel):
     """Pipeline configuration, field-compatible with the JAX package's ModelSpec.
 
     ``mesh`` (e.g. ``{"dp": 1, "tp": 4}``) serves over a mesh of ranks
-    (``parallel/mesh.py``); ``FluxPipeline`` validates its axes. Pipeline parallelism
-    (a ``pp`` axis above 1) is not ported and raises there, naming its ROADMAP item.
+    (``parallel/mesh.py``); ``FluxPipeline`` validates its axes. A ``pp`` axis pipelines
+    the block stacks in ``pp_microbatches`` microbatches (``parallel/pp.py``).
     """
 
     version: ModelVersion

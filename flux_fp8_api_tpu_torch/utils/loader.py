@@ -114,7 +114,7 @@ def load_flow_model(config: ModelSpec, mesh=None):
     the file carries tuned input scales, so calibration can be skipped. Under a tp
     ``mesh`` the drawn or prequantized flow comes back relayouted and sliced leaf by
     leaf (``FluxStatic.fused_layout`` "grouped"); a BFL file loads whole and the
-    pipeline shards it."""
+    pipeline shards it. Under pp each stage builds or reads only its depth slices."""
     cfg = FluxStatic.from_params(
         config.params, compute_dtype=config.flow_dtype, fp8_fast_accum=config.fp8_fast_accum,
         use_pallas=config.use_pallas,
@@ -127,26 +127,32 @@ def load_flow_model(config: ModelSpec, mesh=None):
     stream_cfg, stream_fn = cfg, leaf_fn  # the transforms applied as leaves are built
     if mesh is not None and mesh.size("tp") > 1:
         stream_cfg, stream_fn = _mesh_leaf_fn(cfg, mesh, leaf_fn)
+    keep = None  # a pp stage builds (and reads) its depth slices only
+    if mesh is not None and mesh.size("pp") > 1:
+        from ..parallel.mesh import stage_blocks
+
+        keep = {"double_blocks": stage_blocks(cfg.depth, mesh),
+                "single_blocks": stage_blocks(cfg.depth_single_blocks, mesh)}
     if not config.ckpt_path:
-        model = init_flux_params(cfg, _generator(device, FLOW_SEED), torch.bfloat16, stream_fn)
+        model = init_flux_params(cfg, _generator(device, FLOW_SEED), torch.bfloat16, stream_fn, keep)
         return model, stream_cfg, False
 
     f = SafetensorsFile(config.ckpt_path)
     if f.metadata.get("format") == PREQUANT_FORMAT:
         # the file's leaves are quantized already: only the mesh's relayout and slice
         prequant_fn = _mesh_leaf_fn(cfg, mesh, None)[1] if stream_cfg is not cfg else None
-        model, prequant = load_prequantized(f, cfg, device, leaf_fn=prequant_fn), True
+        model, prequant = load_prequantized(f, cfg, device, leaf_fn=prequant_fn, keep=keep), True
         cfg = stream_cfg
     elif is_prequantized_reference_file(f):
         # fp8 leaves as the file has them; without tuned input scales the reference
         # re-runs the amax trials (float8_quantize.py:139-185), so calibration runs
-        model = load_flux_checkpoint(f, cfg, device=device)
+        model = load_flux_checkpoint(f, cfg, device=device, keep=keep)
         prequant = reference_prequant_has_input_scales(f)
     else:
         if config.prequantized_flow and kind is not None:
             logger.warning("prequantized_flow=true but %s is a plain float checkpoint: "
                            "quantizing at load instead", config.ckpt_path)
-        model, prequant = load_flux_checkpoint(f, cfg, leaf_fn=leaf_fn, device=device), False
+        model, prequant = load_flux_checkpoint(f, cfg, leaf_fn=leaf_fn, device=device, keep=keep), False
     # the attention kernel's max-free softmax needs this bound under MAX_SAFE_LOGIT
     # (FluxPipeline refuses a model above it): a checkpoint is the first model whose
     # qk-norm scales are not known in advance

@@ -451,3 +451,28 @@ def test_adapter_step_on_the_card_matches_the_cpu(dev):
     loss_cpu, g_cpu = run("cpu", torch.float32)
     assert abs(loss_card - loss_cpu) <= 2e-2 * abs(loss_cpu)
     assert float((g_card - g_cpu).norm() / g_cpu.norm()) <= 5e-2
+
+
+def test_row_parallel_fp32_partial_is_differentiable_on_the_card(dev):
+    """The row-parallel partial ``_f32_product`` (cuBLAS's bf16 GEMM with an fp32
+    output, which has no derivative of its own) under autograd: its value and its
+    gradients equal those of the same product through ``F.linear`` on the fp32-cast
+    operands, the gradients taken in bf16 as a bf16 ``F.linear``'s backward takes them
+    (the products of bf16 values are exact in fp32; 2^-8 relative covers the one
+    rounding of each gradient to bf16)."""
+    from flux_fp8_api_tpu_torch.ops.quant import _f32_product
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((3, 40, 256), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    w = torch.randn((96, 256), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    g = torch.randn((3, 40, 96), generator=gen, device=dev).to(torch.bfloat16).float()
+    out = _f32_product(x, w)
+    assert out.dtype == torch.float32
+    dx, dw = torch.autograd.grad(out, (x, w), g)
+    xr, wr = x.detach().float().requires_grad_(), w.detach().float().requires_grad_()
+    ref = torch.nn.functional.linear(xr, wr)
+    rx, rw = torch.autograd.grad(ref, (xr, wr), g)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+    for got, want in ((dx, rx), (dw, rw)):
+        assert got.dtype == torch.bfloat16
+        assert float((got.float() - want).norm() / want.norm()) < 2**-8

@@ -150,8 +150,8 @@ def test_calibration_protocol_matches_jax(models):
 
 
 def test_pipeline_refuses_what_is_not_ported(models):
-    """A pp mesh raises, naming its ROADMAP item (dp/tp/sp meshes serve:
-    tests/test_torch_mesh_serving.py). Offload, ported since, constructs and serves
+    """What is left to refuse: a pp mesh composed with tp, as JAX refuses it (pp
+    meshes serve: tests/test_torch_pp.py). Offload, ported since, constructs and serves
     with each flag (tests/test_torch_offload.py holds it against JAX), and so does the
     step cache (tests/test_torch_step_cache.py)."""
     cfg, params, ae = models
@@ -162,8 +162,8 @@ def test_pipeline_refuses_what_is_not_ported(models):
                             config=tiny_spec(flow_dtype="float32", **{field: True}))
         pipe._encode_prompts = lambda prompts: {p: (t(x["vec"]), t(x["txt"])) for p in prompts}
         assert pipe.generate("a cat", 64, 64, 2).getvalue()[:2] == b"\xff\xd8"
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 12: pipeline parallelism"):
-        FluxPipeline("flux-dev", config=tiny_spec(mesh={"pp": 2}))
+    with pytest.raises(ValueError, match="pp does not compose"):
+        FluxPipeline("flux-dev", config=tiny_spec(mesh={"tp": 2, "pp": 2}))
     pipe = FluxPipeline("flux-dev", model=to_torch(params), model_cfg=pcfg, ae=to_torch(ae),
                         config=tiny_spec(flow_dtype="float32"))
     x = shared_inputs()
