@@ -27,10 +27,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 6. model: a small flux model (two heads of 128) on the card against the same model
    on the CPU, where every op takes its plain version;
 7. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
-   weights) calibrated and warmed by ``compile()``, serving three POST /generate
-   requests through ``PipelineServer``, every launch count set to 0 just before and
-   read just after: K1 and the rope pass each 57 launches per model evaluation, and
-   no other build;
+   weights) calibrated and warmed by ``compile()`` (its warm-up autotunes the bucket's
+   attention tile, whose measuring launches are counted, and runs one interactive
+   step), serving three POST /generate requests through ``PipelineServer``, every
+   launch count set to 0 just before and read just after: K1 and the rope pass each 57
+   launches per model evaluation, and no other build;
 8. int linears: ``int8``, ``int4`` and the weight-only ``wo_int8``/``wo_int4``/
    ``wo_int2`` Linears at the qkv shape and ``int8`` at linear2's, at M = 1, 17 and
    4608 rows: the int32 product (``torch._int_mm``) equal to an exact fp64 product,
@@ -152,9 +153,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
     rank's (int8 bit for bit, fp8 within ``MESH_FP8_REL_TOL``), 57 K1 and rope-pass
     launches per evaluation on every rank at its local shape, each rank's block
     weights at most 1/tp of one rank's, the collectives of the request equal to the
-    pinned budget; (c) on the tp 4 world, rank 0's server: POST /generate, POST /lora
-    load, POST /generate, /health naming the mesh. Ranks sharing one card time nothing
-    of multi-GPU.
+    pinned budget; (c) on the tp 4 world, rank 0's server: POST /generate (one step),
+    POST /lora load, POST /generate, /health naming the mesh. Ranks sharing one card time
+    nothing of multi-GPU.
 
 18. pp, training and bands on the mesh (phase 17's files and references, or its own):
     (c) the rope pass's backward build at a tp rank's 12 and 6 heads, L = 1536 and
@@ -178,13 +179,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
     encode in bands over tp 2 (within ``BAND_REL_TOL``), and on tp 2 a 512² request with
     the three offload flags bit for bit the resident pipeline's.
 
+19. tiles and the autotuner (run after phase 13, while phase 10(a)'s pipeline and its
+    prequantized file still exist): (a) every build of K1's source (serving, stats,
+    ablate, bare) at every compiled tile (``attention_kernel.TILES``) against its plain
+    version at L = 4608, 3392 and 1536 with 24 heads, at tp 4's local shape (6 heads,
+    3392²) and at sp 2's rectangle (2304 × 4608), from inputs drawn on the CPU: every
+    tile's outputs bit for bit (128, 128)'s, and (128, 128)'s equal to the digests of
+    the single-tile kernel it was templated from (``SINGLE_TILE_OUTPUTS``); ms per tile
+    and build beside the bound and cuDNN; (128, 128) timed ``NOISE_REPEATS`` times per
+    shape, the spread beside ``ops.attention.NOISE_FLOOR_MS``; (b) ``autotune_blocks``
+    at ``AUTOTUNE_LENGTHS`` and ``autotune_blocks_local`` at tp 4's shape, picks and
+    margins printed; phase 10(a)'s pipeline warmed at 1024² with
+    ``compilation_cache_dir`` in a temporary directory, which must measure and write
+    ``attn_blocks.json``; then, from empty tables, a second pipeline from phase 10's
+    prequantized file with the same directory, which must read its large tensors through
+    the native reader, load the file and measure nothing; (c) one 1024² request of
+    ``TILE_REQUEST_STEPS`` steps through the pick, 57 K1 launches per evaluation all at
+    the picked tile, then the same at another tile, bit for bit the same latents; (d)
+    the prequantized file read through the native reader and through the mmap: equal
+    bytes, the seconds of each.
+
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
 time and error at L = 4608 from phase 3, 4 or 16; K1 and the rope pass also at phase
-17's local shapes, the rope pass's backward at phase 18's, under ``mesh_shapes``),
-and ``{"ok": true, "device": {...}}``. Phases 7-13 free their pipelines before the
-next (phase 7's lives until phase 10 has saved it, and phase 10(a)'s reload until
-phase 13 has served it).
+17's local shapes, the rope pass's backward at phase 18's, under ``mesh_shapes``; each
+build of K1's source by tile under ``tiles``: its launches on that path and phase
+19(a)'s numbers at each shape), and ``{"ok": true, "device": {...}}``. Phases 7-13
+free their pipelines before the next (phase 7's lives until phase 10 has saved it, and
+phase 10(a)'s reload until phase 19 has used it).
 """
 
 from __future__ import annotations
@@ -192,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -455,7 +478,7 @@ def phase_guard_ablation(card: str):
     from flux_fp8_api_tpu_torch import ablate_attention
     from flux_fp8_api_tpu_torch.ablate_attention import bare_two_dot, bare_two_dot_ref
     from flux_fp8_api_tpu_torch.ops.attention_kernel import (
-        LAUNCHES, qknorm_attention, qknorm_attention_checked, qknorm_attention_ref, rope_rotate,
+        LAUNCHES, TILE_LAUNCHES, qknorm_attention, qknorm_attention_checked, qknorm_attention_ref, rope_rotate,
     )
 
     dev = torch.device("cuda")
@@ -534,6 +557,8 @@ def phase_guard_ablation(card: str):
     # the path: the guard rail a user calls after loading weights, and the ablation tool
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    for key in TILE_LAUNCHES:
+        TILE_LAUNCHES[key] = 0
     l = 4608
     q, k = normed(heads, l, d), normed(heads, l, d)
     v = torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -552,6 +577,7 @@ def phase_guard_ablation(card: str):
             fail("guard", f"qknorm_attention_checked passed {name} inputs")
     rows = ablate_attention.main(["4608", "3392", "2816"])
     launches = dict(LAUNCHES)
+    tile_launches = dict(TILE_LAUNCHES)
     for build in ("qknorm_attention_stats", "qknorm_attention_ablate_exp", "bare_two_dot"):
         if launches[build] == 0:
             fail("guard", f"{build} was not launched on the guard-rail and ablation path")
@@ -564,7 +590,7 @@ def phase_guard_ablation(card: str):
               f"{r['bare_two_dot_ms'] / r['ms']['matmul_only']:.3f} x K1's matmul_only build "
               f"({r['ms']['matmul_only']} ms)", flush=True)
     print(f"[{card}] guard-rail and ablation path launches: {launches}", flush=True)
-    return results, launches
+    return results, launches, tile_launches
 
 
 def phase_fp8_linear(card: str):
@@ -652,7 +678,8 @@ def phase_server(card: str):
     import torch
     from PIL import Image
 
-    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.ops.attention import MEASUREMENTS
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES, TILE_LAUNCHES
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
     from flux_fp8_api_tpu_torch.server import PipelineServer
 
@@ -665,13 +692,17 @@ def phase_server(card: str):
     ]
     for key in LAUNCHES:  # the main path's run starts here
         LAUNCHES[key] = 0
+    for key in TILE_LAUNCHES:
+        TILE_LAUNCHES[key] = 0
+    measured = MEASUREMENTS["attention_calls"]
     t0 = time.perf_counter()
     pipe = FluxPipeline.load_pipeline_from_config_path(str(CONFIG))  # compile() runs here
     load_s = time.perf_counter() - t0
     cfg = pipe.model_cfg
     blocks = cfg.depth + cfg.depth_single_blocks
-    warm_evals = pipe.config.num_scale_trials + (pipe.config.warmup_steps or 24)
-    check_path_launches("server", "compile()", dict(LAUNCHES), blocks * warm_evals)
+    warm_evals = compile_evaluations(pipe.config)
+    measured = MEASUREMENTS["attention_calls"] - measured  # the warm-up's autotuning (phase 19)
+    check_path_launches("server", "compile()", dict(LAUNCHES), blocks * warm_evals + measured)
     print(f"[{card}] pipeline from {CONFIG.name}: hidden {cfg.hidden_size}, {cfg.depth}+"
           f"{cfg.depth_single_blocks} blocks, fp8; load + calibrate + warm {load_s:.1f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
@@ -708,8 +739,20 @@ def phase_server(card: str):
     finally:
         server.shutdown()
     launches = dict(LAUNCHES)  # read just after the main path's run
-    check_path_launches("server", "the run", launches, blocks * evals)
-    return launches, pipe, last
+    tile_launches = dict(TILE_LAUNCHES)
+    check_path_launches("server", "the run", launches, blocks * evals + measured)
+    print(f"[{card}] the run's K1 launches by tile: "
+          f"{ {t[1]: n for t, n in tile_launches.items() if n and t[0] == 'qknorm_attention'} }; "
+          f"{measured} attention calls of them measured tiles in compile()", flush=True)
+    return launches, tile_launches, pipe, last
+
+
+def compile_evaluations(spec) -> int:
+    """Model evaluations of ``compile()`` on an uncalibrated pipeline: the calibration
+    trials, then ``warmup_steps`` per bucket and, with ``precompile_interactive``, one
+    interactive step per bucket."""
+    buckets = len(spec.warmup_resolutions or [[720, 1024]])
+    return spec.num_scale_trials + buckets * ((spec.warmup_steps or 24) + int(spec.precompile_interactive))
 
 
 def check_path_launches(phase: str, what: str, launched: dict, expected: int) -> None:
@@ -819,6 +862,7 @@ def phase_tiers(card: str):
     """config-dev-int8 and config-dev-gigaquant at full width and depth, random weights."""
     import torch
 
+    from flux_fp8_api_tpu_torch.ops.attention import MEASUREMENTS
     from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
 
@@ -829,7 +873,9 @@ def phase_tiers(card: str):
         resident = torch.cuda.memory_allocated()  # phase 7's pipeline, kept for phase 10
         for key in LAUNCHES:
             LAUNCHES[key] = 0
+        measured = MEASUREMENTS["attention_calls"]
         pipe = FluxPipeline.load_pipeline_from_config_path(str(ROOT / "configs" / name))  # compile() runs here
+        measured = MEASUREMENTS["attention_calls"] - measured
         setup_s = time.perf_counter() - t_phase
         model, cfg = pipe.model_params, pipe.model_cfg
         kinds = {
@@ -843,8 +889,8 @@ def phase_tiers(card: str):
         if kinds["linear1"] != flow_kind or kinds["t5"] != encoder_kind:
             fail("tiers", f"{name}: leaf kinds {kinds}")
         blocks = cfg.depth + cfg.depth_single_blocks
-        warm = pipe.config.num_scale_trials + (pipe.config.warmup_steps or 24)
-        check_path_launches("tiers", f"{name}: compile()", dict(LAUNCHES), blocks * warm)
+        check_path_launches("tiers", f"{name}: compile()", dict(LAUNCHES),
+                            blocks * compile_evaluations(pipe.config) + measured)
         body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
                 "num_steps": 28, "seed": 21}
         dt, launched = serve_one(card, pipe, body, (1024, 1024))
@@ -927,7 +973,7 @@ def phase_checkpoints(card: str, held: dict):
               f"in {dt:.3f} s, latents bit-identical to phase 7's; {time.perf_counter() - t_phase:.1f} s", flush=True)
         held["pipe"] = pipe  # served again by phase 12
         del pipe
-        path.unlink()
+        held["prequant"] = path  # read again by phase 19(b) and (d), which removes it
 
         # (b) BFL float file, full width, 2 double + 2 single blocks
         t_phase = time.perf_counter()
@@ -1004,7 +1050,8 @@ def phase_checkpoints(card: str, held: dict):
         del src
         release()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if "prequant" not in held:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_high_bound(card: str):
@@ -1488,6 +1535,279 @@ def dynamic_sync_cost(card: str, model, cfg) -> None:
           f"indicator and drift on the device {indicator_ms:.4f} ms", flush=True)
 
 
+# ------------------------------------------------------------------- phase 19: tiles
+
+# phase 19(a)'s shapes, (name, heads, Lq, Lkv): flux-dev's three serving lengths at 24
+# heads, a tp 4 rank's local shape at 720x1024 and an sp 2 rank's rectangle at 1024²
+TILE_SHAPES = (("L=4608", 24, 4608, 4608), ("L=3392", 24, 3392, 3392), ("L=1536", 24, 1536, 1536),
+               ("tp4 L=3392", 6, 3392, 3392), ("sp2 L=4608", 24, 2304, 4608))
+# (128, 128)'s outputs on TILE_SHAPES' inputs (tile_inputs, a CPU generator seeded with
+# the shape's index) as the single-tile kernel of commit 5b8258b gave them, before the
+# tile became a compile-time parameter (NVIDIA H100 80GB HBM3, 700 W): the first 16 hex
+# digits of the sha256 of the serving build's bf16 output (the stats build's output is
+# the same), the stats build's max |logit|, and the digests of the ablate and bare builds
+SINGLE_TILE_OUTPUTS = {
+    "L=4608": ("715586d8e8d7cbd4", 5.758325099945068, "f8fd76f0707d85b7", "6bea9d11bb1f6fc7"),
+    "L=3392": ("977972705a0c95e5", 5.80278205871582, "4650790473d4b644", "671973f63389b256"),
+    "L=1536": ("57a254ccf74e56c0", 5.467738628387451, "f8918a62884a53b0", "eee25faee277b44d"),
+    "tp4 L=3392": ("a50a7073972ddbba", 5.397947311401367, "fe6b316608b331ad", "7b43ccd135cac93f"),
+    "sp2 L=4608": ("706b65879efd3fdf", 6.059569835662842, "a0c658fd90ae1af6", "49649c52415a2d10"),
+}
+# phase 19(b)'s joint lengths: flux-dev's 1024², 720x1024, 768² and 512² and schnell's
+# 1024² and 768² (512 and 256 text tokens), and the UI preset 832x1216
+AUTOTUNE_LENGTHS = (4608, 3392, 2816, 4352, 2560, 1536, 4464)
+# timings of one tile repeated in one process, whose spread NOISE_FLOOR_MS must clear
+NOISE_REPEATS = 10
+# phase 19(c): the request's steps (57 K1 launches each at the picked tile)
+TILE_REQUEST_STEPS = 8
+
+
+def tile_inputs(heads: int, lq: int, lkv: int, seed: int):
+    """qk-normed q (heads, lq, 128) and k (heads, lkv, 128) and a plain v, bf16, drawn on
+    the CPU (a generator whose stream does not depend on the card) and moved to it."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normed(*shape):
+        x = torch.randn(shape, generator=gen)
+        return (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16).to("cuda")
+
+    q, k = normed(heads, lq, 128), normed(heads, lkv, 128)
+    return q, k, torch.randn(heads, lkv, 128, generator=gen).to(torch.bfloat16).to("cuda")
+
+
+def output_digest(t) -> str:
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def tile_kernels(card: str) -> dict:
+    """(a) every build at every tile against its plain version at TILE_SHAPES, each
+    tile's outputs against (128, 128)'s bit for bit, (128, 128)'s against the
+    single-tile kernel's digests; each timed beside its bound and, for the serving
+    build, the library call; the spread of repeated timings of (128, 128).
+    → {build: {tile: {shape: row}}}, {shape: spread ms}."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ablate_attention import bare_two_dot, bare_two_dot_ref
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import TILES, qknorm_attention, qknorm_attention_ref
+
+    scale = 128**-0.5
+    rows: dict = {}
+    spreads = {}
+    for index, (shape, heads, lq, lkv) in enumerate(TILE_SHAPES):
+        q, k, v = tile_inputs(heads, lq, lkv, index)
+        b_ms, b_by = bound(4 * heads * lq * lkv * 128, 2 * heads * 128 * (2 * lq + 2 * lkv))
+        calls = {
+            "qknorm_attention": lambda b: qknorm_attention(q, k, v, scale, blocks=b),
+            "qknorm_attention_stats": lambda b: qknorm_attention(q, k, v, scale, return_max_logit=True, blocks=b),
+            "qknorm_attention_ablate_exp": lambda b: qknorm_attention(q, k, v, scale, ablate_exp=True, blocks=b),
+            "bare_two_dot": lambda b: bare_two_dot(q, k, v, b),
+        }
+        plain_calls = {
+            "qknorm_attention": lambda: qknorm_attention_ref(q, k, v, scale),
+            "qknorm_attention_stats": lambda: qknorm_attention_ref(q, k, v, scale, return_max_logit=True),
+            "qknorm_attention_ablate_exp": lambda: qknorm_attention_ref(q, k, v, scale, ablate_exp=True),
+            "bare_two_dot": lambda: bare_two_dot_ref(q, k, v),
+        }
+        plain = {build: fn() for build, fn in plain_calls.items()}
+        plain_ms = {build: cuda_time_ms(fn, 3) for build, fn in plain_calls.items()}
+        ref = plain["qknorm_attention"]
+        library_ms = library_attention(card, q, k, v, scale, ref)
+        first = None
+        for tile in TILES:
+            blocks = tile[:2]
+            out = {build: fn(blocks) for build, fn in calls.items()}
+            torch.cuda.synchronize()
+            o, r = out["qknorm_attention"].float(), ref.float()
+            used = (o - r).abs() / (K1_ATOL + K1_RTOL * r.abs())
+            if not bool(torch.isfinite(o).all()) or bool((used > 1).any()):
+                fail("tiles", f"{shape} {blocks}: K1 outside tolerance (worst {float(used.max()):.3f})")
+            so, m = out["qknorm_attention_stats"]
+            ref_m = plain["qknorm_attention_stats"][1]
+            if not torch.equal(so, out["qknorm_attention"]) or not abs(float(m) - float(ref_m)) <= K1S_MAX_RTOL * float(ref_m):
+                fail("tiles", f"{shape} {blocks}: the stats build (max {float(m)} vs plain {float(ref_m)})")
+            a, ra = out["qknorm_attention_ablate_exp"].double(), plain["qknorm_attention_ablate_exp"].double()
+            a_rel = float((a - ra).norm() / ra.norm())
+            bo, rb = out["bare_two_dot"].float(), plain["bare_two_dot"].float()
+            b_rel = float((bo - rb).abs().max() / rb.abs().max())
+            if not (a_rel <= K1A_REL_TOL and b_rel <= K2_REL_TOL):
+                fail("tiles", f"{shape} {blocks}: ablate {a_rel:.3e} (tol {K1A_REL_TOL}), bare {b_rel:.3e} (tol {K2_REL_TOL})")
+            got = (out["qknorm_attention"], so, m, out["qknorm_attention_ablate_exp"], out["bare_two_dot"])
+            if first is None:  # (128, 128), TILES' first: against the single-tile kernel
+                first = got
+                want = SINGLE_TILE_OUTPUTS[shape]
+                have = (output_digest(got[0]), float(got[2]), output_digest(got[3]), output_digest(got[4]))
+                if have != want:
+                    fail("tiles", f"{shape} (128, 128): outputs {have}, the single-tile kernel's {want}")
+            elif not (all(torch.equal(x, y) for x, y in zip(got[:2] + got[3:], first[:2] + first[3:]))
+                      and float(got[2]) == float(first[2])):
+                fail("tiles", f"{shape} {blocks}: outputs differ from (128, 128)'s")
+            errs = {"qknorm_attention": float((o - r).abs().max()),
+                    "qknorm_attention_stats": float((so.float() - r).abs().max()),
+                    "qknorm_attention_ablate_exp": float((a - ra).abs().max()),
+                    "bare_two_dot": float((bo - rb).abs().max())}
+            ms = {build: cuda_time_ms(lambda: fn(blocks), 20) for build, fn in calls.items()}
+            for build in calls:
+                rows.setdefault(build, {}).setdefault(blocks, {})[shape] = {
+                    "heads": heads, "lq": lq, "lkv": lkv, "ms": ms[build], "plain_ms": plain_ms[build],
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[build],
+                    "library_ms": library_ms if build == "qknorm_attention" else None}
+            lib = "none ran" if library_ms is None else f"{library_ms:.4f} ms"
+            same = "the single-tile kernel's digests" if got is first else "(128, 128)'s outputs"
+            print(f"[{card}] (a) {shape}, {heads} heads, {lq}x{lkv}, tile {blocks} ({'x'.join(map(str, tile))}): "
+                  f"K1 {ms['qknorm_attention']:.4f} ms ({100 * b_ms / ms['qknorm_attention']:.1f}% of its "
+                  f"{b_ms:.4f} ms bound, {b_by}; cuDNN {lib}), stats {ms['qknorm_attention_stats']:.4f}, ablate "
+                  f"{ms['qknorm_attention_ablate_exp']:.4f}, bare {ms['bare_two_dot']:.4f} ms; K1 max_abs_err "
+                  f"{errs['qknorm_attention']:.3e} (worst element {float(used.max()):.3f} of its tolerance), "
+                  f"ablate {a_rel:.2e}, bare {b_rel:.2e}; every build bit for bit {same}", flush=True)
+        runs = [cuda_time_ms(lambda: qknorm_attention(q, k, v, scale), 20) for _ in range(NOISE_REPEATS)]
+        spreads[shape] = max(runs) - min(runs)
+        print(f"[{card}] (a) {shape}: (128, 128) timed {NOISE_REPEATS} times, {min(runs):.4f}-{max(runs):.4f} ms, "
+              f"spread {spreads[shape]:.4f} ms", flush=True)
+    return rows, spreads
+
+
+def _clear_tuned_tables() -> None:
+    from flux_fp8_api_tpu_torch.ops import attention as attn
+
+    for table in (attn._TUNED_BLOCKS, attn._TUNED_BLOCKS_RECT, attn._TUNED_MARGINS, attn._TUNED_MARGINS_RECT):
+        table.clear()
+
+
+def phase_tiles(card: str, pipe, held: dict) -> dict:
+    """Phase 19: (a) :func:`tile_kernels`; (b) the autotuner at AUTOTUNE_LENGTHS and at
+    tp 4's local shape; ``pipe`` warmed with ``compilation_cache_dir`` writing
+    attn_blocks.json; a second pipeline from phase 10's prequantized file, read through
+    the native reader, loading it and measuring nothing; (c) one 1024² request through
+    the pick, 57 K1 launches per evaluation at the picked tile, and the same request at
+    another tile; (d) the file read through the native reader and the mmap."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops import attention as attn
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import BLOCKS, LAUNCHES, TILE_LAUNCHES, TILES
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+    from flux_fp8_api_tpu_torch.utils import safetensors_io
+
+    t_phase = time.perf_counter()
+    rows, spreads = tile_kernels(card)
+    print(f"[{card}] (a) the largest spread {max(spreads.values()):.4f} ms against NOISE_FLOOR_MS "
+          f"{attn.NOISE_FLOOR_MS} ms; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (b) the autotuner, from empty tables
+    t = time.perf_counter()
+    _clear_tuned_tables()
+    picks = {}
+    for l in AUTOTUNE_LENGTHS:
+        timings = attn.autotune_blocks(l)
+        picks[l] = (attn._TUNED_BLOCKS[l], attn._TUNED_MARGINS[l])
+        print(f"[{card}] (b) autotune L={l}: " + ", ".join(f"{c} {s * 1e3:.4f}" for c, s in timings.items())
+              + f" ms (the two fastest best-of-2) → {picks[l][0]}, margin {picks[l][1]:.4f} ms", flush=True)
+    timings = attn.autotune_blocks_local(3392, 3392, 6)
+    local = (attn._TUNED_BLOCKS_RECT[(3392, 3392)], attn._TUNED_MARGINS_RECT[(3392, 3392)])
+    print(f"[{card}] (b) autotune_blocks_local tp 4 (6 heads, 3392x3392): "
+          + ", ".join(f"{c} {s * 1e3:.4f}" for c, s in timings.items())
+          + f" ms → {local[0]}, margin {local[1]:.4f} ms; {time.perf_counter() - t:.1f} s", flush=True)
+
+    cache = Path(tempfile.mkdtemp(prefix="chip_smoke_tiles_"))
+    try:
+        # a warm-up with compilation_cache_dir measures 1024²'s tiles and writes them
+        _clear_tuned_tables()
+        pipe.config.compilation_cache_dir = str(cache)
+        before = dict(attn.MEASUREMENTS)
+        t = time.perf_counter()
+        pipe.warmup([(1024, 1024)], num_steps=2, precompile_interactive=False)
+        measured = attn.MEASUREMENTS["benchmark_blocks"] - before["benchmark_blocks"]
+        blocks_file = cache / "attn_blocks.json"
+        saved = json.loads(blocks_file.read_text()) if blocks_file.exists() else {}
+        if not measured or "4608" not in saved:
+            fail("tiles", f"the warm-up measured {measured} times and wrote {saved}")
+        print(f"[{card}] (b) warm-up of phase 10(a)'s pipeline at 1024² with compilation_cache_dir: "
+              f"{measured} measurements, {blocks_file.name} = {saved}; {time.perf_counter() - t:.1f} s", flush=True)
+        pick = attn._TUNED_BLOCKS[4608]
+
+        # a second pipeline, as after a restart: the file read through the native reader,
+        # the tiles loaded, nothing measured
+        _clear_tuned_tables()
+        spec = json.loads((ROOT / "configs" / "config-dev-prequant.json").read_text())
+        spec.update(ckpt_path=str(held["prequant"]), compilation_cache_dir=str(cache),
+                    warmup_resolutions=[[1024, 1024]], warmup_steps=2)
+        cfg_path = cache / "config-dev-prequant.json"
+        cfg_path.write_text(json.dumps(spec))
+        before, reads = dict(attn.MEASUREMENTS), dict(safetensors_io.READS)
+        t = time.perf_counter()
+        second = FluxPipeline.load_pipeline_from_config_path(str(cfg_path))  # compile(): warm-up only
+        load_s = time.perf_counter() - t
+        measured = attn.MEASUREMENTS["benchmark_blocks"] - before["benchmark_blocks"]
+        native = safetensors_io.READS["native"] - reads["native"]
+        if measured or attn._TUNED_BLOCKS.get(4608) != pick:
+            fail("tiles", f"the second pipeline measured {measured} times; L=4608 runs "
+                          f"{attn._TUNED_BLOCKS.get(4608)}, the file says {pick}")
+        if not native or safetensors_io.READS["mmap"] != reads["mmap"]:
+            fail("tiles", f"the prequantized file: {native} native reads, "
+                          f"{safetensors_io.READS['mmap'] - reads['mmap']} large reads through the mmap")
+        print(f"[{card}] (b) a second pipeline from the prequantized file: {native} tensors of 64 MiB and more "
+              f"read through the native reader; {blocks_file.name} loaded, 0 measurements, L=4608 at {pick}; "
+              f"load + warm-up {load_s:.1f} s", flush=True)
+
+        # (c) one 1024² request through the pick, then the same at another tile
+        body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
+                "num_steps": TILE_REQUEST_STEPS, "seed": 31}
+        other = BLOCKS if tuple(pick) != tuple(BLOCKS) else tuple(TILES[-1][:2])
+        blocks_count = second.model_cfg.depth + second.model_cfg.depth_single_blocks
+        latents = {}
+        for blocks in (pick, other):
+            attn.register_tuned_blocks(4608, blocks)  # no margin: it always takes the entry
+            for key in TILE_LAUNCHES:
+                TILE_LAUNCHES[key] = 0
+            dt, launched = serve_one(card, second, body, (1024, 1024))
+            check_path_launches("tiles", f"(c) at {blocks}", launched, blocks_count * TILE_REQUEST_STEPS)
+            by_tile = {key[1]: n for key, n in TILE_LAUNCHES.items() if n and key[0] == "qknorm_attention"}
+            if by_tile != {tuple(blocks): blocks_count * TILE_REQUEST_STEPS}:
+                fail("tiles", f"(c) K1 launches by tile {by_tile}, expected all at {blocks}")
+            latents[tuple(blocks)] = second.last_latents.clone()
+            print(f"[{card}] (c) POST /generate 1024x1024 {TILE_REQUEST_STEPS} steps at tile {tuple(blocks)}"
+                  f"{' (the pick)' if blocks is pick else ''}: {dt:.3f} s, {by_tile} K1 launches "
+                  f"({blocks_count} per evaluation)", flush=True)
+        attn.register_tuned_blocks(4608, pick)
+        a, b = latents[tuple(pick)], latents[tuple(other)]
+        if not (bool(torch.isfinite(a.float()).all()) and torch.equal(a, b)):
+            fail("tiles", f"(c) the request's latents at {tuple(pick)} and {other} differ "
+                          f"(max {float((a.float() - b.float()).abs().max())}); every tile is bit for bit (a)")
+        print(f"[{card}] (c) the latents at {tuple(pick)} and {other} are bit for bit equal, as (a) holds", flush=True)
+        del second, latents, a, b
+        release()
+
+        # (d) the file through the native reader and through the mmap
+        path = held["prequant"]
+        native_f, mmap_f = safetensors_io.SafetensorsFile(path), safetensors_io.SafetensorsFile(path, use_native=False)
+        native_s = mmap_s = 0.0
+        nbytes = big = 0
+        for name in native_f.keys():
+            t = time.perf_counter()
+            x = native_f.get(name)
+            native_s += time.perf_counter() - t
+            t = time.perf_counter()
+            y = mmap_f.get(name).clone()  # the map's pages read
+            mmap_s += time.perf_counter() - t
+            n = x.numel() * x.element_size()
+            nbytes += n
+            big += n >= safetensors_io._NATIVE_READ_THRESHOLD
+            if not torch.equal(x.view(-1).view(torch.uint8), y.view(-1).view(torch.uint8)):
+                fail("tiles", f"(d) {name}: the native reader's bytes differ from the mmap's")
+        print(f"[{card}] (d) {path.name}: {nbytes} bytes in {len(native_f.keys())} tensors ({big} of 64 MiB and "
+              f"more through the native reader), bytes equal to the mmap's; native reader {native_s:.3f} s "
+              f"({nbytes / native_s / 1e9:.2f} GB/s), mmap {mmap_s:.3f} s ({nbytes / mmap_s / 1e9:.2f} GB/s)",
+              flush=True)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+        shutil.rmtree(held.pop("prequant").parent, ignore_errors=True)
+    print(f"[{card}] phase 19 (tiles and the autotuner) {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"rows": rows, "picks": picks, "local": local, "spreads": spreads}
+
+
 def phase_fidelity(card: str):
     """The fidelity gate at full size, from a seed; fails below FIDELITY_GATE."""
     import math
@@ -1544,6 +1864,7 @@ def phase_offload(card: str):
     import torch
 
     from flux_fp8_api_tpu_torch import offload as offload_mod
+    from flux_fp8_api_tpu_torch.ops.attention import MEASUREMENTS
     from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
     from flux_fp8_api_tpu_torch.ops.schedule import get_schedule
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
@@ -1597,11 +1918,12 @@ def phase_offload(card: str):
         fail("offload", f"after load: host-resident {[k for k, v in trees.items() if host_resident(v)]}, "
                         f"T5 streamed {pipe.t5.stream}")
     spec.compile_extras = spec.compile_blocks = True
+    measured = MEASUREMENTS["attention_calls"]
     t = time.perf_counter()
     pipe.compile()
     compile_s = time.perf_counter() - t
-    warm = spec.num_scale_trials + (spec.warmup_steps or 24)
-    check_path_launches("offload", "compile()", dict(LAUNCHES), blocks * warm)
+    measured = MEASUREMENTS["attention_calls"] - measured  # tiles measured in the warm-up, if any
+    check_path_launches("offload", "compile()", dict(LAUNCHES), blocks * compile_evaluations(spec) + measured)
     host_stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
     print(f"[{card}] (offload) {OFFLOAD_CONFIG.name}: flow {flow_bytes / 1e9:.3f} GB on the host; set-up: draw "
           f"(text encoders to pinned memory inside) {draw_s:.3f} s, flow and VAE to pinned host memory "
@@ -2190,7 +2512,9 @@ def phase_training(card: str):
 MESH_STEPS = 2
 MESH_SEED = 23
 MESH_PROMPT = "a photo of a red house on a hill"
-MESH_FP8_SEEDS = (24, 25)  # noise seeds read besides MESH_SEED in the fp8 tp 2 x sp 2 world
+# noise seeds read besides MESH_SEED in the fp8 tp 2 x sp 2 world: one (25 was read too
+# until the tile phase needed the time; it read as 23 and 24 did)
+MESH_FP8_SEEDS = (24,)
 TP4_CONFIG = ROOT / "configs" / "config-dev-tp4.json"
 # fp8 on a mesh against one rank, ‖a − b‖ / ‖b‖ over the latents after MESH_STEPS steps
 # from the same conditioning. A row-parallel fp8 linear reduces _scaled_mm's fp32
@@ -2451,8 +2775,9 @@ def _mesh_http(pipe, job: dict) -> dict:
     out = {}
     try:
         url = f"http://127.0.0.1:{server.port}"
-        # another prompt than (b)'s: the LRU misses, and the sharded encoders run
-        body = {"prompt": "a lighthouse at dusk", "width": 1024, "height": 1024, "num_steps": MESH_STEPS, "seed": 5}
+        # another prompt than (b)'s: the LRU misses, and the sharded encoders run; one step,
+        # since what is checked here is the status, the JPEG and /health, not the latents
+        body = {"prompt": "a lighthouse at dusk", "width": 1024, "height": 1024, "num_steps": 1, "seed": 5}
         for name, path, req in (("generate", "/generate", body),
                                 ("lora", "/lora", {"action": "load", "path": job["lora"], "scale": 1.0, "name": "m"}),
                                 ("generate after the LoRA", "/generate", body)):
@@ -2746,7 +3071,7 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
                 fail("mesh", f"(c) {name} through the first rank: {e}")
         if http["health"].get("mesh", {}).get("shape") != shape or http["health"]["loras"] != ["m"]:
             fail("mesh", f"(c) /health: {http['health']}")
-        print(f"[{card}] (c) HTTP on {what}: POST /generate 1024x1024 {http['generate']['s']:.1f} s, POST /lora "
+        print(f"[{card}] (c) HTTP on {what}: POST /generate 1024x1024, 1 step, {http['generate']['s']:.1f} s, POST /lora "
               f"{http['lora']['s']:.1f} s, POST /generate {http['generate after the LoRA']['s']:.1f} s; /health "
               f"{http['health']}", flush=True)
     # each planted fault must read outside the comparison meant to see it: the sp rows
@@ -3423,20 +3748,25 @@ def main() -> int:
     print((lib.parent / "ptxas.log").read_text().strip(), flush=True)
 
     max_err, k1, rope = phase_kernel(card_line)
-    builds, path_launches = phase_guard_ablation(card_line)
+    builds, path_launches, path_tile_launches = phase_guard_ablation(card_line)
     phase_fp8_linear(card_line)
     phase_model(card_line)
-    launches, pipe7, request = phase_server(card_line)
+    launches, tile_launches, pipe7, request = phase_server(card_line)
     held = {"pipe": pipe7, "request": request}
     del pipe7
-    phase_int_linears(card_line)
-    phase_tiers(card_line)
-    phase_checkpoints(card_line, held)
-    phase_high_bound(card_line)
-    pipe = held.pop("pipe")
-    phase_request_surface(card_line, pipe)
-    phase_step_cache(card_line, pipe)
-    del pipe
+    try:
+        phase_int_linears(card_line)
+        phase_tiers(card_line)
+        phase_checkpoints(card_line, held)
+        phase_high_bound(card_line)
+        pipe = held.pop("pipe")
+        phase_request_surface(card_line, pipe)
+        phase_step_cache(card_line, pipe)
+        tiles = phase_tiles(card_line, pipe, held)
+        del pipe
+    finally:
+        if "prequant" in held:  # phase 10's file, when a phase between failed
+            shutil.rmtree(held["prequant"].parent, ignore_errors=True)
     release()
     phase_fidelity(card_line)
     phase_offload(card_line)
@@ -3476,6 +3806,17 @@ def main() -> int:
     ):
         t = builds[build][4608]
         kernels.append(row(build, source, replaces, path_launches[build], t["max_abs_err"], t))
+    # every build of K1's source by compiled tile (phase 19(a)): its launches on the path
+    # of the row (phase 7 for the serving build, phase 4 for the others), its numbers at
+    # each of phase 19's shapes
+    main_tiles = {**path_tile_launches, **{key: n for key, n in tile_launches.items() if key[0] == "qknorm_attention"}}
+    for r in kernels:
+        if r["name"] in tiles["rows"]:
+            r["tiles"] = [{"blocks": list(blocks), "launches": main_tiles[(r["name"], blocks)],
+                           "shapes": {shape: {k: m[k] for k in ("heads", "lq", "lkv", "max_abs_err", "ms", "plain_ms",
+                                                                "bound_ms", "bound_by", "library_ms")}
+                                      for shape, m in by_shape.items()}}
+                          for blocks, by_shape in tiles["rows"][r["name"]].items()]
     kernels.append(row("rope_rotate_backward", "flux_fp8_api_tpu_torch/csrc/rope_rotate.cu",
                        "flux_fp8_api_tpu/ops/rope.py:93", train_launches["rope_rotate_backward"],
                        bwd[4608]["max_abs_err"], bwd[4608]))

@@ -29,15 +29,16 @@ from typing import Dict, Optional
 
 import torch
 
-from .ops.attention import benchmark_blocks, cuda_device, fed_back_seconds
-from .ops.attention_kernel import BLOCKS, LAUNCHES, check_heads, load_library, tma_params
+from .ops.attention import _pick_blocks, benchmark_blocks, cuda_device, fed_back_seconds
+from .ops.attention_kernel import (
+    BLOCKS, LAUNCHES, TILE_LAUNCHES, check_heads, check_tile, load_library, tile_suffix, tma_params,
+)
 
 HEADS, HEAD_DIM = 24, 128
 CALLS_PER_STEP = 19 + 38  # one joint attention per double + single block
-# BLOCKS, imported above, is K1's one compiled tile (q rows per CTA, kv rows per stage)
 # Lq and Lkv of the bare two-dot must be multiples of this: the JAX kernel's
-# exact-division rule, at the port's admission granularity (the build itself runs
-# K1's 128-row tiles and takes a half tile at the end)
+# exact-division rule, at the port's admission granularity (every compiled tile's rows
+# are 64 or 128; a 128-row tile takes a half tile at the end)
 BARE_MULTIPLE = 64
 
 
@@ -49,42 +50,46 @@ def bare_two_dot_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return torch.matmul(s.to(torch.bfloat16).float(), v.float()).to(q.dtype)
 
 
-def bare_two_dot(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The bare two-dot kernel (JAX: ``ablate_attention._bare_two_dot``). Lq and Lkv
-    must be multiples of ``BARE_MULTIPLE`` (ValueError otherwise). CPU tensors run
-    :func:`bare_two_dot_ref`; CUDA tensors launch the bare build of
-    ``csrc/qknorm_attention.cu``, which takes what the attention kernel takes (bf16,
-    D = 128, a contiguous last dimension, 16-byte aligned strides: :func:`tma_params`),
-    or raise."""
+def bare_two_dot(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, blocks=None) -> torch.Tensor:
+    """The bare two-dot kernel (JAX: ``ablate_attention._bare_two_dot``, which takes
+    ``block_q`` / ``block_kv``; here ``blocks``, a tile of ``TILES``, default
+    ``BLOCKS``, ValueError for another). Lq and Lkv must be multiples of
+    ``BARE_MULTIPLE`` (ValueError otherwise). CPU tensors run :func:`bare_two_dot_ref`,
+    which has no tile; CUDA tensors launch the bare build of
+    ``csrc/qknorm_attention.cu`` at the tile, which takes what the attention kernel
+    takes (bf16, D = 128, a contiguous last dimension, 16-byte aligned strides:
+    :func:`tma_params`), or raise."""
     lq, lkv = q.shape[1], k.shape[1]
     if lq % BARE_MULTIPLE or lkv % BARE_MULTIPLE:
         raise ValueError(f"Lq={lq} and Lkv={lkv} must be multiples of {BARE_MULTIPLE}")
+    tile = check_tile(BLOCKS if blocks is None else blocks)
     if not q.is_cuda:
         return bare_two_dot_ref(q, k, v)
     check_heads(q, k, v)
     h, _, d = q.shape
-    maps = [(ctypes.c_int64 * 8)(*tma_params(t)) for t in (q, k, v)]
+    maps = [(ctypes.c_int64 * 8)(*tma_params(t, rows)) for t, rows in ((q, tile[0]), (k, tile[1]), (v, tile[1]))]
     out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
-    err = load_library().bare_two_dot_bf16(
+    err = getattr(load_library(), "bare_two_dot_bf16" + tile_suffix(tile))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *maps, out.stride(0), out.stride(1),
         h, lq, lkv, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"bare_two_dot kernel launch failed: cudaError {err}")
     LAUNCHES["bare_two_dot"] += 1
+    TILE_LAUNCHES[("bare_two_dot", tile[:2])] += 1
     return out
 
 
-def bare_two_dot_ms(l: int, heads: int = HEADS, head_dim: int = HEAD_DIM, iters: int = 24) -> float:
-    """Per-call ms of the bare two-dot kernel at L = ``l`` (a multiple of 64), timed as
-    ``benchmark_blocks`` times the attention kernel: inputs from a generator seeded
-    with 17, each output fed back as the next q (it overflows after a few calls, which
-    does not change the time)."""
+def bare_two_dot_ms(l: int, blocks=None, heads: int = HEADS, head_dim: int = HEAD_DIM, iters: int = 24) -> float:
+    """Per-call ms of the bare two-dot kernel at L = ``l`` (a multiple of 64) and the
+    tile ``blocks`` (default ``BLOCKS``), timed as ``benchmark_blocks`` times the
+    attention kernel: inputs from a generator seeded with 17, each output fed back as
+    the next q (it overflows after a few calls, which does not change the time)."""
     dev = cuda_device()
     gen = torch.Generator(device=dev).manual_seed(17)
     q, k, v = (torch.randn((heads, l, head_dim), generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
-    return fed_back_seconds(lambda x: bare_two_dot(x, k, v), q, iters) * 1e3
+    return fed_back_seconds(lambda x: bare_two_dot(x, k, v, blocks), q, iters) * 1e3
 
 
 def bf16_matmul_tflops(n: int = 8192, iters: int = 20) -> float:
@@ -99,18 +104,19 @@ def bf16_matmul_tflops(n: int = 8192, iters: int = 20) -> float:
 
 
 def ablation_row(l: int, timings: Dict[str, float], bare_ms: Optional[float],
-                 bf16_tflops: float) -> dict:
+                 bf16_tflops: float, blocks=BLOCKS) -> dict:
     """The derived fields of one ablation row (those of the JAX tool's ``ablate``):
     ``timings`` maps full / no_exp / no_rope / matmul_only to seconds per call,
     ``bare_ms`` is the bare two-dot's ms per call (None where L is not a multiple of
     ``BARE_MULTIPLE``), ``bf16_tflops`` the matmul rate the analytic roofline uses.
-    ``blocks`` is K1's tile."""
+    ``blocks`` is the tile every build ran at (``const_tables`` is always False: the
+    rope tables are not in the kernel)."""
     t = timings
     flops = 4 * HEADS * l * l * HEAD_DIM
     roofline = flops / (bf16_tflops * 1e12)
     return {
         "L": l,
-        "blocks": list(BLOCKS),
+        "blocks": [int(b) for b in blocks],
         "const_tables": False,
         "ms": {k: round(v * 1e3, 3) for k, v in t.items()},
         "roofline_ms": round(roofline * 1e3, 3),
@@ -127,16 +133,18 @@ def ablation_row(l: int, timings: Dict[str, float], bare_ms: Optional[float],
 
 
 def ablate(l: int, bf16_tflops: float, iters: int = 24) -> dict:
-    """Time the four attention variants and the bare two-dot at L = ``l`` on the card."""
+    """Time the four attention variants and the bare two-dot at L = ``l`` on the card,
+    every build at the serving tile ``_pick_blocks(l)`` (JAX ``ablate`` does the same)."""
+    blocks = _pick_blocks(l)
     kw = dict(folded_heads=HEADS, head_dim=HEAD_DIM, iters=iters)
     t = {
-        "full": benchmark_blocks(l, **kw),
-        "no_exp": benchmark_blocks(l, ablate_exp=True, **kw),
-        "no_rope": benchmark_blocks(l, fuse_rope=False, **kw),
-        "matmul_only": benchmark_blocks(l, fuse_rope=False, ablate_exp=True, **kw),
+        "full": benchmark_blocks(l, blocks, **kw),
+        "no_exp": benchmark_blocks(l, blocks, ablate_exp=True, **kw),
+        "no_rope": benchmark_blocks(l, blocks, fuse_rope=False, **kw),
+        "matmul_only": benchmark_blocks(l, blocks, fuse_rope=False, ablate_exp=True, **kw),
     }
-    bare_ms = bare_two_dot_ms(l, iters=iters) if l % BARE_MULTIPLE == 0 else None
-    return ablation_row(l, t, bare_ms, bf16_tflops)
+    bare_ms = bare_two_dot_ms(l, blocks, iters=iters) if l % BARE_MULTIPLE == 0 else None
+    return ablation_row(l, t, bare_ms, bf16_tflops, blocks)
 
 
 def card_line() -> str:

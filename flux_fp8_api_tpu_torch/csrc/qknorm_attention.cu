@@ -34,27 +34,55 @@
 // 4 * 24 * 4608^2 * 128 = 261 GFLOP and moves about 113 MB (q, k, v in, out written), so
 // it is bound by the tensor cores (0.264 ms at 989 TFLOP/s), not by memory (~35 us).
 // The design feeds the tensor cores the Hopper way:
-//   - one CTA per (head, 128-row q tile), 384 threads in three warpgroups. Warpgroup 0
-//     is the producer: one thread issues TMA loads of the q tile (once) and of a 2-stage
-//     ring of 128-row k and v tiles, and gives its registers to the consumers
-//     (setmaxnreg 24). Warpgroups 1 and 2 are the consumers (setmaxnreg 240), 64 q rows
+//   - one CTA per (head, BLOCK_Q-row q tile), BLOCK_Q / 64 + 1 warpgroups. Warpgroup 0
+//     is the producer: one thread issues TMA loads of the q tile (once) and of a
+//     STAGES-deep ring of BLOCK_KV-row k and v tiles, and gives its registers to the
+//     consumers (setmaxnreg 24). The other warpgroups are the consumers, 64 q rows
 //     each;
 //   - every tile lands in shared memory 128-byte swizzled, as two boxes of 64 head
 //     columns (128 bytes each), which is the layout wgmma reads without bank conflicts;
-//   - S = Q K^T is 8 wgmma.m64n128k16 from shared memory (both operands K-major), f32 S
-//     in registers; O += P V is 8 wgmma.m64n128k16 with P from registers (the f32 S
-//     accumulator of columns [16j, 16j + 16) is exactly the A fragment of k-step j) and
-//     V from shared memory read MN-major (the transpose bit);
+//     q has its own TMA box (BLOCK_Q rows), k and v theirs (BLOCK_KV rows);
+//   - S = Q K^T is 8 wgmma.m64nBLOCK_KVk16 from shared memory (both operands K-major),
+//     f32 S in registers; O += P V is BLOCK_KV / 16 wgmma.m64n128k16 with P from
+//     registers (the f32 S accumulator of columns [16j, 16j + 16) is exactly the A
+//     fragment of k-step j) and V from shared memory read MN-major (the transpose bit);
 //   - k and v have separate full barriers, so Q K^T starts before V lands; each stage
-//     has one empty barrier, which the 8 consumer warps arrive on after their P V.
+//     has one empty barrier, which every consumer warp arrives on after its P V.
 // The scores never leave registers. The tensor maps are 3-D (head dim, rows, heads)
 // with the caller's byte strides, so head-folded strided views of the activations are
 // read without a copy, and rows past the sequence (the ragged last kv tile, the last q
-// tile) arrive as zeros; p is still masked there, since exp(-SHIFT) != 0.
+// tile) arrive as zeros; p is still masked there, since exp(-SHIFT) != 0, and q rows
+// past Lq are never written.
+//
+// The tile (BLOCK_Q, BLOCK_KV, STAGES) is a compile-time choice: this one source is
+// compiled once per tile of ops/attention_kernel.py:TILES, with -D macros naming the
+// tile and giving its extern "C" entry points their suffix (qknorm_attention_bf16_64x128x2),
+// and ops/attention.py's autotuner picks a tile per shape by measuring them (the Pallas
+// kernel takes block_q / block_kv the same way). What a tile trades, with 132 SMs:
+//   BLOCK_Q 128: 384 threads, one CTA per SM (registers: 168 at launch, producer 24,
+//     consumers 240; 128 * 24 + 256 * 240 = 64512 of 65536), two consumer warpgroups
+//     whose softmax and products interleave. 24 heads at L = 1536 make 288 CTAs, 2.18
+//     waves, the last 18% full.
+//   BLOCK_Q 64: 256 threads, one consumer warpgroup, twice the CTAs, so a ragged last
+//     wave costs half as much, but the k and v tiles are read from L2 once per 64 q
+//     rows instead of 128. Where two CTAs fit an SM's shared memory (~113 KB each:
+//     (64, 64, 2) at 82 KB) they are launched two per SM (128 registers at launch,
+//     producer 24, consumer 232: 128 * 24 + 128 * 232 = 32768, half the file), so two
+//     consumer warpgroups of two CTAs interleave as (128, *)'s do. (64, 128, 2) at
+//     146 KB runs one CTA per SM with one consumer warpgroup, bounded at 255 registers
+//     (ptxas gives it 154-158) with no setmaxnreg; bounded to 128, its S and O tiles
+//     spilled and it ran 2-3x slower (NVIDIA H100 80GB HBM3, 700 W).
+//   BLOCK_KV 64: the S tile is 32 f32 registers per thread instead of 64, and a stage
+//     16 KB instead of 32 for each of k and v, at twice the barrier round trips per row.
+// Every tile gives the same output, bit for bit: a row's den and O sum the same pairs
+// of kv columns, and the same k-steps of wgmma, in the same order whatever the tile cuts
+// them into, and a row's arithmetic never depends on the other rows of its CTA (the
+// builds at every tile equal (128, 128)'s on the card), and (128, 128, 2) gives the
+// single-tile kernel's output bit for bit (chip_smoke.py:SINGLE_TILE_OUTPUTS).
 //
 // The stats build's max crosses CTAs, which run in no order: each consumer thread keeps
 // a running fmaxf of |s| over its unmasked fragments, warps reduce with shuffles, the
-// 8 consumer warps through shared memory, and one thread per CTA does an atomicMax on
+// consumer warps through shared memory, and one thread per CTA does an atomicMax on
 // the int bits of the (non-negative) float, whose order is the float order. fmaxf drops
 // a NaN, so NaN comes in through den instead: an unmasked NaN logit makes p, and so its
 // row's den, NaN, and a row whose den is NaN sets the thread's max to NaN before the
@@ -70,22 +98,32 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The tile this compilation builds (ops/attention_kernel.py passes all four).
+#ifndef FLUX_BLOCK_Q
+#define FLUX_BLOCK_Q 128
+#endif
+#ifndef FLUX_BLOCK_KV
+#define FLUX_BLOCK_KV 128
+#endif
+#ifndef FLUX_STAGES
+#define FLUX_STAGES 2
+#endif
+#ifndef FLUX_TILE_SUFFIX
+#define FLUX_TILE_SUFFIX _128x128x2
+#endif
+#define FLUX_CAT_(a, b) a##b
+#define FLUX_CAT(a, b) FLUX_CAT_(a, b)
+#define FLUX_TILED(name) FLUX_CAT(name, FLUX_TILE_SUFFIX)
+
 namespace {
 
 constexpr float kShift = 20.0f;  // ops/attention_kernel.py SHIFT
 constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kD = 128;                  // head dim
-constexpr int kBlockQ = 128;             // q rows per CTA
-constexpr int kBlockKV = 128;            // kv rows per stage
-constexpr int kStages = 2;               // k/v ring depth
-constexpr int kBoxCols = 64;             // head columns per TMA box: 128 bytes, the swizzle span
-constexpr int kConsumers = 2;            // consumer warpgroups, 64 q rows each
-constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kBoxBytes = kBlockKV * kBoxCols * 2;  // 16 KB: one box of a k, v or q tile
-constexpr int kTileBytes = 2 * kBoxBytes;           // 32 KB: a whole 128 x 128 bf16 tile
-static_assert(kBlockQ == kBlockKV, "q, k and v tiles share one TMA box shape");
+constexpr int kD = 128;       // head dim
+constexpr int kBoxCols = 64;  // head columns per TMA box: 128 bytes, the swizzle span
 
+template <int kBlockQ, int kBlockKV, int kStages>
 struct alignas(1024) Smem {
   __nv_bfloat16 q[kBlockQ * kD];               // box 0 (columns 0..63), then box 1
   __nv_bfloat16 k[kStages][kBlockKV * kD];
@@ -94,9 +132,40 @@ struct alignas(1024) Smem {
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
   uint64_t empty[kStages];
-  float warp_max[kConsumers * 4];              // stats build
+  float warp_max[kBlockQ / 64 * 4];            // stats build
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + room to align the base to 1024
+
+// One tile: q rows per CTA, kv rows per stage, ring depth, and what follows from them.
+template <int kBlockQ_, int kBlockKV_, int kStages_>
+struct Tile {
+  static constexpr int kBlockQ = kBlockQ_;
+  static constexpr int kBlockKV = kBlockKV_;
+  static constexpr int kStages = kStages_;
+  static constexpr int kConsumers = kBlockQ / 64;           // consumer warpgroups, 64 q rows each
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kQBoxBytes = kBlockQ * kBoxCols * 2;   // one box of the q tile
+  static constexpr int kKVBoxBytes = kBlockKV * kBoxCols * 2; // one box of a k or v tile
+  static constexpr int kSmemBytes = sizeof(Smem<kBlockQ, kBlockKV, kStages>) + 1024;  // + room to align to 1024
+  // CTAs per SM in the launch bounds: two where one consumer warpgroup's CTA leaves room
+  // for a second in the SM's 228 KB (each CTA also takes 1 KB the runtime reserves)
+  static constexpr int kCtasPerSm = (kConsumers == 1 && 2 * (kSmemBytes + 1024) <= 233472) ? 2 : 1;
+  // Registers: ptxas fits every kernel in the launch bounds' share (168 a thread at 384
+  // threads, 128 at two CTAs of 256). Where that share is below what a consumer asks
+  // for, the producer gives its registers to the consumers with setmaxnreg, and the
+  // pool at launch must hold what they ask for, or the consumers' inc never returns
+  // (launch() checks it on the card). One consumer alone on an SM has 255 already.
+  static constexpr bool kSetMaxNReg = kConsumers > 1 || kCtasPerSm > 1;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 1 ? 232 : 240;
+  static constexpr int kPoolRegs = kSetMaxNReg ? kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers : 0;
+  static_assert(kBlockQ == 64 || kBlockQ == 128, "BLOCK_Q is 64 per consumer warpgroup, one or two of them");
+  static_assert(kBlockKV == 64 || kBlockKV == 128, "the S tile is one wgmma of n = BLOCK_KV");
+  static_assert(kStages >= 2, "the ring needs a stage to load while one is read");
+  static_assert(kPoolRegs <= 65536 / kCtasPerSm, "setmaxnreg asks for more registers than launch holds");
+  static_assert(kSmemBytes <= 232448, "more shared memory than a CTA can have");
+};
+
+using TileT = Tile<FLUX_BLOCK_Q, FLUX_BLOCK_KV, FLUX_STAGES>;
 
 struct Args {
   __nv_bfloat16* o;
@@ -143,7 +212,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One TMA box (kBoxCols x kBlockKV x 1) at element coordinates (col, row, head).
+// One TMA box (kBoxCols columns x the map's box rows x 1 head) at element coordinates
+// (col, row, head).
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int col, int row, int head) {
   asm volatile(
@@ -168,11 +238,21 @@ __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_grou
 
 // Keeps the compiler from moving reads or writes of accumulator registers across the
 // asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+#define D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define D32_OPERANDS(d)                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 #define D64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
@@ -191,14 +271,24 @@ __device__ __forceinline__ void fence_regs(float (&r)[64]) {
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),            \
       "+f"(d[62]), "+f"(d[63])
 
-// d (+)= A B for a 64 x 128 x 16 step, A and B from shared memory, both K-major.
-// accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : D64_OPERANDS(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+// d (+)= A B for a 64 x N x 16 step (N = 2 * the registers of d: 128 or 64, the S tile
+// of BLOCK_KV = N), A and B from shared memory, both K-major. accumulate = 0 overwrites d.
+template <int R>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t a, uint64_t b, int accumulate) {
+  static_assert(R == 64 || R == 32, "an S tile of 128 or 64 kv columns");
+  if constexpr (R == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : D64_OPERANDS(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : D32_OPERANDS(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
 }
 
 // d += A B for a 64 x 128 x 16 step, A from registers (bf16 pairs), B from shared
@@ -212,6 +302,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#undef D32
+#undef D32_OPERANDS
 #undef D64
 #undef D64_OPERANDS
 
@@ -227,15 +319,18 @@ __device__ __forceinline__ float nan_max(float a, float b) { return (b > a || b 
 
 enum class Build { kServing, kStats, kAblate, kBare };
 
-template <Build kBuild>
+template <class T, Build kBuild>
 __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorMap* km,
                                           const CUtensorMap* vm, const Args& args) {
   constexpr bool kTrackMax = kBuild == Build::kStats;
   constexpr bool kAblateExp = kBuild == Build::kAblate;
   constexpr bool kBare = kBuild == Build::kBare;
+  constexpr int kBlockQ = T::kBlockQ, kBlockKV = T::kBlockKV, kStages = T::kStages;
+  constexpr int kConsumers = T::kConsumers;
+  using SmemT = Smem<kBlockQ, kBlockKV, kStages>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
+  SmemT& sm = *reinterpret_cast<SmemT*>(smem_raw + ((1024 - (raw & 1023)) & 1023));
 
   const int head = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
@@ -255,9 +350,9 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
 
   if (wg == 0) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if constexpr (T::kSetMaxNReg) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(T::kProducerRegs) : "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&sm.q_full, kTileBytes);
+      mbar_expect_tx(&sm.q_full, 2 * T::kQBoxBytes);
       tma_load(sm.q, qm, &sm.q_full, 0, q0, head);
       tma_load(sm.q + kBlockQ * kBoxCols, qm, &sm.q_full, kBoxCols, q0, head);
       for (int i = 0; i < tiles; ++i) {
@@ -265,17 +360,17 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
         // the stage's previous tile (use i / kStages - 1) must be released first
         if (i >= kStages) mbar_wait(&sm.empty[s], ((i / kStages) & 1) ^ 1);
         const int kv0 = i * kBlockKV;
-        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+        mbar_expect_tx(&sm.k_full[s], 2 * T::kKVBoxBytes);
         tma_load(sm.k[s], km, &sm.k_full[s], 0, kv0, head);
         tma_load(sm.k[s] + kBlockKV * kBoxCols, km, &sm.k_full[s], kBoxCols, kv0, head);
-        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+        mbar_expect_tx(&sm.v_full[s], 2 * T::kKVBoxBytes);
         tma_load(sm.v[s], vm, &sm.v_full[s], 0, kv0, head);
         tma_load(sm.v[s] + kBlockKV * kBoxCols, vm, &sm.v_full[s], kBoxCols, kv0, head);
       }
     }
   } else {
     // ------------------------------------------------------------ consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if constexpr (T::kSetMaxNReg) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(T::kConsumerRegs) : "memory");
     const int cw = wg - 1;  // q rows cw * 64 .. + 63 of the tile
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
@@ -301,14 +396,15 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
       const uint32_t v_addr = smem_u32(sm.v[s]);
 
       // S = Q K^T: k-step kk covers head columns 16kk .. +15, 32 bytes into box kk / 4
-      float sacc[64];
+      float sacc[kBlockKV / 2];
       mbar_wait(&sm.k_full[s], parity);
       wgmma_fence();
       fence_regs(sacc);
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss(sacc, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024), kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss(sacc, desc_sw128(q_addr + (kk / 4) * T::kQBoxBytes + col, 16, 1024),
+                 desc_sw128(k_addr + (kk / 4) * T::kKVBoxBytes + col, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -342,7 +438,7 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
       }
 
       // O += bf16(P) V: k-step j covers kv rows 16j .. +15 (2 KB into each v box); the
-      // 64 MN columns of box 1 are 16 KB on (lbo), the next 8 kv rows 1 KB on (sbo)
+      // 64 MN columns of box 1 are one box on (lbo), the next 8 kv rows 1 KB on (sbo)
       uint32_t pa[kBlockKV / 16][4];
 #pragma unroll
       for (int j = 0; j < kBlockKV / 16; ++j) {
@@ -356,7 +452,7 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
       fence_regs(acc);
 #pragma unroll
       for (int j = 0; j < kBlockKV / 16; ++j)
-        wgmma_rs(acc, pa[j], desc_sw128(v_addr + j * 16 * 128, kBoxBytes, 1024));
+        wgmma_rs(acc, pa[j], desc_sw128(v_addr + j * 16 * 128, T::kKVBoxBytes, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -414,28 +510,28 @@ __device__ __forceinline__ void attention(const CUtensorMap* qm, const CUtensorM
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(TileT::kThreads, TileT::kCtasPerSm)
     qknorm_attention_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                             const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<Build::kServing>(&qm, &km, &vm, args);
+  attention<TileT, Build::kServing>(&qm, &km, &vm, args);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(TileT::kThreads, TileT::kCtasPerSm)
     qknorm_attention_stats_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                                   const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<Build::kStats>(&qm, &km, &vm, args);
+  attention<TileT, Build::kStats>(&qm, &km, &vm, args);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(TileT::kThreads, TileT::kCtasPerSm)
     qknorm_attention_ablate_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                                    const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<Build::kAblate>(&qm, &km, &vm, args);
+  attention<TileT, Build::kAblate>(&qm, &km, &vm, args);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(TileT::kThreads, TileT::kCtasPerSm)
     bare_two_dot_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                         const __grid_constant__ CUtensorMap vm, const Args args) {
-  attention<Build::kBare>(&qm, &km, &vm, args);
+  attention<TileT, Build::kBare>(&qm, &km, &vm, args);
 }
 
 // ---------------------------------------------------------------- host side
@@ -462,8 +558,9 @@ EncodeTiled encoder() {
 
 // params: dims (head dim, rows, heads), byte strides (rows, heads), box (columns, rows,
 // heads), as ops/attention_kernel.py:tma_params computes them. The box must be the one
-// the kernel's shared-memory layout is built for.
-bool encode_map(CUtensorMap* map, const void* base, const int64_t* params) {
+// the kernel's shared-memory layout is built for: `rows` rows (BLOCK_Q for q, BLOCK_KV
+// for k and v) of 64 columns of one head.
+bool encode_map(CUtensorMap* map, const void* base, const int64_t* params, int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(params[0]), static_cast<cuuint64_t>(params[1]),
                               static_cast<cuuint64_t>(params[2])};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(params[3]), static_cast<cuuint64_t>(params[4])};
@@ -471,45 +568,59 @@ bool encode_map(CUtensorMap* map, const void* base, const int64_t* params) {
                              static_cast<cuuint32_t>(params[7])};
   const cuuint32_t unit[3] = {1, 1, 1};
   EncodeTiled encode = encoder();
-  if (encode == nullptr || dims[0] != kD || box[0] != kBoxCols || box[1] != kBlockKV || box[2] != 1)
+  if (encode == nullptr || dims[0] != kD || box[0] != kBoxCols || box[1] != static_cast<cuuint32_t>(rows) ||
+      box[2] != 1)
     return false;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+bool encode_maps(CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm, const void* q, const void* k, const void* v,
+                 const int64_t* q_map, const int64_t* k_map, const int64_t* v_map) {
+  return encode_map(qm, q, q_map, TileT::kBlockQ) && encode_map(km, k, k_map, TileT::kBlockKV) &&
+         encode_map(vm, v, v_map, TileT::kBlockKV);
+}
+
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const Args);
 
+// Configures a kernel once (its dynamic shared memory; a check that the registers it was
+// given at launch hold what setmaxnreg will ask for, so a wrong launch bound is refused
+// here instead of hanging the consumers), then launches it on `stream`.
 int launch(Kernel kernel, bool& configured, const CUtensorMap& qm, const CUtensorMap& km,
            const CUtensorMap& vm, const Args& args, int heads, cudaStream_t stream) {
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr.numRegs * TileT::kThreads < TileT::kPoolRegs) return static_cast<int>(cudaErrorInvalidConfiguration);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TileT::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  dim3 grid((args.lq + kBlockQ - 1) / kBlockQ, heads);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(qm, km, vm, args);
+  dim3 grid((args.lq + TileT::kBlockQ - 1) / TileT::kBlockQ, heads);
+  kernel<<<grid, TileT::kThreads, TileT::kSmemBytes, stream>>>(qm, km, vm, args);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Pointers are device pointers. q_map, k_map and
-// v_map are 8 int64 each: the TMA parameters of ops/attention_kernel.py:tma_params. o is
-// written at (head, row) strides o_sh, o_sl (elements). A non-null max_logit selects the
-// stats build (it must point at a zeroed f32 on the device, written on the same stream);
-// ablate_exp != 0 selects the ablate build; the two do not combine. Returns 0, a
-// cudaError_t of the launch, or cudaErrorInvalidValue where a tensor map cannot be
-// encoded.
-extern "C" int qknorm_attention_bf16(
+// Plain C entry points of this tile, bound with ctypes; each name carries the tile's
+// suffix (qknorm_attention_bf16_128x128x2). Pointers are device pointers. q_map, k_map
+// and v_map are 8 int64 each: the TMA parameters of ops/attention_kernel.py:tma_params,
+// q's with BLOCK_Q box rows, k's and v's with BLOCK_KV. o is written at (head, row)
+// strides o_sh, o_sl (elements). A non-null max_logit selects the stats build (it must
+// point at a zeroed f32 on the device, written on the same stream); ablate_exp != 0
+// selects the ablate build; the two do not combine. Returns 0, a cudaError_t of the
+// launch, or cudaErrorInvalidValue where a tensor map cannot be encoded.
+extern "C" int FLUX_TILED(qknorm_attention_bf16)(
     const void* q, const void* k, const void* v, void* o,
     const int64_t* q_map, const int64_t* k_map, const int64_t* v_map,
     int64_t o_sh, int64_t o_sl, int heads, int lq, int lkv, float sm_scale,
     void* max_logit, int ablate_exp, void* stream) {
   if (max_logit != nullptr && ablate_exp) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm;
-  if (!encode_map(&qm, q, q_map) || !encode_map(&km, k, k_map) || !encode_map(&vm, v, v_map))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_maps(&qm, &km, &vm, q, k, v, q_map, k_map, v_map)) return static_cast<int>(cudaErrorInvalidValue);
   Args args;
   args.o = static_cast<__nv_bfloat16*>(o);
   args.o_sh = o_sh;
@@ -526,15 +637,15 @@ extern "C" int qknorm_attention_bf16(
   return launch(qknorm_attention_kernel, configured[0], qm, km, vm, args, heads, s);
 }
 
-// The bare build (the ablation's ceiling): o = bf16(bf16(q k^T) v) per head, written at
-// (head, row) strides o_sh, o_sl (elements). Maps and return value as above.
-extern "C" int bare_two_dot_bf16(
+// The bare build (the ablation's ceiling) of this tile: o = bf16(bf16(q k^T) v) per
+// head, written at (head, row) strides o_sh, o_sl (elements). Maps and return value as
+// above.
+extern "C" int FLUX_TILED(bare_two_dot_bf16)(
     const void* q, const void* k, const void* v, void* o,
     const int64_t* q_map, const int64_t* k_map, const int64_t* v_map,
     int64_t o_sh, int64_t o_sl, int heads, int lq, int lkv, void* stream) {
   CUtensorMap qm, km, vm;
-  if (!encode_map(&qm, q, q_map) || !encode_map(&km, k, k_map) || !encode_map(&vm, v, v_map))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_maps(&qm, &km, &vm, q, k, v, q_map, k_map, v_map)) return static_cast<int>(cudaErrorInvalidValue);
   Args args = {};
   args.o = static_cast<__nv_bfloat16*>(o);
   args.o_sh = o_sh;

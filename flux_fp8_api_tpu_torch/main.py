@@ -69,7 +69,9 @@ def parse_args(argv=None):
     parser.add_argument("-qfl", "--quantize-flow-embedder-layers", action="store_true",
                         help="Also quantize img_in/txt_in/time_in/vector_in/guidance_in")
     parser.add_argument("--compilation-cache-dir", type=str, default=None,
-                        help="(no effect here: PyTorch runs eagerly, nothing is compiled ahead)")
+                        help="Directory for the attention tiles that warm-up measures (attn_blocks.json): "
+                             "loaded before the warm-up and saved after it, so a restart measures nothing "
+                             "again (PyTorch runs eagerly, so there is nothing else to cache there)")
     parser.add_argument("--save-prequantized", type=str, default=None, metavar="PATH",
                         help="Calibrate (if needed), save a prequantized flow checkpoint "
                              "(quantized data + weight/input scales) to PATH, then exit "
@@ -98,8 +100,19 @@ def parse_mesh(spec: str):
     return mesh
 
 
+def _overrides(args) -> dict:
+    """The ModelSpec fields the server sets over a config (JAX main.py:88-96): the
+    servers only generate silently, so compile() skips the interactive warm-up; and
+    ``--compilation-cache-dir`` where given."""
+    overrides = {"precompile_interactive": False}
+    if args.compilation_cache_dir:
+        overrides["compilation_cache_dir"] = args.compilation_cache_dir
+    return overrides
+
+
 def _config(args):
-    """The ModelSpec of the command line: the config file (with ``-f``), or the flags."""
+    """The ModelSpec of the command line: the config file (with ``-f``), or the flags,
+    with :func:`_overrides`."""
     from .utils.config import ModelVersion, load_config, load_config_from_path
 
     if args.config_path:
@@ -129,6 +142,8 @@ def _config(args):
         )
     if args.mesh:
         config.mesh = parse_mesh(args.mesh)
+    for key, value in _overrides(args).items():
+        setattr(config, key, value)
     return config
 
 
@@ -149,7 +164,8 @@ def main(argv=None):
     from .pipeline import FluxPipeline
 
     if args.config_path:
-        pipeline = FluxPipeline.load_pipeline_from_config_path(args.config_path, flow_model_path=args.flow_model_path)
+        pipeline = FluxPipeline.load_pipeline_from_config_path(args.config_path, flow_model_path=args.flow_model_path,
+                                                               **_overrides(args))
     else:
         pipeline = FluxPipeline.load_pipeline_from_config(config)
     _serve(args, pipeline)

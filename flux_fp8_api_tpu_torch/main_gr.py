@@ -156,7 +156,8 @@ def create_demo(config_path: str):
     """Load the pipeline from a config JSON and return the Blocks app."""
     from .pipeline import FluxPipeline
 
-    return build_ui(FluxPipeline.load_pipeline_from_config_path(config_path))
+    # the UI generates silently: compile() skips the interactive warm-up (JAX main_gr.py:200)
+    return build_ui(FluxPipeline.load_pipeline_from_config_path(config_path, precompile_interactive=False))
 
 
 def main(argv=None):

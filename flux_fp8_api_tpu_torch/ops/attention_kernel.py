@@ -13,10 +13,14 @@ warp-specialised) reads the rotated copies.
 
 The CUDA sources are those two files in ``csrc/``; ``qknorm_attention.cu`` also holds a
 fourth build of the same body, the bare two products that
-``flux_fp8_api_tpu_torch.ablate_attention`` measures as the ceiling. Each source is
-compiled with ``nvcc`` for ``sm_90a`` at first use, all at once, and linked into one
-shared library with a plain C interface in ``build/kernels/<hash of the sources>/`` at
-the repository root, loaded with ``ctypes``.
+``flux_fp8_api_tpu_torch.ablate_attention`` measures as the ceiling. The attention
+kernel's tile (q rows per CTA, kv rows per stage, ring depth) is a compile-time choice:
+its source is compiled once per tile of :data:`TILES`, each compile's entry points
+named by the tile, and a call takes a tile (``blocks``, as the Pallas kernel takes
+``block_q`` / ``block_kv``; ``ops/attention.py`` picks it per shape). Every compile is
+``nvcc`` for ``sm_90a`` at first use, all started at once, linked into one shared
+library with a plain C interface in ``build/kernels/<hash of the sources and tiles>/``
+at the repository root, loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -35,11 +39,16 @@ import torch
 SHIFT = 20.0
 MAX_SAFE_LOGIT = 100.0
 HEAD_DIM = 128  # the only head dim the CUDA kernels take
-BLOCKS = (128, 128)  # the attention kernel's tile: (q rows per CTA, kv rows per stage)
+# The attention kernel's compiled tiles: (q rows per CTA, kv rows per stage, stages of the
+# k/v ring). csrc/qknorm_attention.cu's note says what each trades; ops/attention.py's
+# autotuner measures them. A call names its tile by (q rows, kv rows), its ``blocks``.
+TILES = ((128, 128, 2), (128, 64, 2), (64, 128, 2), (64, 64, 2))
+BLOCKS = (128, 128)  # the default tile: what every call runs unless a tuned table says otherwise
 BOX_COLS = 64  # head columns per TMA box: 128 bytes, the span of the 128-byte swizzle
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("qknorm_attention.cu", "rope_rotate.cu")
+_TILED_SOURCE = "qknorm_attention.cu"  # compiled once per tile
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -54,6 +63,9 @@ LAUNCHES = {
     "rope_rotate_backward": 0,
     "bare_two_dot": 0,
 }
+_TILED_BUILDS = ("qknorm_attention", "qknorm_attention_stats", "qknorm_attention_ablate_exp", "bare_two_dot")
+# The same launches by build and tile, ``(build, (q rows, kv rows))``: which tile ran.
+TILE_LAUNCHES = {(build, tuple(t[:2])): 0 for build in _TILED_BUILDS for t in TILES}
 
 _lib = None
 
@@ -69,42 +81,80 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the attention kernels are built with the CUDA toolkit")
 
 
+def tile_suffix(tile) -> str:
+    """The suffix of a compiled tile's entry points: (128, 64, 2) → ``_128x64x2``."""
+    return "_" + "x".join(str(int(x)) for x in tile)
+
+
+def check_tile(blocks) -> tuple:
+    """The compiled tile (q rows, kv rows, stages) of ``blocks`` = (q rows, kv rows).
+    Raises ValueError for a pair that is not in :data:`TILES`: no other tile is
+    compiled, and none is substituted."""
+    key = tuple(int(b) for b in blocks)
+    for tile in TILES:
+        if key == tile[:2]:
+            return tile
+    raise ValueError(f"no compiled attention tile {tuple(blocks)}: the kernel is built at "
+                     f"{[t[:2] for t in TILES]} (ops/attention_kernel.py:TILES)")
+
+
+def _compiles():
+    """(label, source, extra nvcc flags) of every compile of the library: the attention
+    source once per tile, each with the macros that choose the tile and name its entry
+    points, then every other source once."""
+    out = []
+    for src in _SOURCES:
+        if src != _TILED_SOURCE:
+            out.append((src, src, ()))
+            continue
+        for tile in TILES:
+            bq, bkv, st = tile
+            out.append((f"{src} tile {bq}x{bkv}x{st}", src,
+                        (f"-DFLUX_BLOCK_Q={bq}", f"-DFLUX_BLOCK_KV={bkv}", f"-DFLUX_STAGES={st}",
+                         f"-DFLUX_TILE_SUFFIX={tile_suffix(tile)}")))
+    return out
+
+
 def library_path() -> Path:
-    """Where the built library lives: keyed by a hash of the kernel sources."""
+    """Where the built library lives: keyed by a hash of the kernel sources and the
+    compiled tiles."""
     h = hashlib.sha256()
     for name in _SOURCES:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
+    h.update(repr(TILES).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / "libflux_kernels.so"
 
 
 def build_library() -> Path:
-    """Compile the kernel sources for sm_90a if this source hash has no library yet:
-    one ``nvcc -c`` per source, all started together, then one link. The ptxas
-    report of every kernel goes to ``ptxas.log`` beside the library. Returns the
-    library's path."""
+    """Compile the kernels for sm_90a if this hash has no library yet: one ``nvcc -c``
+    per source and tile (:func:`_compiles`), all started together, then one link. The
+    ptxas report of every kernel goes to ``ptxas.log`` beside the library, each
+    compile's under its label. Returns the library's path."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    compiles = _compiles()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in _SOURCES]
+        objs = [str(Path(tmp) / f"{i}_{Path(src).stem}.o") for i, (_, src, _) in enumerate(compiles)]
         procs = [
-            subprocess.Popen([nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(_CSRC / src)],
+            subprocess.Popen([nvcc, *_NVCC_FLAGS, *flags, "-Xptxas", "-v", "-c", "-o", obj, str(_CSRC / src)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for src, obj in zip(_SOURCES, objs)
+            for (_, src, flags), obj in zip(compiles, objs)
         ]
         logs = [p.communicate()[1] for p in procs]  # waits for every compile
-        for src, p, err in zip(_SOURCES, procs, logs):
+        for (label, _, _), p, err in zip(compiles, procs, logs):
             if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
+                raise RuntimeError(f"nvcc failed on {label} ({p.returncode}):\n{err}")
         so = str(Path(tmp) / out.name)
         proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", so, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
-        (out.parent / "ptxas.log").write_text("".join(logs))
+        (out.parent / "ptxas.log").write_text(
+            "".join(f"== {label}\n{err}" for (label, _, _), err in zip(compiles, logs)))
         os.replace(so, out)
     return out
 
@@ -113,22 +163,24 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        fn = lib.qknorm_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] * 3 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        maps = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] * 3
+        for tile in TILES:
+            fn = getattr(lib, "qknorm_attention_bf16" + tile_suffix(tile))
+            fn.argtypes = maps + [
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, "bare_two_dot_bf16" + tile_suffix(tile))
+            fn.argtypes = maps + [
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
         job = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         for fn in (lib.rope_rotate_bf16, lib.rope_rotate_backward_bf16):
             fn.argtypes = job + job + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        fn = lib.bare_two_dot_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] * 3 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -226,11 +278,12 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
 
 
-def tma_params(t: torch.Tensor) -> tuple:
+def tma_params(t: torch.Tensor, rows: int = BLOCKS[1]) -> tuple:
     """The parameters of the 3-D TMA tensor map over an (H, L, 128) bf16 view, as
     ``csrc/qknorm_attention.cu`` encodes them: dims (head dim, L, H), innermost first;
     byte strides of the row and head axes (the caller's, so head-folded strided views
-    need no copy); the box (``BOX_COLS`` columns, ``BLOCKS[1]`` rows, one head), whose
+    need no copy); the box (``BOX_COLS`` columns, ``rows`` rows, one head: the tile's
+    q rows for q, its kv rows for k and v; the default tile's 128 unless given), whose
     128-byte rows are what the 128-byte swizzle spans. A 3-D map, not an (H·L, D) one:
     rows past L read as zeros instead of the next head's rows.
 
@@ -251,7 +304,7 @@ def tma_params(t: torch.Tensor) -> tuple:
             raise ValueError(f"a TMA map needs 16-byte multiple strides, got a {name} stride of {stride} bytes")
     if not 0 < l < 2**31 or not 0 < h < 2**31:
         raise ValueError(f"a TMA map takes 1 <= L, H < 2^31, got {tuple(t.shape)}")
-    return (d, l, h, row, head, BOX_COLS, BLOCKS[1], 1)
+    return (d, l, h, row, head, BOX_COLS, int(rows), 1)
 
 
 def _rope_launch(entry: str, build: str, q, k, cos, sin, cos_q, sin_q):
@@ -362,6 +415,7 @@ def qknorm_attention(
     *,
     return_max_logit: bool = False,
     ablate_exp: bool = False,
+    blocks=None,
 ):
     """(H, Lq, D) q × (H, Lkv, D) k/v → (H, Lq, D), q and k rotated first when
     ``cos``/``sin`` are given (see :func:`qknorm_attention_ref` for the function).
@@ -369,18 +423,21 @@ def qknorm_attention(
     ``return_max_logit=True`` selects the stats build and returns ``(out, max_logit)``,
     ``max_logit`` a 0-d fp32 tensor on q's device (no host sync here): the input of
     :func:`qknorm_attention_checked`. ``ablate_exp=True`` selects the measurement build
-    without the exp. The two do not combine.
+    without the exp. The two do not combine. ``blocks`` (q rows, kv rows) names the
+    compiled tile (default :data:`BLOCKS`); a pair outside :data:`TILES` raises
+    ValueError on both devices.
 
     It has no backward: asked for a gradient (grad enabled and q, k or v requiring
-    one) it raises, on both devices. CPU tensors run the plain version. CUDA tensors
-    launch the rope pass (:func:`rope_rotate`, when there are tables) and then the
-    attention kernel, which
-    takes bf16 with D = 128, a contiguous last dimension and 16-byte aligned strides
-    (:func:`tma_params`); anything else raises. The output is allocated token-major,
-    (Lq, H, D), and returned as its (H, Lq, D) view.
+    one) it raises, on both devices. CPU tensors run the plain version, which has no
+    tile and ignores ``blocks``. CUDA tensors launch the rope pass
+    (:func:`rope_rotate`, when there are tables) and then the attention kernel at the
+    tile, which takes bf16 with D = 128, a contiguous last dimension and 16-byte
+    aligned strides (:func:`tma_params`); anything else raises. The output is allocated
+    token-major, (Lq, H, D), and returned as its (H, Lq, D) view.
     """
     if return_max_logit and ablate_exp:
         raise ValueError("the stats and ablate_exp builds do not combine")
+    tile = check_tile(BLOCKS if blocks is None else blocks)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
             "the max-free attention kernel has no backward: train with use_pallas=False "
@@ -395,11 +452,11 @@ def qknorm_attention(
     check_heads(q, k, v)
     if cos is not None:
         q, k = rope_rotate(q, k, cos, sin, cos_q, sin_q)
-    maps = [(ctypes.c_int64 * 8)(*tma_params(t)) for t in (q, k, v)]
+    maps = [(ctypes.c_int64 * 8)(*tma_params(t, rows)) for t, rows in ((q, tile[0]), (k, tile[1]), (v, tile[1]))]
     out = torch.empty((lq, h, d), dtype=q.dtype, device=q.device).transpose(0, 1)
     # a fresh zero on the launch stream: the stats build atomicMax-es into it
     max_logit = torch.zeros((), dtype=torch.float32, device=q.device) if return_max_logit else None
-    err = load_library().qknorm_attention_bf16(
+    err = getattr(load_library(), "qknorm_attention_bf16" + tile_suffix(tile))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *maps,
         out.stride(0), out.stride(1), h, lq, lkv, float(sm_scale),
         None if max_logit is None else max_logit.data_ptr(),
@@ -410,6 +467,7 @@ def qknorm_attention(
     if err != 0:
         raise RuntimeError(f"{build} kernel launch failed: cudaError {err}")
     LAUNCHES[build] += 1
+    TILE_LAUNCHES[(build, tile[:2])] += 1
     return (out, max_logit) if return_max_logit else out
 
 
@@ -422,15 +480,17 @@ def qknorm_attention_checked(
     sin: Optional[torch.Tensor] = None,
     cos_q: Optional[torch.Tensor] = None,
     sin_q: Optional[torch.Tensor] = None,
+    blocks=None,
 ) -> torch.Tensor:
-    """Guard-railed attention: runs the stats build and raises ``FloatingPointError``
+    """Guard-railed attention: runs the stats build (at the tile ``blocks``, as
+    :func:`qknorm_attention`) and raises ``FloatingPointError``
     when ``max |logit|`` exceeds ``MAX_SAFE_LOGIT`` or is NaN (the regime where the
     max-free softmax would overflow exp to inf → NaN images with no diagnostic).
 
     It reads one scalar back per call (a host sync), so it is for validation moments
     — after a LoRA fuse or loading an unusual checkpoint — not the serving loop.
     """
-    out, m = qknorm_attention(q, k, v, sm_scale, cos, sin, cos_q, sin_q, return_max_logit=True)
+    out, m = qknorm_attention(q, k, v, sm_scale, cos, sin, cos_q, sin_q, return_max_logit=True, blocks=blocks)
     m_val = float(m)
     if not (m_val <= MAX_SAFE_LOGIT):
         raise FloatingPointError(

@@ -255,6 +255,34 @@ class Mesh:
         return slice(self.rank("dp") * n, (self.rank("dp") + 1) * n)
 
 
+def autotune_mesh_blocks(mesh: Mesh, joint: int, num_heads: int, head_dim: int = 128,
+                         seq_axis: Optional[str] = None, log=None) -> Tuple[int, int]:
+    """The attention tile of a ``joint``-token bucket at this rank's LOCAL shape, the
+    same on every rank (JAX pipeline.py:883-907, ops/attention.py:autotune_blocks_local):
+    ``lq`` = joint / sp q rows (the whole joint where sp does not divide it, as
+    ``_denoise_cfg`` then drops sp), ``lkv`` = joint, ``num_heads`` / tp folded heads
+    at batch 1 (dp splits batch rows, not heads). The first rank measures, unless it
+    already holds an entry for the shape, and broadcasts its entry and margin over the
+    control group; every other rank registers that entry. So ranks sharing one card
+    never time each other (they wait in the broadcast), and every rank runs the same
+    tile. Every rank of the mesh must call it. Returns the (block_q, block_kv)."""
+    from ..ops import attention as attn
+
+    sp = mesh.size(seq_axis) if seq_axis else 1
+    lq = joint // sp if sp > 1 and joint % sp == 0 else joint
+    key = (lq, joint)
+    entry = None
+    if mesh.is_root:
+        attn.autotune_blocks_local(lq, joint, max(1, num_heads // mesh.size("tp")), head_dim, log=log)
+        entry = (attn._TUNED_BLOCKS_RECT[key], attn._TUNED_MARGINS_RECT.get(key))
+    blocks, margin = mesh.broadcast_object(entry)
+    if not mesh.is_root:
+        attn.register_tuned_blocks_rect(lq, joint, blocks)  # no margin: the first rank's entry wins
+        if margin is not None:
+            attn._TUNED_MARGINS_RECT[key] = margin
+    return tuple(blocks)
+
+
 def local_device(device: Optional[str] = None) -> torch.device:
     """``cuda:{LOCAL_RANK % device_count}``, or the CPU when ``device == "cpu"``."""
     if device is not None and str(device).startswith("cpu"):

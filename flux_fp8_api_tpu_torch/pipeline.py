@@ -36,6 +36,7 @@ import dataclasses
 import io
 import logging
 import math
+import os
 import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -682,12 +683,50 @@ class FluxPipeline:
 
     # ------------------------------------------------------------------------ compile
 
-    def warmup(self, resolutions, num_steps: int = 4, prompt: str = "warmup"):
-        """One silent generate per (width, height): first-use costs (the kernel build,
-        cuBLAS heuristics, allocator growth) land here instead of in a request."""
+    def warmup(self, resolutions, num_steps: int = 4, prompt: str = "warmup",
+               autotune: Optional[bool] = None, precompile_interactive: bool = True):
+        """One silent generate per (width, height) bucket: first-use costs (the kernel
+        build, cuBLAS heuristics, allocator growth) land here instead of in a request
+        (JAX pipeline.py:824-925).
+
+        ``autotune`` (default: on when the flow is on a card with ``use_pallas``, and
+        either no mesh or a mesh whose heads or q rows are sharded) measures the
+        attention kernel's candidate tiles at each bucket's joint length before its
+        generate, so the bucket runs its measured-best tile: without a mesh through
+        ``ops/attention.py:autotune_blocks``, under a mesh at this rank's local shape
+        with the first rank measuring for all (``parallel/mesh.py:autotune_mesh_blocks``).
+        With ``config.compilation_cache_dir`` the tiles persist in its
+        ``attn_blocks.json``, loaded before and saved after, so a restart measures
+        nothing again. ``precompile_interactive`` adds one non-silent 1-step generate
+        per bucket: the path with the per-step progress bar."""
+        from .ops import attention as attn_mod
+        from .parallel.mesh import autotune_mesh_blocks
+
+        cfg = self.model_cfg
+        pallas = cfg is not None and cfg.use_pallas
+        if autotune is None:
+            sharded = self.mesh is not None and (self.mesh.size("tp") > 1 or self.mesh.size("sp") > 1)
+            autotune = pallas and self.device_flux.type == "cuda" and (self.mesh is None or sharded)
+        cache_dir = self.config.compilation_cache_dir
+        blocks_path = os.path.join(cache_dir, "attn_blocks.json") if cache_dir else None
+        if autotune and blocks_path:
+            n = attn_mod.load_tuned_blocks(blocks_path)
+            if n:
+                logger.info("loaded %d autotuned attention tile entries from %s", n, blocks_path)
         for width, height in resolutions:
+            joint = self.config.text_enc_max_length + (height // 16) * (width // 16)
+            if autotune and self.mesh is None:
+                attn_mod.autotune_blocks(joint, folded_heads=cfg.num_heads, head_dim=cfg.head_dim, log=logger.info)
+            elif autotune:
+                autotune_mesh_blocks(self.mesh, joint, cfg.num_heads, cfg.head_dim, seq_axis=cfg.attn_seq_axis,
+                                     log=logger.info)
             self.generate(prompt=prompt, width=width, height=height, num_steps=num_steps,
                           seed=0, silent=True)
+            if precompile_interactive:
+                self.generate(prompt=prompt, width=width, height=height, num_steps=1, seed=0, silent=False)
+        if autotune and blocks_path and (attn_mod._TUNED_BLOCKS or attn_mod._TUNED_BLOCKS_RECT):
+            if self.mesh is None or self.mesh.is_root:
+                attn_mod.save_tuned_blocks(blocks_path)
 
     def compile(self):
         """Calibration + serving-bucket warmup (reference flux_pipeline.py:179-231).
@@ -696,7 +735,9 @@ class FluxPipeline:
            768×768 at 12 steps (4 for schnell) — until they freeze.
         2. If the config asks for serving warmup (compile flags or
            ``warmup_resolutions``), warm each bucket (default 720×1024) at
-           ``warmup_steps`` (default 24, 4 for schnell).
+           ``warmup_steps`` (default 24, 4 for schnell), autotuning the attention
+           tiles on the card and, with ``config.precompile_interactive``, running one
+           interactive 1-step generate per bucket too (:meth:`warmup`).
         """
         schnell = self.name == ModelVersion.flux_schnell.value
         while self._needs_calibration:
@@ -709,7 +750,7 @@ class FluxPipeline:
             return
         resolutions = [tuple(r) for r in (self.config.warmup_resolutions or [[720, 1024]])]
         steps = self.config.warmup_steps or (4 if schnell else 24)
-        self.warmup(resolutions, num_steps=steps)
+        self.warmup(resolutions, num_steps=steps, precompile_interactive=self.config.precompile_interactive)
 
     # ------------------------------------------------------------------------ loaders
 

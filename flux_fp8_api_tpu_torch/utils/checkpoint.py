@@ -599,8 +599,7 @@ def load_prequantized(path_or_file, cfg: FluxStatic, device=None,
     linears = json.loads(f.metadata["linears"])
 
     def read(name, block, transpose=False):
-        t = f.get(name)
-        t = (t if block is None else t[block]).to(device)
+        t = f.get(name, block).to(device)  # one block's bytes of a stacked leaf
         # moved, then transposed: a host transpose of every kernel is the slow part
         # of a full-size load
         return t.t().contiguous() if transpose else t

@@ -132,6 +132,10 @@ class ModelSpec(BaseModel):
     # serving buckets warmed by compile(): [[width, height], ...] at warmup_steps
     warmup_resolutions: Optional[List[List[int]]] = None
     warmup_steps: Optional[int] = None
+    # compile()'s warm-up also runs one interactive (non-silent, per-step progress)
+    # 1-step generate per bucket; the servers only generate silently, so main.py and
+    # main_gr.py turn it off (JAX utils/config.py:168-172)
+    precompile_interactive: bool = True
     # the reference's use_fast_accum flag of its torch._scaled_mm call
     # (float8_quantize.py:284-292)
     fp8_fast_accum: bool = True
@@ -143,6 +147,12 @@ class ModelSpec(BaseModel):
     use_pallas: bool = True
     # LRU size of the prompt→(CLIP vec, T5 txt) conditioning cache; 0 disables
     cond_cache_size: int = 8
+    # where warm-up keeps the attention tiles it measured (attn_blocks.json, read
+    # before the warm-up and written after it), so a restart measures nothing again.
+    # The JAX package keeps its XLA compile cache there too; the port has nothing to
+    # compile ahead, and its kernel library is cached by source hash under
+    # build/kernels/ (ops/attention_kernel.py)
+    compilation_cache_dir: Optional[str] = None
 
     model_config: ConfigDict = {
         "arbitrary_types_allowed": True,

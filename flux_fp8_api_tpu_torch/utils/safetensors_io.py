@@ -8,16 +8,27 @@ returns one tensor as a view over the map, so a 24 GB checkpoint is read tensor 
 tensor as the loader moves each to its device, never whole. bf16 and fp8 tensors are
 moved as raw bytes (a ``uint8`` view), so a file either package writes reads back
 byte for byte in the other.
+
+Tensors of ``_NATIVE_READ_THRESHOLD`` bytes and more read through the native reader
+(``utils/native_io.py``: parallel ``pread`` outside the GIL, after a prefetch hint),
+as the JAX package's do, into a fresh host tensor with the same bytes; where that
+reader is unavailable they read through the map. :data:`READS` counts the large reads
+by reader, and the reader taken is logged once.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import mmap
 from pathlib import Path
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+
+from . import native_io
+
+logger = logging.getLogger(__name__)
 
 DTYPES = {
     "F64": torch.float64,
@@ -35,14 +46,33 @@ DTYPES = {
 }
 _DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
 
+_NATIVE_READ_THRESHOLD = 64 << 20  # tensors of 64 MiB and more go through the native reader
+# reads of tensors at or above the threshold, by the reader that served them
+READS = {"native": 0, "mmap": 0}
+_logged = set()
+
+
+def _log_reader(reader: str) -> None:
+    if reader not in _logged:
+        _logged.add(reader)
+        if reader == "native":
+            logger.info("safetensors: tensors of %d MiB and more read through the native parallel reader "
+                        "(csrc/stload.cpp)", _NATIVE_READ_THRESHOLD >> 20)
+        else:
+            logger.info("safetensors: the native reader is unavailable (no g++, or its build failed): "
+                        "large tensors read through the mmap")
+
 
 class SafetensorsFile:
-    """mmap-backed reader: ``keys()``, ``in``, ``metadata``, ``get(name)``. Tensors
-    are views over the map and live on the CPU; the map stays open as long as any
-    view or the file object does."""
+    """Reader: ``keys()``, ``in``, ``metadata``, ``get(name)``, on the CPU. Small
+    tensors are views over a map of the file, which stays open as long as any view or
+    the file object does; with ``use_native`` (the default) tensors of 64 MiB and more
+    are read by the native reader into fresh tensors, after a prefetch hint for the
+    whole file (JAX ``SafetensorsFile(path, use_native=True)``)."""
 
-    def __init__(self, path):
+    def __init__(self, path, use_native: bool = True):
         self.path = Path(path)
+        self.use_native = use_native
         with open(self.path, "rb") as f:
             # copy-on-write: views are writable without touching the file
             self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
@@ -51,6 +81,8 @@ class SafetensorsFile:
         self.metadata: Dict[str, str] = header.pop("__metadata__", None) or {}
         self._entries = header
         self._data_start = 8 + header_len
+        if use_native:
+            native_io.prefetch(self.path)
 
     def keys(self):
         return self._entries.keys()
@@ -58,15 +90,36 @@ class SafetensorsFile:
     def __contains__(self, name: str) -> bool:
         return name in self._entries
 
-    def get(self, name: str) -> torch.Tensor:
+    def get(self, name: str, index: Optional[int] = None) -> torch.Tensor:
+        """Tensor ``name``; with ``index``, only ``tensor[index]`` along its leading axis
+        (one block of a stacked leaf), whose bytes alone are read. Whether the native
+        reader reads them is decided by the whole tensor's size, as in JAX."""
         ent = self._entries[name]
         start, end = ent["data_offsets"]
         dtype = DTYPES[ent["dtype"]]
+        shape = list(ent["shape"])
+        big = end - start >= _NATIVE_READ_THRESHOLD
+        if index is not None:
+            rows = shape[0]
+            if not -rows <= index < rows:
+                raise IndexError(f"{name}: index {index} of {rows} rows")
+            step = (end - start) // rows
+            start += (index % rows) * step
+            end, shape = start + step, shape[1:]
         if end == start:
-            return torch.empty(ent["shape"], dtype=dtype)
-        raw = torch.frombuffer(self._mm, dtype=torch.uint8, count=end - start,
-                               offset=self._data_start + start)
-        return raw.view(dtype).reshape(ent["shape"])
+            return torch.empty(shape, dtype=dtype)
+        raw = None
+        if big:
+            if self.use_native:
+                raw = native_io.parallel_read(self.path, self._data_start + start, end - start)
+            reader = "mmap" if raw is None else "native"
+            READS[reader] += 1
+            if self.use_native:
+                _log_reader(reader)
+        if raw is None:
+            raw = torch.frombuffer(self._mm, dtype=torch.uint8, count=end - start,
+                                   offset=self._data_start + start)
+        return raw.view(dtype).reshape(shape)
 
     def items(self) -> Iterator[Tuple[str, torch.Tensor]]:
         for k in self.keys():

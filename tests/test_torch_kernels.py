@@ -25,6 +25,8 @@ from flux_fp8_api_tpu_torch.ops.attention import attention_core, benchmark_block
 from flux_fp8_api_tpu_torch.ops.attention_kernel import (
     LAUNCHES,
     MAX_SAFE_LOGIT,
+    TILE_LAUNCHES,
+    TILES,
     qknorm_attention,
     qknorm_attention_checked,
     qknorm_attention_ref,
@@ -293,6 +295,58 @@ def test_bare_two_dot_matches_plain_version(dev, lq, lkv):
         bare_two_dot(q[:, :1000], k, v)
 
 
+@pytest.mark.parametrize("tile", [t[:2] for t in TILES])
+@pytest.mark.parametrize("heads,lq,lkv", [(24, 1536, 1536), (6, 3392, 3392), (24, 1000, 1000), (24, 1536, 4608)])
+def test_every_build_at_every_tile_matches_plain_and_the_default_tile(dev, tile, heads, lq, lkv):
+    """Each build at each compiled tile: within its plain version's tolerance, and bit
+    for bit the default tile's output (a row's sums run in one order at every tile).
+    L = 3392 and 1000 leave a tail kv tile at 128 rows (1000 at 64 too); 1000 is no
+    multiple of 64, so it has no bare build."""
+    gen = torch.Generator(device=dev).manual_seed(lq * 7 + lkv + heads)
+    q, k = _normed(gen, heads, lq, 128), _normed(gen, heads, lkv, 128)
+    v = torch.randn(heads, lkv, 128, generator=gen, device=dev).to(torch.bfloat16)
+    scale = 128**-0.5
+    before, tiles_before = dict(LAUNCHES), dict(TILE_LAUNCHES)
+    out = qknorm_attention(q, k, v, scale, blocks=tile)
+    so, m = qknorm_attention(q, k, v, scale, return_max_logit=True, blocks=tile)
+    ao = qknorm_attention(q, k, v, scale, ablate_exp=True, blocks=tile)
+    bare = lq % 64 == 0 and lkv % 64 == 0
+    bo = bare_two_dot(q, k, v, tile) if bare else None
+    builds = ["qknorm_attention", "qknorm_attention_stats", "qknorm_attention_ablate_exp"] + ["bare_two_dot"] * bare
+    assert _launched(before) == {b: 1 for b in builds}
+    assert {key: n - tiles_before[key] for key, n in TILE_LAUNCHES.items() if n != tiles_before[key]} == {
+        (b, tuple(tile)): 1 for b in builds}
+    ref = qknorm_attention_ref(q, k, v, scale)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=1e-2)
+    _, ref_m = qknorm_attention_ref(q, k, v, scale, return_max_logit=True)
+    assert torch.equal(so, out) and abs(float(m) - float(ref_m)) <= 1e-3 * float(ref_m)
+    ra = qknorm_attention_ref(q, k, v, scale, ablate_exp=True).double()
+    assert float((ao.double() - ra).norm() / ra.norm()) <= 1e-2
+    default = [qknorm_attention(q, k, v, scale), qknorm_attention(q, k, v, scale, return_max_logit=True)[1],
+               qknorm_attention(q, k, v, scale, ablate_exp=True)]
+    assert torch.equal(out, default[0]) and float(m) == float(default[1]) and torch.equal(ao, default[2])
+    if bare:
+        rb = bare_two_dot_ref(q, k, v).float()
+        assert float((bo.float() - rb).abs().max()) <= 1e-2 * float(rb.abs().max())
+        assert torch.equal(bo, bare_two_dot(q, k, v))
+
+
+def test_the_default_tile_is_the_single_tile_kernel_bit_for_bit(dev):
+    """(128, 128) on chip_smoke's tile-phase inputs at L = 1536 and tp 4's local shape:
+    the digests of the single-tile kernel the tiles were templated from."""
+    from chip_smoke import SINGLE_TILE_OUTPUTS, TILE_SHAPES, output_digest, tile_inputs
+
+    scale = 128**-0.5
+    for index, (shape, heads, lq, lkv) in enumerate(TILE_SHAPES):
+        if shape not in ("L=1536", "tp4 L=3392"):
+            continue
+        q, k, v = tile_inputs(heads, lq, lkv, index)
+        _, m = qknorm_attention(q, k, v, scale, return_max_logit=True)
+        got = (output_digest(qknorm_attention(q, k, v, scale)), float(m),
+               output_digest(qknorm_attention(q, k, v, scale, ablate_exp=True)), output_digest(bare_two_dot(q, k, v)))
+        assert got == SINGLE_TILE_OUTPUTS[shape], shape
+
+
 @pytest.mark.parametrize("batch", [1, 2])
 def test_attention_core_without_pallas(dev, batch):
     """use_pallas=False on the card: the rope pass (one launch), then
@@ -321,6 +375,14 @@ def test_benchmark_blocks_launches_what_it_times(dev):
     seconds = benchmark_blocks(1536, iters=3, ablate_exp=True)
     assert seconds > 0
     assert _launched(before) == {"qknorm_attention_ablate_exp": 4, "rope_rotate": 4}  # one warm + 3 timed
+
+
+@pytest.mark.parametrize("tile", [t[:2] for t in TILES])
+def test_benchmark_blocks_times_the_tile_it_is_given(dev, tile):
+    before = dict(TILE_LAUNCHES)
+    assert benchmark_blocks(1536, tile, folded_heads=6, iters=2) > 0
+    assert {key: n - before[key] for key, n in TILE_LAUNCHES.items() if n != before[key]} == {
+        ("qknorm_attention", tuple(tile)): 3}
 
 
 @pytest.mark.parametrize("m,k,n", [(4608, 3072, 9216), (1, 3072, 18432), (512, 15360, 3072)])

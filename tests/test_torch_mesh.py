@@ -39,6 +39,7 @@ from flux_fp8_api_tpu.utils.config import FluxParams
 from flux_fp8_api_tpu_torch import lora as tlora
 from flux_fp8_api_tpu_torch.calibration import apply_input_scales
 from flux_fp8_api_tpu_torch.models import flux as tflux
+from flux_fp8_api_tpu_torch.ops.attention_kernel import TILES
 from flux_fp8_api_tpu_torch.ops.quant import Linear, _unpack_int4
 from flux_fp8_api_tpu_torch.parallel import mesh as tmesh
 from flux_fp8_api_tpu_torch.utils import checkpoint as tckpt
@@ -212,8 +213,13 @@ def worlds(trees, tmp_path_factory):
     jobs["dp2"]["tasks"].append(("dynamic", {"tree": flatten(trees["float"]), "flux_params": PARAMS.model_dump(),
                                              "dtype": "float32", "use_pallas": False, "inputs": x2,
                                              "timesteps": DYN_TIMESTEPS, "cache": DYN_CACHE}))
+    jobs["tp2sp2"]["tasks"].append(("autotune", AUTOTUNE_JOB))
     results = run_worlds(tmp_path_factory.mktemp("mesh"), jobs, timeout=150)
     return results, enc, ids
+
+
+# the tile autotuning of a warm-up bucket on tp 2 x sp 2: a joint length, the heads
+AUTOTUNE_JOB = {"joint": 4608, "num_heads": 24, "head_dim": 128}
 
 
 DYN_TIMESTEPS = [1.0, 0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2]
@@ -627,3 +633,25 @@ def test_grouped_export_matches_jax():
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
+def test_mesh_autotune_registers_the_first_ranks_winner(worlds):
+    """autotune_mesh_blocks on tp 2 x sp 2, each rank's stubbed measure preferring
+    another tile: only the first rank measures, at the local shape (L/sp q rows against
+    L, heads/tp), and every rank registers its winner and margin (the broadcast), so
+    the ranks run one tile and none timed another's card."""
+    results = worlds[0]["tp2sp2"]
+    index = len(FLUX_TASKS["tp2sp2"])
+    ranks = [r[index] for r in results]
+    key = (AUTOTUNE_JOB["joint"] // 2, AUTOTUNE_JOB["joint"])
+    first = ranks[0]
+    assert first["calls"] and all(c[:3] == (key[0], key[1], AUTOTUNE_JOB["num_heads"] // 2) for c in first["calls"])
+    assert first["blocks"] == first["favourite"]
+    assert len({r["favourite"] for r in ranks}) > 1  # rank 1 would have picked another tile
+    for r in ranks:
+        assert r["blocks"] == first["blocks"]
+        assert r["rect"] == {key: first["favourite"]} and r["margins"] == first["margins"]
+    assert all(r["calls"] == [] for r in ranks[1:])
+    tiles = [tuple(t[:2]) for t in TILES]
+    runner_up = min(2e-4 + 1e-5 * i for i, t in enumerate(tiles) if t != first["favourite"])
+    assert first["margins"][key] == pytest.approx((runner_up - 1e-4) * 1e3, abs=1e-3)

@@ -528,9 +528,30 @@ def scenario_vae(mesh, job):
     return out
 
 
+def scenario_autotune(mesh, job):
+    """The warm-up's tile autotuning at this rank's local shape with the measure stubbed
+    so that each rank would pick another tile (rank r prefers tile r + 1 of TILES): the
+    tile it returns, its tuned tables and the measurements it made."""
+    from flux_fp8_api_tpu_torch.ops import attention as attn
+    from flux_fp8_api_tpu_torch.parallel.mesh import autotune_mesh_blocks
+
+    tiles = [tuple(t[:2]) for t in attn.TILES]
+    favourite = tiles[(mesh.global_rank + 1) % len(tiles)]
+    calls = []
+
+    def measure(l, cand, folded_heads, head_dim, iters, lkv=None):
+        calls.append((l, lkv, folded_heads, tuple(cand)))
+        return 1e-4 if tuple(cand) == favourite else 2e-4 + 1e-5 * tiles.index(tuple(cand))
+
+    attn._safe_benchmark = measure
+    blocks = autotune_mesh_blocks(mesh, job["joint"], job["num_heads"], job["head_dim"], seq_axis="sp")
+    return {"blocks": blocks, "rect": dict(attn._TUNED_BLOCKS_RECT), "margins": dict(attn._TUNED_MARGINS_RECT),
+            "calls": calls, "favourite": favourite}
+
+
 SCENARIOS = {f.__name__[len("scenario_"):]: f for f in (
     scenario_flux, scenario_dynamic, scenario_lora, scenario_encoders, scenario_pipeline, scenario_pp,
-    scenario_mesh_train, scenario_vae)}
+    scenario_mesh_train, scenario_vae, scenario_autotune)}
 
 
 def main(argv) -> None:
