@@ -28,8 +28,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    on the CPU, where every op takes its plain version;
 7. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
    weights) calibrated and warmed by ``compile()`` (its warm-up autotunes the bucket's
-   attention tile, whose measuring launches are counted, and runs one interactive
-   step), serving three POST /generate requests through ``PipelineServer``, every
+   attention tile, whose measuring launches are derived from the candidates and
+   counted), serving three POST /generate requests through ``PipelineServer``, every
    launch count set to 0 just before and read just after: K1 and the rope pass each 57
    launches per model evaluation, and no other build;
 8. int linears: ``int8``, ``int4`` and the weight-only ``wo_int8``/``wo_int4``/
@@ -193,11 +193,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``compilation_cache_dir`` in a temporary directory, which must measure and write
     ``attn_blocks.json``; then, from empty tables, a second pipeline from phase 10's
     prequantized file with the same directory, which must read its large tensors through
-    the native reader, load the file and measure nothing; (c) one 1024² request of
-    ``TILE_REQUEST_STEPS`` steps through the pick, 57 K1 launches per evaluation all at
-    the picked tile, then the same at another tile, bit for bit the same latents; (d)
-    the prequantized file read through the native reader and through the mmap: equal
-    bytes, the seconds of each.
+    the mmap (the default reader), load the file and measure nothing, its launches
+    those of its warm-up alone; the attention calls each warm-up measured derived here
+    from the candidates (``measuring_calls``), as in phases 7, 9 and 15; (c) one 1024²
+    request of ``TILE_REQUEST_STEPS`` steps through the pick, 57 K1 launches per
+    evaluation all at the picked tile, then the same at another tile, bit for bit the
+    same latents; (d) the prequantized file read through the native reader and through
+    the mmap: equal bytes, the rate of each.
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
@@ -694,14 +696,16 @@ def phase_server(card: str):
         LAUNCHES[key] = 0
     for key in TILE_LAUNCHES:
         TILE_LAUNCHES[key] = 0
-    measured = MEASUREMENTS["attention_calls"]
+    pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
     t0 = time.perf_counter()
     pipe = FluxPipeline.load_pipeline_from_config_path(str(CONFIG))  # compile() runs here
     load_s = time.perf_counter() - t0
     cfg = pipe.model_cfg
     blocks = cfg.depth + cfg.depth_single_blocks
     warm_evals = compile_evaluations(pipe.config)
-    measured = MEASUREMENTS["attention_calls"] - measured  # the warm-up's autotuning (phase 19)
+    # the warm-up's autotuning (phase 19)
+    measured = measuring_calls("server", bucket_joints(pipe.config), pinned,
+                               MEASUREMENTS["attention_calls"] - measured)
     check_path_launches("server", "compile()", dict(LAUNCHES), blocks * warm_evals + measured)
     print(f"[{card}] pipeline from {CONFIG.name}: hidden {cfg.hidden_size}, {cfg.depth}+"
           f"{cfg.depth_single_blocks} blocks, fp8; load + calibrate + warm {load_s:.1f} s, "
@@ -745,6 +749,39 @@ def phase_server(card: str):
           f"{ {t[1]: n for t, n in tile_launches.items() if n and t[0] == 'qknorm_attention'} }; "
           f"{measured} attention calls of them measured tiles in compile()", flush=True)
     return launches, tile_launches, pipe, last
+
+
+# the iterations of one measurement of the warm-up's autotuner (ops/attention.py
+# autotune_blocks' default): one warm call and this many timed, one attention call each
+AUTOTUNE_ITERS = 24
+
+
+def pinned_lengths() -> set:
+    """The joint lengths whose tile is already set, so that a warm-up measures none."""
+    from flux_fp8_api_tpu_torch.ops import attention as attn
+
+    return set(attn._QKNORM_BLOCKS_MEASURED) | set(attn._TUNED_BLOCKS)
+
+
+def bucket_joints(spec) -> set:
+    """The joint (text + image) lengths of the buckets ``compile()`` warms."""
+    return {spec.text_enc_max_length + (h // 16) * (w // 16) for w, h in spec.warmup_resolutions or [[720, 1024]]}
+
+
+def measuring_calls(phase: str, joints: set, pinned: set, counted: int) -> int:
+    """The attention calls a card warm-up's autotuning makes, derived here: for each
+    joint length of ``joints`` not in ``pinned``, each candidate tile timed once, the
+    default tile once more and the two fastest again, each timing AUTOTUNE_ITERS + 1
+    calls. Fails where the module counted another number (``counted``); returns the
+    derived one."""
+    from flux_fp8_api_tpu_torch.ops.attention import candidate_blocks
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import BLOCKS
+
+    timings = [len(c) + (BLOCKS in c) + 2 for c in map(candidate_blocks, joints - pinned)]
+    want = sum(timings) * (AUTOTUNE_ITERS + 1)
+    if counted != want:
+        fail(phase, f"the warm-up's autotuning made {counted} attention calls, expected {want}")
+    return want
 
 
 def compile_evaluations(spec) -> int:
@@ -873,9 +910,10 @@ def phase_tiers(card: str):
         resident = torch.cuda.memory_allocated()  # phase 7's pipeline, kept for phase 10
         for key in LAUNCHES:
             LAUNCHES[key] = 0
-        measured = MEASUREMENTS["attention_calls"]
+        pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
         pipe = FluxPipeline.load_pipeline_from_config_path(str(ROOT / "configs" / name))  # compile() runs here
-        measured = MEASUREMENTS["attention_calls"] - measured
+        measured = measuring_calls("tiers", bucket_joints(pipe.config), pinned,
+                                   MEASUREMENTS["attention_calls"] - measured)
         setup_s = time.perf_counter() - t_phase
         model, cfg = pipe.model_params, pipe.model_cfg
         kinds = {
@@ -1681,11 +1719,12 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
     """Phase 19: (a) :func:`tile_kernels`; (b) the autotuner at AUTOTUNE_LENGTHS and at
     tp 4's local shape; ``pipe`` warmed with ``compilation_cache_dir`` writing
     attn_blocks.json; a second pipeline from phase 10's prequantized file, read through
-    the native reader, loading it and measuring nothing; (c) one 1024² request through
-    the pick, 57 K1 launches per evaluation at the picked tile, and the same request at
-    another tile; (d) the file read through the native reader and the mmap."""
+    the mmap, loading it and measuring nothing; (c) one 1024² request through the pick,
+    57 K1 launches per evaluation at the picked tile, and the same request at another
+    tile; (d) the file read through the native reader and the mmap."""
     import torch
 
+    from flux_fp8_api_tpu_torch.bench_load import file_system
     from flux_fp8_api_tpu_torch.ops import attention as attn
     from flux_fp8_api_tpu_torch.ops.attention_kernel import BLOCKS, LAUNCHES, TILE_LAUNCHES, TILES
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
@@ -1716,20 +1755,26 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
         # a warm-up with compilation_cache_dir measures 1024²'s tiles and writes them
         _clear_tuned_tables()
         pipe.config.compilation_cache_dir = str(cache)
+        blocks_count = pipe.model_cfg.depth + pipe.model_cfg.depth_single_blocks
         before = dict(attn.MEASUREMENTS)
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
         t = time.perf_counter()
         pipe.warmup([(1024, 1024)], num_steps=2, precompile_interactive=False)
-        measured = attn.MEASUREMENTS["benchmark_blocks"] - before["benchmark_blocks"]
+        measured = measuring_calls("tiles", {4608}, set(),
+                                   attn.MEASUREMENTS["attention_calls"] - before["attention_calls"])
+        check_path_launches("tiles", "the warm-up", dict(LAUNCHES), blocks_count * 2 + measured)
         blocks_file = cache / "attn_blocks.json"
         saved = json.loads(blocks_file.read_text()) if blocks_file.exists() else {}
-        if not measured or "4608" not in saved:
-            fail("tiles", f"the warm-up measured {measured} times and wrote {saved}")
+        if "4608" not in saved:
+            fail("tiles", f"the warm-up measured and wrote {saved}")
         print(f"[{card}] (b) warm-up of phase 10(a)'s pipeline at 1024² with compilation_cache_dir: "
-              f"{measured} measurements, {blocks_file.name} = {saved}; {time.perf_counter() - t:.1f} s", flush=True)
+              f"{attn.MEASUREMENTS['benchmark_blocks'] - before['benchmark_blocks']} measurements ({measured} "
+              f"attention calls), {blocks_file.name} = {saved}; {time.perf_counter() - t:.1f} s", flush=True)
         pick = attn._TUNED_BLOCKS[4608]
 
-        # a second pipeline, as after a restart: the file read through the native reader,
-        # the tiles loaded, nothing measured
+        # a second pipeline, as after a restart: the file read through the mmap (the
+        # default reader), the tiles loaded, nothing measured
         _clear_tuned_tables()
         spec = json.loads((ROOT / "configs" / "config-dev-prequant.json").read_text())
         spec.update(ckpt_path=str(held["prequant"]), compilation_cache_dir=str(cache),
@@ -1737,26 +1782,29 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
         cfg_path = cache / "config-dev-prequant.json"
         cfg_path.write_text(json.dumps(spec))
         before, reads = dict(attn.MEASUREMENTS), dict(safetensors_io.READS)
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
         t = time.perf_counter()
         second = FluxPipeline.load_pipeline_from_config_path(str(cfg_path))  # compile(): warm-up only
         load_s = time.perf_counter() - t
-        measured = attn.MEASUREMENTS["benchmark_blocks"] - before["benchmark_blocks"]
-        native = safetensors_io.READS["native"] - reads["native"]
+        measured = attn.MEASUREMENTS["attention_calls"] - before["attention_calls"]
         if measured or attn._TUNED_BLOCKS.get(4608) != pick:
-            fail("tiles", f"the second pipeline measured {measured} times; L=4608 runs "
+            fail("tiles", f"the second pipeline made {measured} measuring calls; L=4608 runs "
                           f"{attn._TUNED_BLOCKS.get(4608)}, the file says {pick}")
-        if not native or safetensors_io.READS["mmap"] != reads["mmap"]:
-            fail("tiles", f"the prequantized file: {native} native reads, "
-                          f"{safetensors_io.READS['mmap'] - reads['mmap']} large reads through the mmap")
-        print(f"[{card}] (b) a second pipeline from the prequantized file: {native} tensors of 64 MiB and more "
-              f"read through the native reader; {blocks_file.name} loaded, 0 measurements, L=4608 at {pick}; "
+        check_path_launches("tiles", "the second pipeline's compile()", dict(LAUNCHES),
+                            blocks_count * (compile_evaluations(second.config) - second.config.num_scale_trials))
+        large = safetensors_io.READS["mmap"] - reads["mmap"]
+        if not large or safetensors_io.READS["native"] != reads["native"]:
+            fail("tiles", f"the prequantized file: {large} large reads through the mmap, "
+                          f"{safetensors_io.READS['native'] - reads['native']} through the native reader")
+        print(f"[{card}] (b) a second pipeline from the prequantized file: {large} reads of 64 MiB and more "
+              f"through the mmap; {blocks_file.name} loaded, 0 measurements, L=4608 at {pick}; "
               f"load + warm-up {load_s:.1f} s", flush=True)
 
         # (c) one 1024² request through the pick, then the same at another tile
         body = {"prompt": "a photo of a red house on a hill", "width": 1024, "height": 1024,
                 "num_steps": TILE_REQUEST_STEPS, "seed": 31}
         other = BLOCKS if tuple(pick) != tuple(BLOCKS) else tuple(TILES[-1][:2])
-        blocks_count = second.model_cfg.depth + second.model_cfg.depth_single_blocks
         latents = {}
         for blocks in (pick, other):
             attn.register_tuned_blocks(4608, blocks)  # no margin: it always takes the entry
@@ -1780,17 +1828,27 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
         del second, latents, a, b
         release()
 
-        # (d) the file through the native reader and through the mmap
+        # (d) the file through the native reader and through the mmap, tensor by tensor
+        # with equal bytes (the machine's file system keeps the file's pages: bench_load
+        # reports the pages a drop frees, here none)
         path = held["prequant"]
-        native_f, mmap_f = safetensors_io.SafetensorsFile(path), safetensors_io.SafetensorsFile(path, use_native=False)
+
+        def read(f, name):
+            """The tensor with its bytes read: a view over the map is copied out."""
+            x = f.get(name)
+            native = f.use_native and x.numel() * x.element_size() >= safetensors_io._NATIVE_READ_THRESHOLD
+            return x if native else x.clone()
+
+        native_f = safetensors_io.SafetensorsFile(path, use_native=True)
+        mmap_f = safetensors_io.SafetensorsFile(path)
         native_s = mmap_s = 0.0
         nbytes = big = 0
         for name in native_f.keys():
             t = time.perf_counter()
-            x = native_f.get(name)
+            x = read(native_f, name)
             native_s += time.perf_counter() - t
             t = time.perf_counter()
-            y = mmap_f.get(name).clone()  # the map's pages read
+            y = read(mmap_f, name)
             mmap_s += time.perf_counter() - t
             n = x.numel() * x.element_size()
             nbytes += n
@@ -1798,9 +1856,10 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
             if not torch.equal(x.view(-1).view(torch.uint8), y.view(-1).view(torch.uint8)):
                 fail("tiles", f"(d) {name}: the native reader's bytes differ from the mmap's")
         print(f"[{card}] (d) {path.name}: {nbytes} bytes in {len(native_f.keys())} tensors ({big} of 64 MiB and "
-              f"more through the native reader), bytes equal to the mmap's; native reader {native_s:.3f} s "
-              f"({nbytes / native_s / 1e9:.2f} GB/s), mmap {mmap_s:.3f} s ({nbytes / mmap_s / 1e9:.2f} GB/s)",
-              flush=True)
+              f"more through the native reader), bytes equal to the mmap's, on {file_system(path)}; native reader "
+              f"{native_s:.3f} s ({nbytes / native_s / 1e9:.2f} GB/s), mmap {mmap_s:.3f} s "
+              f"({nbytes / mmap_s / 1e9:.2f} GB/s)", flush=True)
+        del native_f, mmap_f, x, y
     finally:
         shutil.rmtree(cache, ignore_errors=True)
         shutil.rmtree(held.pop("prequant").parent, ignore_errors=True)
@@ -1918,11 +1977,12 @@ def phase_offload(card: str):
         fail("offload", f"after load: host-resident {[k for k, v in trees.items() if host_resident(v)]}, "
                         f"T5 streamed {pipe.t5.stream}")
     spec.compile_extras = spec.compile_blocks = True
-    measured = MEASUREMENTS["attention_calls"]
+    pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
     t = time.perf_counter()
     pipe.compile()
     compile_s = time.perf_counter() - t
-    measured = MEASUREMENTS["attention_calls"] - measured  # tiles measured in the warm-up, if any
+    # tiles measured in the warm-up, if any
+    measured = measuring_calls("offload", bucket_joints(spec), pinned, MEASUREMENTS["attention_calls"] - measured)
     check_path_launches("offload", "compile()", dict(LAUNCHES), blocks * compile_evaluations(spec) + measured)
     host_stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
     print(f"[{card}] (offload) {OFFLOAD_CONFIG.name}: flow {flow_bytes / 1e9:.3f} GB on the host; set-up: draw "

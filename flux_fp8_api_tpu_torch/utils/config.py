@@ -133,9 +133,11 @@ class ModelSpec(BaseModel):
     warmup_resolutions: Optional[List[List[int]]] = None
     warmup_steps: Optional[int] = None
     # compile()'s warm-up also runs one interactive (non-silent, per-step progress)
-    # 1-step generate per bucket; the servers only generate silently, so main.py and
-    # main_gr.py turn it off (JAX utils/config.py:168-172)
-    precompile_interactive: bool = True
+    # 1-step generate per bucket (JAX utils/config.py:168-172). In JAX that step
+    # compiles the interactive program ahead; eager PyTorch has nothing to compile, so
+    # it only costs a model evaluation per bucket and is off by default here (JAX:
+    # True). main.py and main_gr.py set it False, as JAX's do.
+    precompile_interactive: bool = False
     # the reference's use_fast_accum flag of its torch._scaled_mm call
     # (float8_quantize.py:284-292)
     fp8_fast_accum: bool = True

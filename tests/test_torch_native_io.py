@@ -86,7 +86,7 @@ def test_without_a_library_the_mmap_reads(tmp_path, monkeypatch):
     assert native_io.prefetch(path) is False
     monkeypatch.setattr(tsio, "_NATIVE_READ_THRESHOLD", 1)
     before = dict(tsio.READS)
-    assert torch.equal(tsio.SafetensorsFile(path).get("w"), w)
+    assert torch.equal(tsio.SafetensorsFile(path, use_native=True).get("w"), w)
     assert tsio.READS["mmap"] - before["mmap"] == 1 and tsio.READS["native"] == before["native"]
 
 
@@ -133,7 +133,7 @@ def test_get_index_reads_one_block(tmp_path, monkeypatch):
     tsio.save_safetensors(path, {"w": w})
     for threshold in (1, 1 << 40):  # the native reader and the mmap
         monkeypatch.setattr(tsio, "_NATIVE_READ_THRESHOLD", threshold)
-        f = tsio.SafetensorsFile(path)
+        f = tsio.SafetensorsFile(path, use_native=True)
         assert all(torch.equal(f.get("w", i), w[i]) for i in range(-5, 5))
         with pytest.raises(IndexError):
             f.get("w", 5)
@@ -157,7 +157,22 @@ def test_a_prequantized_load_reads_each_stored_byte_once(tmp_path, monkeypatch):
     real = native_io.parallel_read
     monkeypatch.setattr(native_io, "parallel_read", lambda p, off, n, **kw: sizes.append(n) or real(p, off, n, **kw))
     monkeypatch.setattr(tsio, "_NATIVE_READ_THRESHOLD", 1)
-    f = tsio.SafetensorsFile(path)
+    f = tsio.SafetensorsFile(path, use_native=True)
     model = tckpt.load_prequantized(f, pcfg(), device="cpu")
     assert_same_model(model, via_mmap)
     assert sum(sizes) == stored
+
+
+def test_the_default_reader_is_the_mmap(tmp_path, monkeypatch):
+    """The port reads through the map unless asked (JAX's default is its native reader):
+    on the card's host the map was the faster reader of a file in the page cache."""
+    path = str(tmp_path / "d.safetensors")
+    w = torch.randn(64, 64)
+    tsio.save_safetensors(path, {"w": w})
+    monkeypatch.setattr(tsio, "_NATIVE_READ_THRESHOLD", 1)
+    prefetched = []
+    monkeypatch.setattr(native_io, "prefetch", lambda p: prefetched.append(p) or True)
+    before = dict(tsio.READS)
+    f = tsio.SafetensorsFile(path)
+    assert not f.use_native and torch.equal(f.get("w"), w) and prefetched == []
+    assert tsio.READS["mmap"] - before["mmap"] == 1 and tsio.READS["native"] == before["native"]
