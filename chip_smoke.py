@@ -26,20 +26,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. fp8 linear: ``torch._scaled_mm`` against its plain fp32 version at the qkv shape;
 6. model: a small flux model (two heads of 128) on the card against the same model
    on the CPU, where every op takes its plain version;
-7. server: the pipeline from ``configs/config-dev.json`` (full flux-dev width, random
-   weights) calibrated and warmed by ``compile()`` (its warm-up autotunes the bucket's
-   attention tile, whose measuring launches are derived from the candidates and
-   counted), serving three POST /generate requests through ``PipelineServer``, every
-   launch count set to 0 just before and read just after: K1 and the rope pass each 57
-   launches per model evaluation, and no other build;
+7. server: the pipeline from ``configs/config-dev.json`` as shipped (full flux-dev
+   width, random weights; ``compile_blocks`` and ``compile_extras`` on, so the blocks
+   and extras run ``torch.compile``'d, with ``compilation_cache_dir`` COMPILE_CACHE,
+   emptied first: its compiles are cold) calibrated and warmed by ``compile()`` (its
+   warm-up autotunes the bucket's attention tile, whose measuring launches are derived
+   from the candidates and counted, then compiles the bucket), serving three POST
+   /generate requests through ``PipelineServer``, every launch count set to 0 just
+   before and read just after: K1 and the rope pass each 57 launches per model
+   evaluation, inside the compiled graphs, and no other build; one graph per compiled
+   function and bucket (a bucket's first request compiles it);
 8. int linears: ``int8``, ``int4`` and the weight-only ``wo_int8``/``wo_int4``/
    ``wo_int2`` Linears at the qkv shape and ``int8`` at linear2's, at M = 1, 17 and
    4608 rows: the int32 product (``torch._int_mm``) equal to an exact fp64 product,
    the output against the plain version, and the times beside ``_scaled_mm`` fp8;
 9. tiers: ``configs/config-dev-int8.json`` and ``configs/config-dev-gigaquant.json``
    (int4 flow with its embedders, wo_int4 T5 and CLIP, weight-only fp8 VAE) at full
-   width and depth, each calibrated and warmed by ``compile()`` and serving one
-   1024×1024, 28-step request, 57 K1 and 57 rope-pass launches per model evaluation;
+   width and depth, compiled as shipped, each calibrated by ``compile()`` and warmed
+   at 1024×1024 for COMPILED_TIER_STEPS steps (cut from 720×1024 at 24: the warm-up
+   compiles the request's bucket), serving one 1024×1024, 28-step request, 57 K1 and
+   57 rope-pass launches per model evaluation, one graph per function; then phase
+   20(d): compiled against eager at 1024×1024 for COMPILED_TIER_STEPS steps;
 10. checkpoints: (a) phase 7's calibrated pipeline saved prequantized, reloaded through
     a copy of ``configs/config-dev-prequant.json`` with ``ckpt_path`` set: no
     calibration trial, and phase 7's 512×512 request served again with identical
@@ -83,15 +90,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
     11 evaluations, latents other than (b)'s; (d) ``{"mode": "dynamic", "threshold":
     0.4}``: 3 to 28 evaluations of 57 K1 launches each; every request a 1024×1024 JPEG
     and finite latents; then ``bench_cache.run`` on that pipeline's model at 1024×1024,
-    28 steps, whose rows are printed (57 K1 launches per evaluation);
+    28 steps, compiled as the pipeline serves, whose rows are printed (57 K1 launches
+    per evaluation);
 14. fidelity gate, once every earlier pipeline is freed: ``bench_fidelity.run`` at
     flux-dev's full width and depth, 1024×1024, 28 steps (the bf16 ground truth
-    resident, then fp8, fp8_fast_accum, int8 and int4 each drawn again from the same
-    seed, calibrated and compared by SSIM and PSNR of the latent image), its JSON line
-    printed; the phase fails if the fp8_fast_accum SSIM is below 0.95;
+    resident and eager, then fp8, fp8_fast_accum, int8 and int4 each drawn again from
+    the same seed, calibrated, denoised on the compiled path and compared by SSIM and
+    PSNR of the latent image), its JSON line printed; the phase fails if the
+    fp8_fast_accum SSIM is below 0.95;
 15. offload: ``configs/config-dev-offload.json`` (fp8 flow, T5 wo_int4, all three
     offloads) at full width and depth from a seed, the flow and the VAE in page-locked
-    host memory; (a) ``compile()`` (calibration over the whole tree's round trip, the
+    host memory, served eagerly (the compile flags off; (e) compiles); (a) ``compile()``
+    (calibration over the whole tree's round trip, the
     warm-up streamed; 57 K1 and rope-pass launches per evaluation) and one streamed
     1024x1024/28 request through ``PipelineServer``, with memory before, at peak and
     after; between requests no flow block, VAE or encoder weight on the card (every
@@ -113,11 +123,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
     request at ``stream_flow_offload=False``, its latents the streamed request's and
     the params back on the host; (d) POST /lora load and unload of a LoRA over two
     blocks, fused on the host: the stream state dropped and rebuilt, the host tree
-    pinned again, a request after each.
+    pinned again, a request after each; (e) (phase 20(e)) the resident loop and the
+    streamed one at retain 0 compiled, 512x512/4, each run twice: latents bit for bit,
+    the second run compiling nothing.
 
-16. training: (a) the rope pass's backward build against its plain version bit for bit
+16. training (served eagerly: training never compiles): (a) the rope pass's backward
+    build against its plain version bit for bit
     at L = 4608, 3392 and 1536 (a contiguous and a head-folded strided gradient),
-    timed beside its plain version and its bound, and the autograd Function's grads
+    timed beside its plain version and its bound, and the rope op's autograd gradients
     against autograd through ``rope_rotate_ref`` on the card; (b) QLoRA at full size:
     ``configs/config-dev-int8.json``'s pipeline (calibrated and warmed by
     ``compile()``, one 512x512/20 request served first), rank-16 adapters on
@@ -145,7 +158,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and tp 2 x sp 2, each timed beside its bound and ``F.scaled_dot_product_attention``;
     then one-rank references of ``configs/config-dev-tp4.json`` (int8) and
     ``configs/config-dev.json`` (fp8), each calibrated, saved prequantized and run at
-    1024x1024 for ``MESH_STEPS`` steps from ``MESH_SEED``; (d) a world of one over
+    ``MESH_SIZE``² (512², cut from 1024²) for ``MESH_STEPS`` steps from
+    ``MESH_SEED`` (and, for phase 18, fp8 at 1024² for one and two images); (d) a world of one over
     NCCL (``{"dp": 1, "tp": 1}``), its latents bit for bit the fp8 reference's; (b)
     worlds of ranks sharing the one card over gloo, each rank loading its slice from
     the prequantized file: config-dev-tp4.json as 4 ranks, config-dev.json at
@@ -160,7 +174,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 18. pp, training and bands on the mesh (phase 17's files and references, or its own):
     (c) the rope pass's backward build at a tp rank's 12 and 6 heads, L = 1536 and
     4608, bit for bit its plain version, timed beside its bound; one rank's QLoRA step
-    (int8 file, 512², batch 2, rank 16) and whole 1024² VAE decode and encode; then
+    (int8 file, ``TRAIN_MESH_SIZE``² (256², cut from 512²), batch 2, rank 16) and
+    whole 1024² VAE decode and encode; then
     worlds sharing the card over gloo, each rank loading its slice: (a) pp 2 and
     dp 2 x pp 2 (two images; T5 and CLIP offloaded), the fp8 file at full depth, a
     ``MESH_STEPS``-step 1024² request from one rank's conditioning: latents bit for bit
@@ -168,7 +183,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     rope-pass launches per rank per evaluation, K1 on, the handoffs equal to the pinned
     budget (``pp_flux_budget``); on pp 2 POST /generate through the first rank and a
     cached request answering 400; (d) on pp 2, full-parameter SGD and AdamW steps at
-    2 + 4 blocks, full width, 512², under SDPA's memory-efficient backend, against one
+    2 + 4 blocks, full width, 256², under SDPA's memory-efficient backend, against one
     rank's computed on each rank first, which must repeat itself bit for bit: the loss
     and the block gradients bit for bit, each tensor around the stacks within
     ``PP_TRAIN_REL_TOL`` and, with ∂vec_silu left unsummed over pp (planted), outside
@@ -176,11 +191,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
     gradients against one rank's within ``QLORA_MESH_LOSS_TOL`` / ``QLORA_MESH_GRAD_TOL``,
     rope-pass forwards and backwards launched, no K1; (e) the 1024² decode in bands over
     tp 4 and dp 2 x tp 2 (pixels' mean |Δ| within ``BAND_PIXEL_MEAN_TOL``), the 1024²
-    encode in bands over tp 2 (within ``BAND_REL_TOL``), and on tp 2 a 512² request with
-    the three offload flags bit for bit the resident pipeline's.
+    encode in bands over tp 2 (within ``BAND_REL_TOL``), and on tp 2 a 256² request (cut
+    from 512²) with the three offload flags bit for bit the resident pipeline's.
 
 19. tiles and the autotuner (run after phase 13, while phase 10(a)'s pipeline and its
-    prequantized file still exist): (a) every build of K1's source (serving, stats,
+    prequantized file still exist; both pipelines served eagerly here, so that no tile
+    picked or forced compiles a bucket again): (a) every build of K1's source (serving, stats,
     ablate, bare) at every compiled tile (``attention_kernel.TILES``) against its plain
     version at L = 4608, 3392 and 1536 with 24 heads, at tp 4's local shape (6 heads,
     3392²) and at sp 2's rectangle (2304 × 4608), from inputs drawn on the CPU: every
@@ -201,12 +217,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
     same latents; (d) the prequantized file read through the native reader and through
     the mmap: equal bytes, the rate of each.
 
+20. compiled serving (``models/flux.py:Compiled``): (a) before phase 7,
+    ``torch.library.opcheck`` of the kernels' ops (the rope pass and its autograd, its
+    backward, K1's serving, stats and ablate builds) at 24 heads × 4608 × 128; (b) after
+    phase 7, on its pipeline, at 1024×1024/28, 720×1024/24 and 512×512/20: compiled
+    against eager on the same inputs (it/s of each, the compiled run twice and bit for
+    bit, 57 K1 and rope-pass launches per evaluation in every run, no graph compiled,
+    the latent images' SSIM at least COMPILED_SSIM), and each bucket's cold compile
+    seconds, phase 7's first denoise of it less a steady one; (c) the same buckets
+    compiled in a second process from COMPILE_CACHE (:func:`compile_child`): one graph
+    per function and bucket, each warm compile shorter than the cold one; (f)
+    ``profile_step`` of a compiled 1024² step. (d) runs in phase 9, (e) in
+    phase 15, and phase 14's gate is on the compiled path.
+
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
 time and error at L = 4608 from phase 3, 4 or 16; K1 and the rope pass also at phase
 17's local shapes, the rope pass's backward at phase 18's, under ``mesh_shapes``; each
 build of K1's source by tile under ``tiles``: its launches on that path and phase
-19(a)'s numbers at each shape), and ``{"ok": true, "device": {...}}``. Phases 7-13
+19(a)'s numbers at each shape; the op it launches through), and ``{"ok": true,
+"device": {...}}``; before them, phase 20's summary. Phases 7-13
 free their pipelines before the next (phase 7's lives until phase 10 has saved it, and
 phase 10(a)'s reload until phase 19 has used it).
 """
@@ -221,6 +251,7 @@ import io
 import json
 import math
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -697,8 +728,11 @@ def phase_server(card: str):
     for key in TILE_LAUNCHES:
         TILE_LAUNCHES[key] = 0
     pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
+    graphs = compile_counts()
+    shutil.rmtree(COMPILE_CACHE, ignore_errors=True)  # phase 7 compiles cold
     t0 = time.perf_counter()
-    pipe = FluxPipeline.load_pipeline_from_config_path(str(CONFIG))  # compile() runs here
+    # compile() runs here: calibration, then the warm-up compiles its bucket's graphs
+    pipe = FluxPipeline.load_pipeline_from_config_path(str(CONFIG), compilation_cache_dir=str(COMPILE_CACHE))
     load_s = time.perf_counter() - t0
     cfg = pipe.model_cfg
     blocks = cfg.depth + cfg.depth_single_blocks
@@ -707,8 +741,16 @@ def phase_server(card: str):
     measured = measuring_calls("server", bucket_joints(pipe.config), pinned,
                                MEASUREMENTS["attention_calls"] - measured)
     check_path_launches("server", "compile()", dict(LAUNCHES), blocks * warm_evals + measured)
+    if pipe.compiled != (True, True):
+        fail("server", f"{CONFIG.name} as shipped serves {pipe.compiled}, not the blocks and extras compiled")
+    check_frames("server", "compile()", graphs, 1)
+    # each bucket's first denoise, its graphs compiled inside it: the warm-up's here,
+    # the other buckets' at their first request (phase 20 subtracts a steady run)
+    first_denoise = {"x".join(map(str, (pipe.config.warmup_resolutions or [[720, 1024]])[0])):
+                     pipe.timings["denoise_seconds"]}
     print(f"[{card}] pipeline from {CONFIG.name}: hidden {cfg.hidden_size}, {cfg.depth}+"
-          f"{cfg.depth_single_blocks} blocks, fp8; load + calibrate + warm {load_s:.1f} s, "
+          f"{cfg.depth_single_blocks} blocks, fp8, {pipe.compiled}; load + calibrate + warm (its bucket's "
+          f"graphs compiled from {COMPILE_CACHE.relative_to(ROOT)}) {load_s:.1f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
 
     server = PipelineServer(pipe, host="127.0.0.1", port=0)
@@ -736,6 +778,7 @@ def phase_server(card: str):
             launched = {key: n - before[key] for key, n in LAUNCHES.items()}
             check_path_launches("server", str(body), launched, blocks * steps)
             its = pipe.timings["denoise_it_per_s"]
+            first_denoise.setdefault(f"{w}x{h}", pipe.timings["denoise_seconds"])
             print(f"[{card}] POST /generate {w}x{h} {steps} steps: {dt:.3f} s/request, "
                   f"denoise {its:.3f} it/s, decode {pipe.timings['decode_seconds']:.3f} s, "
                   f"{launched['qknorm_attention']} K1 and {launched['rope_rotate']} rope-pass launches", flush=True)
@@ -745,10 +788,12 @@ def phase_server(card: str):
     launches = dict(LAUNCHES)  # read just after the main path's run
     tile_launches = dict(TILE_LAUNCHES)
     check_path_launches("server", "the run", launches, blocks * evals + measured)
+    added = check_frames("server", "the run", graphs, len({(w, h) for _, (w, h), _ in requests}))
+    print(f"[{card}] the run's compiled graphs per function: {added} (one per bucket)", flush=True)
     print(f"[{card}] the run's K1 launches by tile: "
           f"{ {t[1]: n for t, n in tile_launches.items() if n and t[0] == 'qknorm_attention'} }; "
           f"{measured} attention calls of them measured tiles in compile()", flush=True)
-    return launches, tile_launches, pipe, last
+    return launches, tile_launches, pipe, last, first_denoise
 
 
 # the iterations of one measurement of the warm-up's autotuner (ops/attention.py
@@ -911,7 +956,12 @@ def phase_tiers(card: str):
         for key in LAUNCHES:
             LAUNCHES[key] = 0
         pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
-        pipe = FluxPipeline.load_pipeline_from_config_path(str(ROOT / "configs" / name))  # compile() runs here
+        graphs = compile_counts()
+        # compile() runs here: calibration, then the warm-up compiles the 1024² bucket
+        pipe = FluxPipeline.load_pipeline_from_config_path(
+            str(ROOT / "configs" / name), compilation_cache_dir=str(COMPILE_CACHE),
+            warmup_resolutions=[[1024, 1024]], warmup_steps=COMPILED_TIER_STEPS)
+        check_frames("tiers", f"{name}: compile()", graphs, 1, shared_extras=True)
         measured = measuring_calls("tiers", bucket_joints(pipe.config), pinned,
                                    MEASUREMENTS["attention_calls"] - measured)
         setup_s = time.perf_counter() - t_phase
@@ -936,8 +986,10 @@ def phase_tiers(card: str):
         if lat is None or not bool(torch.isfinite(lat.float()).all()):
             fail("tiers", f"{name}: non-finite latents")
         check_path_launches("tiers", f"{name}: POST /generate", launched, blocks * 28)
+        check_frames("tiers", f"{name}: POST /generate", graphs, 1, shared_extras=True)
+        compiled_against_eager(card, "tiers", pipe, 1024, 1024, COMPILED_TIER_STEPS, what=f"(d) {name} ")
         print(f"[{card}] {name}: leaf kinds {kinds}; set-up (load + 12-step calibration + "
-              f"{pipe.config.warmup_steps or 24}-step warm) {setup_s:.1f} s, peak device memory "
+              f"{pipe.config.warmup_steps}-step 1024x1024 warm-up, compiling) {setup_s:.1f} s, peak device memory "
               f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.1f} GiB above the "
               f"{resident / 2**30:.1f} GiB already resident; POST /generate 1024x1024 28 steps: "
               f"{dt:.3f} s/request, denoise {pipe.timings['denoise_it_per_s']:.3f} it/s, "
@@ -1517,7 +1569,7 @@ def phase_step_cache(card: str, pipe):
 
     for key in LAUNCHES:  # the sweep's run starts here
         LAUNCHES[key] = 0
-    summary = bench_cache.run(pipe.model_params, cfg, 1024, 1024, steps)
+    summary = bench_cache.run(pipe.model_params, cfg, 1024, 1024, steps, compiled=pipe.compiled)  # as served
     launches = dict(LAUNCHES)
     print(json.dumps(summary), flush=True)
     evals = 2 * steps + sum(r["evals"] for r in summary["detail"]["rows"])  # warm + timed uncached
@@ -1542,7 +1594,7 @@ def dynamic_sync_cost(card: str, model, cfg) -> None:
     from flux_fp8_api_tpu_torch.models.flux import flux_cache_indicator
     from flux_fp8_api_tpu_torch.sampling import CacheConfig
 
-    steps, groups = 4, 8
+    steps, groups = 4, 4
     dynamic0 = CacheConfig(mode="dynamic", threshold=0.0, warmup=1, tail=0)  # steps 1-3 unforced
     unforced = steps - 1
     timesteps = bf.linear_schedule(steps)
@@ -1731,6 +1783,9 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
     from flux_fp8_api_tpu_torch.utils import safetensors_io
 
     t_phase = time.perf_counter()
+    # the phase measures tiles, not the compiled path: the pipeline serves it eagerly,
+    # so that no tile it picks or forces compiles the buckets again
+    pipe.config.compile_blocks = pipe.config.compile_extras = False
     rows, spreads = tile_kernels(card)
     print(f"[{card}] (a) the largest spread {max(spreads.values()):.4f} ms against NOISE_FLOOR_MS "
           f"{attn.NOISE_FLOOR_MS} ms; {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1778,14 +1833,15 @@ def phase_tiles(card: str, pipe, held: dict) -> dict:
         _clear_tuned_tables()
         spec = json.loads((ROOT / "configs" / "config-dev-prequant.json").read_text())
         spec.update(ckpt_path=str(held["prequant"]), compilation_cache_dir=str(cache),
-                    warmup_resolutions=[[1024, 1024]], warmup_steps=2)
+                    warmup_resolutions=[[1024, 1024]], warmup_steps=2, compile_blocks=False, compile_extras=False)
         cfg_path = cache / "config-dev-prequant.json"
         cfg_path.write_text(json.dumps(spec))
         before, reads = dict(attn.MEASUREMENTS), dict(safetensors_io.READS)
         for key in LAUNCHES:
             LAUNCHES[key] = 0
         t = time.perf_counter()
-        second = FluxPipeline.load_pipeline_from_config_path(str(cfg_path))  # compile(): warm-up only
+        second = FluxPipeline.load_pipeline_from_config_path(str(cfg_path))
+        second.compile()  # the warm-up alone: the file's tiles loaded, nothing measured
         load_s = time.perf_counter() - t
         measured = attn.MEASUREMENTS["attention_calls"] - before["attention_calls"]
         if measured or attn._TUNED_BLOCKS.get(4608) != pick:
@@ -1880,8 +1936,14 @@ def phase_fidelity(card: str):
     steps, params = 28, bench_fidelity.FLUX_DEV
     for key in LAUNCHES:  # the gate's run starts here
         LAUNCHES[key] = 0
-    report = bench_fidelity.run(params, torch.device("cuda"), steps=steps)
+    from flux_fp8_api_tpu_torch.models.flux import Compiled
+
+    graphs = compile_counts()
+    report = bench_fidelity.run(params, torch.device("cuda"), steps=steps, compiled=Compiled(blocks=True, extras=True))
     launches = dict(LAUNCHES)
+    added = {fn: n - graphs[fn] for fn, n in compile_counts().items()}
+    if not added["_double_block"]:  # the fp8 tier without fast accumulation is a graph of its own
+        fail("fidelity", f"bench_fidelity.run compiled {added}: the tiers did not run compiled")
     print(json.dumps(report), flush=True)
     tiers = bench_fidelity.TIERS
     # the ground truth's and each tier's steps, and each tier's calibration pass
@@ -1893,7 +1955,8 @@ def phase_fidelity(card: str):
     value = report["detail"]["fp8_fast_accum"]
     print(f"[{card}] fidelity gate: fp8_fast_accum SSIM {value:.6f} (gate >= {FIDELITY_GATE}); "
           + ", ".join(f"{t} {report['detail'][t]:.6f} / {report['psnr'][t]:.2f} dB" for t in tiers)
-          + f"; peak memory {report['peak_memory_gib']:.1f} GiB; phase {time.perf_counter() - t_phase:.1f} s",
+          + f"; on the compiled path ({added} graphs compiled); peak memory {report['peak_memory_gib']:.1f} GiB; "
+          f"phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     if not value >= FIDELITY_GATE:
         fail("fidelity", f"fp8_fast_accum SSIM {value} is below the gate {FIDELITY_GATE}")
@@ -1923,9 +1986,12 @@ def phase_offload(card: str):
     import torch
 
     from flux_fp8_api_tpu_torch import offload as offload_mod
+    from flux_fp8_api_tpu_torch.models import flux as flux_mod
     from flux_fp8_api_tpu_torch.ops.attention import MEASUREMENTS
     from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
     from flux_fp8_api_tpu_torch.ops.schedule import get_schedule
+
+    all_compiled = flux_mod.Compiled(blocks=True, extras=True)
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
     from flux_fp8_api_tpu_torch.sampling import denoise
     from flux_fp8_api_tpu_torch.server import PipelineServer
@@ -1976,7 +2042,9 @@ def phase_offload(card: str):
     if not all(host_resident(tree) for tree in trees.values()) or not pipe.t5.stream:
         fail("offload", f"after load: host-resident {[k for k, v in trees.items() if host_resident(v)]}, "
                         f"T5 streamed {pipe.t5.stream}")
-    spec.compile_extras = spec.compile_blocks = True
+    # the phase serves eagerly (its graphs would be new ones: a streamed block's copies
+    # are made under inference mode, the resident tree's were not); (e) compiles
+    spec.warmup_resolutions = [[720, 1024]]
     pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
     t = time.perf_counter()
     pipe.compile()
@@ -2073,13 +2141,14 @@ def phase_offload(card: str):
                 peak = torch.cuda.max_memory_reserved() if reserved else torch.cuda.max_memory_allocated()
                 return out, dt, peak - m0
 
-            def streamed(x, ts, retain=None, sync_every=8, reserved=False):
+            def streamed(x, ts, retain=None, sync_every=8, reserved=False, compiled=None):
                 return timed(f"streamed, retain {retain}, sync_every {sync_every}", len(ts) - 1, lambda: (
-                    offload_mod.streamed_denoise(tops, dbl, sgl, dev, *x, ts, 3.5, cfg,
-                                                 retain_bytes=retain, sync_every=sync_every)), reserved)
+                    offload_mod.streamed_denoise(tops, dbl, sgl, dev, *x, ts, 3.5, cfg, retain_bytes=retain,
+                                                 sync_every=sync_every, compiled=compiled)), reserved)
 
-            def resident(tree, x, ts, reserved=False):
-                return timed("resident", len(ts) - 1, lambda: denoise(tree, cfg, *x, ts, 3.5), reserved)
+            def resident(tree, x, ts, reserved=False, compiled=None):
+                return timed("resident", len(ts) - 1, lambda: denoise(tree, cfg, *x, ts, 3.5, compiled=compiled),
+                             reserved)
 
             rates = []
             for blk in (dbl[0], dbl[1], sgl[0], sgl[1]):
@@ -2108,6 +2177,28 @@ def phase_offload(card: str):
             rb, _, _ = resident(dev_tree, x512, ts4)
             ra2, _, ra2_reserved = resident(dev_tree, x512, ts4[:3], reserved=True)
             _, _, ra_reserved = resident(dev_tree, x512, ts4, reserved=True)
+            # (e) the resident loop and the streamed one at retain 0, compiled, each run
+            # twice: the second compiles nothing, whatever blocks it is handed
+            graphs = compile_counts()
+            resident(dev_tree, x512, ts4, compiled=all_compiled)
+            rc, rc_s, _ = resident(dev_tree, x512, ts4, compiled=all_compiled)
+            resident_graphs = compile_counts()
+            sc1, _, _ = streamed(x512, ts4, 0, compiled=all_compiled)
+            streamed_graphs = compile_counts()
+            sc, sc_s, _ = streamed(x512, ts4, 0, compiled=all_compiled)
+            if streamed_graphs == resident_graphs:
+                fail("offload", "(e) the streamed loop compiled no graph of its own: it ran eagerly")
+            if compile_counts() != streamed_graphs or not torch.equal(sc, sc1):
+                fail("offload", f"(e) the second compiled streamed run compiled {compile_counts()} against "
+                                f"{streamed_graphs}, or its latents differ")
+            if not torch.equal(sc, rc):
+                fail("offload", f"(e) compiled streamed latents differ from the compiled resident loop's by "
+                                f"{float((sc.float() - rc.float()).abs().max())}")
+            print(f"[{card}] (e) 512x512/4 compiled: resident {4 / rc_s:.3f} it/s, streamed at retain 0 "
+                  f"{4 / sc_s:.3f} it/s, latents bit for bit; graphs compiled by the resident loop "
+                  f"{ {k: resident_graphs[k] - graphs[k] for k in graphs} }, by the streamed one "
+                  f"{ {k: streamed_graphs[k] - resident_graphs[k] for k in graphs} } (its blocks' copies made "
+                  f"under inference mode), by its second run none", flush=True)
             del dev_tree
             release()
             floor = float((ra.float() - rb.float()).abs().max())
@@ -2122,13 +2213,13 @@ def phase_offload(card: str):
                     "retain 0, sync_every 2": streamed(x512, ts4, 0, 2)}
             # sync_every waits on the compute, as JAX's does: each single block's compute
             # padded by a sleep longer than its copy, so that the copies outrun it
-            real_single = offload_mod._single_block
-            offload_mod._single_block = lambda *a: (torch.cuda._sleep(OFFLOAD_PAD_CYCLES), real_single(*a))[1]
+            real_single = flux_mod._single_block
+            flux_mod._single_block = lambda *a: (torch.cuda._sleep(OFFLOAD_PAD_CYCLES), real_single(*a))[1]
             try:
                 padded = {s: streamed(x512, ts4[:3], 0, s, reserved=True) for s in (0, 2)}
                 padded_mid = {s: streamed(x512, ts4, mid, s, reserved=True) for s in (0, 2)}
             finally:
-                offload_mod._single_block = real_single
+                flux_mod._single_block = real_single
             slice_ = max(offload_mod.slice_nbytes(dbl), offload_mod.slice_nbytes(sgl))
             kept = offload_mod.retained_blocks(dbl, sgl, mid)
             kept_bytes = sum(tree_nbytes(b) for b, k in zip(list(dbl) + list(sgl), kept) if k)
@@ -2321,7 +2412,9 @@ def phase_training(card: str):
     # (b) QLoRA at full size on a pipeline that has calibrated and served
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     t = time.perf_counter()
-    pipe = FluxPipeline.load_pipeline_from_config_path(str(TRAIN_CONFIG))  # compile() runs here
+    # compile() runs here; this phase trains, so it serves eagerly
+    pipe = FluxPipeline.load_pipeline_from_config_path(str(TRAIN_CONFIG), compile_blocks=False, compile_extras=False,
+                                                       warmup_resolutions=[[720, 1024]])
     cfg, base = pipe.model_cfg, pipe.model_params
     blocks = cfg.depth + cfg.depth_single_blocks
     print(f"[{card}] (b) pipeline from {TRAIN_CONFIG.name}: hidden {cfg.hidden_size}, {cfg.depth}+"
@@ -2570,6 +2663,10 @@ def phase_training(card: str):
 # ----------------------------------------------------------------------- phase 17: mesh
 
 MESH_STEPS = 2
+# the image side of phase 17's and 18's requests and references (the kernels of 17(a)
+# run at 1024² and 720×1024 all the same)
+MESH_SIZE = 512
+MESH_IMG_TOKENS = (MESH_SIZE // 16) ** 2
 MESH_SEED = 23
 MESH_PROMPT = "a photo of a red house on a hill"
 # noise seeds read besides MESH_SEED in the fp8 tp 2 x sp 2 world: one (25 was read too
@@ -2689,7 +2786,7 @@ def _mesh_rank(job: dict) -> None:
     torch.cuda.synchronize()
     t = time.perf_counter()
     with torch.inference_mode():
-        pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED,
+        pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
                       num_images=job["num_images"], silent=True)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
@@ -2741,8 +2838,8 @@ def _mesh_rank(job: dict) -> None:
 
 
 def _mesh_latents(pipe, job: dict, seed: int):
-    """One MESH_STEPS-step 1024² request's latents on the host."""
-    pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=seed,
+    """One MESH_STEPS-step MESH_SIZE² request's latents on the host."""
+    pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=seed,
                   num_images=job["num_images"], silent=True)
     return pipe.last_latents.cpu()
 
@@ -2837,7 +2934,7 @@ def _mesh_http(pipe, job: dict) -> dict:
         url = f"http://127.0.0.1:{server.port}"
         # another prompt than (b)'s: the LRU misses, and the sharded encoders run; one step,
         # since what is checked here is the status, the JPEG and /health, not the latents
-        body = {"prompt": "a lighthouse at dusk", "width": 1024, "height": 1024, "num_steps": 1, "seed": 5}
+        body = {"prompt": "a lighthouse at dusk", "width": MESH_SIZE, "height": MESH_SIZE, "num_steps": 1, "seed": 5}
         for name, path, req in (("generate", "/generate", body),
                                 ("lora", "/lora", {"action": "load", "path": job["lora"], "scale": 1.0, "name": "m"}),
                                 ("generate after the LoRA", "/generate", body)):
@@ -2952,15 +3049,19 @@ def mesh_references(card: str, tmp: Path):
                        tmp / f"{quant}-cond.pt")
             runs = [(1, MESH_SEED)] + ([(2, MESH_SEED)] + [(1, s) for s in MESH_FP8_SEEDS] if quant == "fp8" else [])
             for n, seed in runs:
-                pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=seed,
+                pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=seed,
                               num_images=n, silent=True)
                 refs[(quant, n, seed)] = pipe.last_latents.cpu()
+            for n in (1, 2) if quant == "fp8" else ():  # phase 18's pp worlds serve at P18_SIZE
+                pipe.generate(MESH_PROMPT, width=P18_SIZE, height=P18_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
+                              num_images=n, silent=True)
+                refs[(quant, n, MESH_SEED, P18_SIZE)] = pipe.last_latents.cpu()
             if quant == "fp8":  # the same request with _scaled_mm's accumulation promoted to fp32
                 pipe.model_cfg = dataclasses.replace(pipe.model_cfg, fp8_fast_accum=False)
-                pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED,
+                pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
                               silent=True)
                 refs[(quant, 1, "exact accum")] = pipe.last_latents.cpu()
-        print(f"[{card}] one rank {config.name} ({quant}): calibrated, saved and {MESH_STEPS}-step 1024x1024 "
+        print(f"[{card}] one rank {config.name} ({quant}): calibrated, saved and {MESH_STEPS}-step {MESH_SIZE}² "
               f"references in {time.perf_counter() - t:.1f} s; flow {one_bytes[quant][0] / 2**30:.3f} GiB",
               flush=True)
         del pipe
@@ -3000,7 +3101,8 @@ def phase_mesh(card: str, hold: Optional[dict] = None):
                 _mesh_spec(CONFIG, ckpt_path=str(tmp / "fp8.safetensors"), prequantized_flow=True,
                            mesh={"dp": 1, "tp": 1}), mesh=mesh)
             with torch.inference_mode():
-                pipe.generate(MESH_PROMPT, width=1024, height=1024, num_steps=MESH_STEPS, seed=MESH_SEED, silent=True)
+                pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
+                              silent=True)
             same = torch.equal(pipe.last_latents.cpu(), refs[("fp8", 1, MESH_SEED)])
             print(f"[{card}] (d) NCCL world of one ({dist.get_backend()}, mesh {mesh.shape}): latents bit for bit "
                   f"against no mesh: {same}", flush=True)
@@ -3049,7 +3151,7 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
     each rank's block weights at most 1/tp of one rank's; the collectives of the
     request and of the encode equal to the pinned budget."""
     tp, sp, dp = shape.get("tp", 1), shape.get("sp", 1), shape.get("dp", 1)
-    heads, l = 24 // tp * (n // dp), 4608
+    heads, l = 24 // tp * (n // dp), 512 + MESH_IMG_TOKENS
     evals = MESH_STEPS
     from flux_fp8_api_tpu_torch.bench_fidelity import latent_image
     from flux_fp8_api_tpu_torch.utils.fidelity import ssim
@@ -3065,7 +3167,8 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
     faults = {k: rel_to(v, ref) for k, v in extra.items() if k in ("bias", "sp order")}
     promoted = {k: rel_to(v, refs[(quant, n, "exact accum")]) for k, v in extra.items() if k.startswith("exact accum")}
     whole = rel_to(extra["end to end"], ref) if "end to end" in extra else None
-    similarity = ssim(latent_image(latents, 128, 128), latent_image(ref, 128, 128))
+    h_lat = MESH_SIZE // 8
+    similarity = ssim(latent_image(latents, h_lat, h_lat), latent_image(ref, h_lat, h_lat))
     cond = max(max(r["cond_rel"]) for r in ranks)
     print(f"[{card}] (b) {what}: {len(ranks)} ranks on one card over gloo, wall {wall:.1f} s (load "
           f"{max(r['load_s'] for r in ranks):.1f} s, generate {max(r['generate_s'] for r in ranks):.1f} s; ranks "
@@ -3096,9 +3199,10 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
     if not cond <= MESH_COND_REL_TOL:
         fail("mesh", f"{what}: the sharded text encoders' conditioning is {cond:.3e} from one rank's")
     want_shape = [[[heads, l // sp, 128], [heads, l, 128]]]
-    budget = {repr(k): v * evals for k, v in mesh_flux_budget(shape, quant, batch=n // dp).items()}
+    budget = {repr(k): v * evals
+              for k, v in mesh_flux_budget(shape, quant, batch=n // dp, l_img=MESH_IMG_TOKENS).items()}
     if dp > 1:  # the latents gathered over dp
-        budget[repr(("all_gather", "bfloat16", (n // dp, 4096, 64)))] = 1
+        budget[repr(("all_gather", "bfloat16", (n // dp, MESH_IMG_TOKENS, 64)))] = 1
     # the prompt's encode under tp: T5 (2 layers, d_model 4096) and CLIP (2 layers, 768),
     # each block's o/out_proj and down-projection reduced in fp32
     enc_budget = {} if tp == 1 else {repr(("all_reduce_sum", "float32", (512, 4096))): 4,
@@ -3127,11 +3231,11 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
     if http is not None:
         for name in ("generate", "lora", "generate after the LoRA"):
             e = http[name]
-            if e["status"] != 200 or (name != "lora" and (e["format"] != "JPEG" or e["size"] != [1024, 1024])):
+            if e["status"] != 200 or (name != "lora" and (e["format"] != "JPEG" or e["size"] != [MESH_SIZE] * 2)):
                 fail("mesh", f"(c) {name} through the first rank: {e}")
         if http["health"].get("mesh", {}).get("shape") != shape or http["health"]["loras"] != ["m"]:
             fail("mesh", f"(c) /health: {http['health']}")
-        print(f"[{card}] (c) HTTP on {what}: POST /generate 1024x1024, 1 step, {http['generate']['s']:.1f} s, POST /lora "
+        print(f"[{card}] (c) HTTP on {what}: POST /generate {MESH_SIZE}², 1 step, {http['generate']['s']:.1f} s, POST /lora "
               f"{http['lora']['s']:.1f} s, POST /generate {http['generate after the LoRA']['s']:.1f} s; /health "
               f"{http['health']}", flush=True)
     # each planted fault must read outside the comparison meant to see it: the sp rows
@@ -3156,9 +3260,12 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
 CUT_FLUX = dict(in_channels=64, vec_in_dim=768, context_in_dim=4096, hidden_size=3072, mlp_ratio=4.0, num_heads=24,
                 depth=2, depth_single_blocks=4, axes_dim=[16, 56, 56], theta=10_000, qkv_bias=True,
                 guidance_embed=True)
-TRAIN_MESH_SIZE = 512  # the QLoRA and full-parameter steps of phase 18, as phase 16 trains
-P18_SIZE = 1024  # the requests, the decode and the encode of phase 18
-OFFLOAD_MESH_SIZE = 512  # the request with every offload flag
+TRAIN_MESH_SIZE = 256  # the QLoRA and full-parameter steps of phase 18 (cut from 512)
+# the requests, the decode and the encode of phase 18, kept at 1024²: pp's latents at
+# M = 1 are one rank's bit for bit there, where at 512² cuBLAS takes another fp8 kernel
+# for a dp rank's batch than for one rank's two images
+P18_SIZE = 1024
+OFFLOAD_MESH_SIZE = 256  # the request with every offload flag (cut from 512)
 # QLoRA on a mesh against one rank, from the same batch, draws and adapters (bf16): a
 # row-parallel product sums the ranks' fp32 partials where one rank's GEMM sums its
 # products, and a dp rank runs one example where one rank runs the batch, so the two
@@ -3691,7 +3798,7 @@ def check_phase18_world(card, what, shape, job, ranks, refs, qref, wall):
         spec = _mesh_spec(CONFIG)
         p, l_img = spec.params, (P18_SIZE // 16) ** 2
         latents = torch.load(out / "pp-latents.pt")
-        ref = refs[("fp8", n, MESH_SEED)]
+        ref = refs[("fp8", n, MESH_SEED, P18_SIZE)]
         exact, rel = bool(torch.equal(latents, ref)), _rel(latents, ref)
         budgets = pp_flux_budget(shape, p, n // dp, spec.text_enc_max_length, l_img)
         # each stage's blocks: a depth slice of a stack the stages divide, else all of it
@@ -3784,6 +3891,264 @@ def check_phase18_world(card, what, shape, job, ranks, refs, qref, wall):
               f"{o['card_gib_between']:.2f} GiB on the card; {o['s']:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 20: compiled serving
+
+# every phase's compilation_cache_dir where a pipeline compiles: inductor's graphs and
+# Triton's kernels (pipeline.py:point_compile_cache), and the attention tiles that a
+# warm-up measures (attn_blocks.json)
+COMPILE_CACHE = ROOT / "build" / "compile_cache"
+# phase 7's buckets in the order it compiles them (the warm-up's, then the requests'),
+# so that a second process (phase 20(c)) pays the process's first compile, which starts
+# inductor's compile workers, at the same bucket: (width, height, steps)
+COMPILE_BUCKETS = ((720, 1024, 24), (1024, 1024, 28), (512, 512, 20))
+# the functions that compile_blocks and compile_extras compile (models/flux.py:COMPILES)
+COMPILED_FUNCTIONS = ("flux_pre", "flux_final", "_double_block", "_single_block")
+# compiled against eager on the same inputs, SSIM of the latent image: inductor fuses
+# the elementwise passes and keeps fp32 between the ops it fuses, where eager rounds each
+# op's output to bf16, so the two differ by bf16 roundings carried through 57 blocks and
+# the steps; the fidelity gate (0.95 against bf16) is the bound on what users see
+COMPILED_SSIM = 0.99
+# phase 20(d): the steps of the tiers' compiled-against-eager runs at 1024² (phase 9)
+COMPILED_TIER_STEPS = 4
+# the torch.library op through which each kernel build launches (ops/attention_kernel.py);
+# the bare two-dot (K2) is a measurement call, never compiled, and has none
+OPS = {"qknorm_attention": "flux_fp8::qknorm_attention", "qknorm_attention_stats": "flux_fp8::qknorm_attention",
+       "qknorm_attention_ablate_exp": "flux_fp8::qknorm_attention", "rope_rotate": "flux_fp8::rope_rotate",
+       "rope_rotate_backward": "flux_fp8::rope_rotate_backward"}
+
+
+def compile_counts() -> dict:
+    from flux_fp8_api_tpu_torch.models.flux import COMPILES
+
+    return {fn: COMPILES[fn] for fn in COMPILED_FUNCTIONS}
+
+
+def check_frames(phase: str, what: str, before: dict, buckets: int, shared_extras: bool = False) -> dict:
+    """One graph per compiled function and bucket since ``before`` (compile_counts());
+    with ``shared_extras`` (a new tier at a bucket another tier compiled) the blocks'
+    graphs and at most that many of the extras', whose float leaves the tiers may share.
+    → the counts added."""
+    added = {fn: n - before[fn] for fn, n in compile_counts().items()}
+    want = {fn: buckets for fn in COMPILED_FUNCTIONS}
+    if shared_extras:
+        want = {fn: min(added[fn], buckets) if fn in ("flux_pre", "flux_final") else buckets for fn in want}
+    if added != want:
+        fail(phase, f"{what}: graphs compiled {added}, expected {want}")
+    return added
+
+
+def compiled_ops(card: str) -> None:
+    """(a) ``torch.library.opcheck`` of the kernels' ops on the card at flux-dev's 24
+    heads × 128, L = 4608: the schema, the fake implementation's shapes and strides
+    against the kernel's outputs, the op under AOTAutograd, and the rope pass's
+    autograd formula (its backward op)."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops import attention_kernel as ak
+
+    t = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    h, l = 24, 4608
+
+    def heads():
+        return torch.randn(h, l, 128, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, gq, gk = (heads() for _ in range(5))
+    cos, sin = rope_tables(1024, 1024)
+    ops = torch.ops.flux_fp8
+    cases = [("rope_rotate", ops.rope_rotate.default, (q, k, cos, sin, cos, sin)),
+             ("rope_rotate (autograd)", ops.rope_rotate.default,
+              (q.clone().requires_grad_(), k.clone().requires_grad_(), cos, sin, cos, sin)),
+             ("rope_rotate_backward", ops.rope_rotate_backward.default, (gq, gk, cos, sin, cos, sin))]
+    cases += [(f"qknorm_attention ({name})", ops.qknorm_attention.default, (q, k, v, 128**-0.5, 128, 128, build))
+              for build, name in enumerate(ak.K1_BUILDS)]
+    for name, op, args in cases:
+        try:
+            result = torch.library.opcheck(op, args)
+        except Exception as e:  # noqa: BLE001 - every failure of the check fails the phase
+            fail("compiled", f"opcheck {name}: {type(e).__name__}: {e}")
+        if any(r != "SUCCESS" for r in result.values()):
+            fail("compiled", f"opcheck {name}: {result}")
+    torch.cuda.synchronize()
+    print(f"[{card}] (compiled) (a) torch.library.opcheck at 24 heads x 4608 x 128: "
+          + ", ".join(name for name, _, _ in cases) + f": every check passed; {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+
+def compile_child(cache_dir: str) -> None:
+    """Phase 20(c) in a second process: config-dev.json's pipeline (random weights
+    from its seed; no calibration trials, since no graph depends on the scales'
+    values) with ``compilation_cache_dir`` = ``cache_dir`` and the compile flags, one
+    eager 1-step request first (the encoders, the VAE and cuBLAS warm), then each
+    bucket of COMPILE_BUCKETS served at one step twice: the first generate compiles
+    the bucket's graphs (from the cache where it holds them), the second runs them,
+    and the difference is the bucket's compile seconds. Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline, point_compile_cache
+
+    t = time.perf_counter()
+    pipe = FluxPipeline.load_pipeline_from_config_path(str(CONFIG), compilation_cache_dir=cache_dir,
+                                                       num_scale_trials=0, compile_blocks=False,
+                                                       compile_extras=False)
+    load_s = time.perf_counter() - t
+    body = dict(prompt="a photo of a red house on a hill", num_steps=1, seed=3, silent=True)
+    pipe.generate(width=512, height=512, **body)
+    pipe.config.compile_blocks = pipe.config.compile_extras = True
+    point_compile_cache(cache_dir)
+    rows = []
+    for w, h, _ in COMPILE_BUCKETS:
+        before = compile_counts()
+        t = time.perf_counter()
+        pipe.generate(width=w, height=h, **body)
+        first = time.perf_counter() - t
+        t = time.perf_counter()
+        pipe.generate(width=w, height=h, **body)
+        steady = time.perf_counter() - t
+        rows.append({"bucket": f"{w}x{h}", "first_s": first, "steady_s": steady, "compile_s": first - steady,
+                     "graphs": {fn: n - before[fn] for fn, n in compile_counts().items()}})
+    files = sum(1 for f in Path(cache_dir).rglob("*") if f.is_file())
+    print(json.dumps({"load_s": load_s, "buckets": rows, "cache_files": files,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def warm_compile_seconds(card: str) -> dict:
+    """(c) Each bucket's compile seconds in a fresh process (:func:`compile_child`)
+    from COMPILE_CACHE as phase 7's cold compiles left it: one graph per function and
+    bucket. → the child's report."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke as c; c.compile_child({str(COMPILE_CACHE)!r})"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail("compiled", f"the warm compile process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    for row in run["buckets"]:
+        if row["graphs"] != {fn: 1 for fn in COMPILED_FUNCTIONS}:
+            fail("compiled", f"warm {row['bucket']}: graphs {row['graphs']}, expected 1 per function")
+    print(f"[{card}] (compiled) (c) a second process from {COMPILE_CACHE.relative_to(ROOT)} ({run['cache_files']} "
+          f"files): load {run['load_s']:.1f} s; " + "; ".join(
+              f"{r['bucket']} first 1-step request {r['first_s']:.2f} s, steady {r['steady_s']:.3f} s, compile "
+              f"{r['compile_s']:.2f} s" for r in run["buckets"]) + f"; process {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return run
+
+
+def fixed_inputs(pipe, width: int, height: int, steps: int, seed: int = 7):
+    """A request's denoise inputs, made once: (img, img_ids, txt, txt_ids, vec, timesteps)."""
+    import torch
+
+    gen, _ = pipe.set_seed(seed)
+    with torch.inference_mode():
+        img, timesteps = pipe.preprocess_latent(None, height, width, steps, 1.0, gen, 1)
+        img, img_ids, vec, txt, txt_ids = pipe.prepare(img, "a photo of a red house on a hill")
+    return img, img_ids, txt, txt_ids, vec, timesteps
+
+
+def timed_denoise(phase: str, what: str, model, cfg, inputs, compiled, blocks: int):
+    """One denoise of ``inputs`` (fixed_inputs) with ``compiled``; every launch count
+    set to 0 first and held to 57 per evaluation after; no graph compiled in it (the
+    bucket compiled before). → (latents, it/s)."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
+    from flux_fp8_api_tpu_torch.sampling import denoise
+
+    img, img_ids, txt, txt_ids, vec, timesteps = inputs
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    before = compile_counts()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = denoise(model, cfg, img.clone(), img_ids, txt, txt_ids, vec, timesteps, 3.5, compiled=compiled)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    steps = len(timesteps) - 1
+    check_path_launches(phase, what, dict(LAUNCHES), blocks * steps)
+    if compile_counts() != before:
+        fail(phase, f"{what}: compiled {compile_counts()} against {before} before: the bucket recompiled")
+    if not bool(torch.isfinite(out.float()).all()):
+        fail(phase, f"{what}: non-finite latents")
+    return out, steps / dt
+
+
+def latent_ssim(a, b, width: int, height: int) -> float:
+    from flux_fp8_api_tpu_torch.bench_fidelity import latent_image
+    from flux_fp8_api_tpu_torch.utils.fidelity import ssim
+
+    h_lat, w_lat = 2 * math.ceil(height / 16), 2 * math.ceil(width / 16)
+    return ssim(latent_image(a, h_lat, w_lat), latent_image(b, h_lat, w_lat))
+
+
+def compiled_against_eager(card: str, phase: str, pipe, width: int, height: int, steps: int,
+                           what: str = "") -> dict:
+    """The pipeline's compiled denoise against its eager one on the same inputs, the
+    compiled run first and last (it/s the better of the two, latents bit for bit the
+    same), eager between: SSIM of the latent images at least COMPILED_SSIM."""
+    from flux_fp8_api_tpu_torch.models.flux import EAGER
+
+    cfg = pipe.model_cfg
+    blocks = cfg.depth + cfg.depth_single_blocks
+    inputs = fixed_inputs(pipe, width, height, steps)
+    label = f"{what}{width}x{height}/{steps}"
+    first, its_c1 = timed_denoise(phase, f"{label} compiled", pipe.model_params, cfg, inputs, pipe.compiled, blocks)
+    eager, its_e = timed_denoise(phase, f"{label} eager", pipe.model_params, cfg, inputs, EAGER, blocks)
+    again, its_c2 = timed_denoise(phase, f"{label} compiled", pipe.model_params, cfg, inputs, pipe.compiled, blocks)
+    import torch
+
+    if not torch.equal(first, again):
+        fail(phase, f"{label}: two compiled runs of the same inputs differ")
+    value = latent_ssim(first, eager, width, height)
+    diff = float((first.float() - eager.float()).norm() / eager.float().norm())
+    print(f"[{card}] ({phase}) {label}: denoise compiled {max(its_c1, its_c2):.3f} it/s (runs {its_c1:.3f}, "
+          f"{its_c2:.3f}; bit for bit), eager {its_e:.3f} it/s, x{max(its_c1, its_c2) / its_e:.3f}; compiled vs "
+          f"eager latents: SSIM {value:.6f} (>= {COMPILED_SSIM}), relative norm {diff:.3e}; {blocks} K1 and rope-pass "
+          f"launches per evaluation on each run", flush=True)
+    if not value >= COMPILED_SSIM:
+        fail(phase, f"{label}: compiled vs eager SSIM {value} below {COMPILED_SSIM}")
+    return {"compiled_its": max(its_c1, its_c2), "eager_its": its_e, "ssim": value, "rel": diff}
+
+
+def phase_compiled(card: str, pipe, first_denoise: dict) -> dict:
+    """(b) phase 7's pipeline (config-dev.json as shipped: fp8, the compile flags on;
+    its buckets compiled in phase 7): compiled against eager at each bucket of
+    COMPILE_BUCKETS, and each bucket's cold compile seconds, phase 7's first denoise
+    of the bucket less a steady one of as many steps; (c) the warm compile seconds in a
+    second process, each below the cold ones; (f) ``profile_step``'s breakdown of the
+    compiled step at 1024². (a) ran before phase 7
+    (:func:`compiled_ops`); (d) runs in phase 9, (e) in phase 15, and the fidelity gate
+    on the compiled path is phase 14."""
+    from flux_fp8_api_tpu_torch import profile_step
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for w, h, steps in COMPILE_BUCKETS:
+        row = rows[f"{w}x{h}"] = compiled_against_eager(card, "compiled", pipe, w, h, steps)
+        first_steps = steps if f"{w}x{h}" != "720x1024" else (pipe.config.warmup_steps or 24)
+        row["compile_cold_s"] = first_denoise[f"{w}x{h}"] - first_steps / row["compiled_its"]
+    warm = warm_compile_seconds(card)
+    for r in warm["buckets"]:
+        rows[r["bucket"]]["compile_warm_s"] = r["compile_s"]
+    print(f"[{card}] (compiled) (b, c) compile seconds per bucket, cold (phase 7, empty cache) / warm (a second "
+          f"process): " + ", ".join(f"{b} {r['compile_cold_s']:.2f} / {r['compile_warm_s']:.2f}" for b, r in rows.items()),
+          flush=True)
+    for b, r in rows.items():
+        if not r["compile_warm_s"] < r["compile_cold_s"]:
+            fail("compiled", f"{b}: warm compile {r['compile_warm_s']:.2f} s, cold {r['compile_cold_s']:.2f} s")
+    r = profile_step.profile(pipe, 1024, 1024, 4)
+    print(f"[{card}] (compiled) (f) profile_step 1024x1024, compiled: busy {r['busy_ms_per_step']:.2f} / wall "
+          f"{r['wall_ms_per_step']:.2f} ms per step, idle {100 * r['idle_share']:.1f}%, "
+          f"{r['kernels_per_step']:.0f} kernels per step; ms per step by kind "
+          + json.dumps({k: round(v, 3) for k, v in r["ms_per_step"].items()})
+          + "; longest kernels " + json.dumps({k: round(v, 3) for k, v in r["top_kernels_ms_per_step"].items()}),
+          flush=True)
+    print(f"[{card}] (compiled) phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"buckets": rows, "profile": {"busy_ms": r["busy_ms_per_step"], "wall_ms": r["wall_ms_per_step"],
+                                         "kernels": r["kernels_per_step"], "ms_per_step": r["ms_per_step"]}}
+
+
 def main() -> int:
     try:
         import torch
@@ -3811,7 +4176,9 @@ def main() -> int:
     builds, path_launches, path_tile_launches = phase_guard_ablation(card_line)
     phase_fp8_linear(card_line)
     phase_model(card_line)
-    launches, tile_launches, pipe7, request = phase_server(card_line)
+    compiled_ops(card_line)  # phase 20(a)
+    launches, tile_launches, pipe7, request, first_denoise = phase_server(card_line)  # compiles cold
+    compiled = phase_compiled(card_line, pipe7, first_denoise)  # phase 20(b), (c), (f)
     held = {"pipe": pipe7, "request": request}
     del pipe7
     try:
@@ -3842,7 +4209,7 @@ def main() -> int:
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+                "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "op": OPS.get(name)}
 
     k1_source = "flux_fp8_api_tpu_torch/csrc/qknorm_attention.cu"
     kernels = [
@@ -3883,6 +4250,7 @@ def main() -> int:
     # phase 18's tp-local heads
     kernels[-1]["mesh_shapes"] = [{k: m[k] for k in (*shape, "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
                                   for m in bwd_rows]
+    print(f"[{card_line}] (compiled) summary: " + json.dumps(compiled), flush=True)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

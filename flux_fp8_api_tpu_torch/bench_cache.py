@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -32,7 +32,7 @@ from .bench_fidelity import (
     FLUX_DEV, TINY, calibrate, device_fields, draw_model, latent_image, linear_schedule, make_inputs,
     run_denoise,
 )
-from .models.flux import FluxStatic
+from .models.flux import Compiled, FluxStatic
 from .sampling import CacheConfig
 from .utils.fidelity import ssim
 
@@ -59,15 +59,16 @@ def selected_policies() -> List[Tuple[str, CacheConfig]]:
 
 
 def run(model, cfg: FluxStatic, width: int = 1024, height: int = 1024, steps: int = 28,
-        txt_len: int = 512) -> dict:
-    """Sweep :func:`selected_policies` on ``model``, printing one JSON line per run;
-    → the summary (not printed)."""
+        txt_len: int = 512, compiled: Optional[Compiled] = None) -> dict:
+    """Sweep :func:`selected_policies` on ``model``, each denoise compiled as
+    ``compiled`` says (``sampling.denoise``), printing one JSON line per run; → the
+    summary (not printed)."""
     device = next(model.buffers()).device
     inputs, h_lat, w_lat = make_inputs(cfg, width, height, txt_len, device)
     timesteps = linear_schedule(steps)
 
-    run_denoise(model, cfg, inputs, timesteps)  # warm: the first use of each shape
-    out, base_s, _ = run_denoise(model, cfg, inputs, timesteps)
+    run_denoise(model, cfg, inputs, timesteps, compiled=compiled)  # warm: the first use of each shape
+    out, base_s, _ = run_denoise(model, cfg, inputs, timesteps, compiled=compiled)
     ref = latent_image(out, h_lat, w_lat)
     base_its = steps / base_s
     print(json.dumps({"policy": "uncached", "evals": steps, "seconds": base_s,
@@ -75,7 +76,7 @@ def run(model, cfg: FluxStatic, width: int = 1024, height: int = 1024, steps: in
 
     rows = []
     for name, cache in selected_policies():
-        out, seconds, evals = run_denoise(model, cfg, inputs, timesteps, cache)
+        out, seconds, evals = run_denoise(model, cfg, inputs, timesteps, cache, compiled)
         row = {"policy": name, "evals": evals, "seconds": seconds, "it_per_s_effective": steps / seconds,
                "ssim_vs_uncached": ssim(ref, latent_image(out, h_lat, w_lat))}
         rows.append(row)

@@ -15,6 +15,10 @@ amax pass at t = 0.5, denoises, and is compared with the ground truth by the SSI
 :func:`latent_image` (PSNR beside it). Tiers: ``fp8`` (``_scaled_mm`` without fast
 accumulation), ``fp8_fast_accum`` (the serving default), ``int8``, ``int4``.
 
+``run(..., compiled=Compiled(True, True))`` denoises every tier with its blocks and
+extras ``torch.compile``'d, the path a ``-C`` server serves (chip_smoke phase 14; the
+ground truth stays eager).
+
 Prints one JSON line: ``metric``, ``value`` (the fp8_fast_accum SSIM), ``unit``,
 ``gate``, ``pass`` (every fp8 tier at or above 0.95), ``detail`` (SSIM per tier),
 ``psnr``, ``timings``, ``device`` and ``card`` (nvidia-smi's name and power limit).
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from .calibration import apply_input_scales, merge_amax
-from .models.flux import FluxStatic, flux_apply, init_flux_params, quant_tier
+from .models.flux import Compiled, FluxStatic, flux_apply, init_flux_params, quant_tier
 from .ops.packing import make_img_ids, make_txt_ids, unpack_latents
 from .pipeline import _sync
 from .sampling import denoise
@@ -116,19 +120,23 @@ def calibrate(model, cfg: FluxStatic, inputs: Dict[str, torch.Tensor]) -> None:
     x = inputs
     t = torch.full((1,), 0.5, device=x["img"].device)
     g = torch.full((1,), GUIDANCE, device=x["img"].device)
-    _, amaxes = flux_apply(model, cfg, x["img"], x["img_ids"], x["txt"], x["txt_ids"], t, x["vec"], g,
-                           collect_amax=True)
-    apply_input_scales(model, merge_amax(None, amaxes))
+    with torch.inference_mode():  # as a pipeline's calibration writes its scales
+        _, amaxes = flux_apply(model, cfg, x["img"], x["img_ids"], x["txt"], x["txt_ids"], t, x["vec"], g,
+                               collect_amax=True)
+        apply_input_scales(model, merge_amax(None, amaxes))
 
 
-def run_denoise(model, cfg: FluxStatic, inputs: Dict[str, torch.Tensor], timesteps, cache=None):
-    """The denoise loop on a copy of the inputs' latent; → (latents, seconds, model
+def run_denoise(model, cfg: FluxStatic, inputs: Dict[str, torch.Tensor], timesteps, cache=None,
+                compiled: Optional[Compiled] = None):
+    """The denoise loop on a copy of the inputs' latent, its blocks and extras compiled
+    as ``compiled`` says (``sampling.denoise``); → (latents, seconds, model
     evaluations). Seconds are the host clock around the loop, ending in a device sync."""
     x = inputs
     stats: dict = {}
     start = time.perf_counter()
-    out = denoise(model, cfg, x["img"].clone(), x["img_ids"], x["txt"], x["txt_ids"], x["vec"],
-                  timesteps, GUIDANCE, cache=cache, stats=stats)
+    with torch.inference_mode():  # as a request runs it: a serving forward compiles only without grad
+        out = denoise(model, cfg, x["img"].clone(), x["img_ids"], x["txt"], x["txt_ids"], x["vec"],
+                      timesteps, GUIDANCE, cache=cache, stats=stats, compiled=compiled)
     _sync(out)
     return out, time.perf_counter() - start, stats.get("model_evals", len(timesteps) - 1)
 
@@ -144,8 +152,10 @@ def device_fields(device) -> dict:
 
 
 def run(params: FluxParams, device, width: int = 1024, height: int = 1024, txt_len: int = 512,
-        steps: int = 28, tiers: Sequence[str] = TIERS) -> dict:
-    """The gate: bf16 ground truth, then each tier; → the report (the JSON line)."""
+        steps: int = 28, tiers: Sequence[str] = TIERS, compiled: Optional[Compiled] = None) -> dict:
+    """The gate: bf16 ground truth (eager), then each tier, its denoise compiled as
+    ``compiled`` says (the served path: ``Compiled(True, True)``); → the report (the
+    JSON line)."""
     cfg = FluxStatic.from_params(params)
     inputs, h_lat, w_lat = make_inputs(cfg, width, height, txt_len, device)
     timesteps = linear_schedule(steps)
@@ -170,7 +180,7 @@ def run(params: FluxParams, device, width: int = 1024, height: int = 1024, txt_l
         calibrate(model, run_cfg, inputs)
         _sync(inputs["img"])
         timings[f"{tier}_draw_calibrate_s"] = time.perf_counter() - start
-        out, timings[f"{tier}_denoise_s"], _ = run_denoise(model, run_cfg, inputs, timesteps)
+        out, timings[f"{tier}_denoise_s"], _ = run_denoise(model, run_cfg, inputs, timesteps, compiled=compiled)
         img = latent_image(out, h_lat, w_lat)
         detail[tier], db[tier] = ssim(ref, img), psnr(ref, img)
         del model, out
@@ -187,6 +197,7 @@ def run(params: FluxParams, device, width: int = 1024, height: int = 1024, txt_l
         "detail": detail,
         "psnr": db,
         "timings": timings,
+        "compiled": (compiled or Compiled())._asdict(),
         **device_fields(device),
     }
     if on_card:

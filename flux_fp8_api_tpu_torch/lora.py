@@ -289,13 +289,15 @@ def _locate(model: ParamTree, key: str, cfg: Optional[FluxStatic] = None) -> Opt
 # ------------------------------------------------------------------------- fuse/unfuse
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def fuse_lora(model: ParamTree, cfg: FluxStatic, lora_sd: StateDict, keys: List[str],
               lora_scale: float) -> ParamTree:
     """Fuse every LoRA-touched Linear in place: W ← W + scale·B@A (reference
     apply_lora_to_model, lora_loading.py:634-693); a negative scale unfuses. Each
     touched Linear is replaced by a new one, so tensors frozen under inference mode
-    (the calibrated input scales) are never written in place. Each fuse runs on its
+    (the calibrated input scales) are never written in place. The new tensors are made
+    outside inference mode, as the loaded weights they replace were: a compiled block
+    guards on that, and a fused block then runs the same graph. Each fuse runs on its
     weight's device: the host for an offloaded flow, whose new tensors are not
     page-locked until the pipeline's stream state is rebuilt. Returns the model.
 

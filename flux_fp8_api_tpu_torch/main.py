@@ -43,7 +43,8 @@ def parse_args(argv=None):
     parser.add_argument("-q", "--num-to-quant", type=int, default=20,
                         help="(deprecated, kept for reference-CLI parity)")
     parser.add_argument("-C", "--compile", action="store_true",
-                        help="Calibrate and warm up the serving bucket before serving")
+                        help="Serve the blocks and extras torch.compile'd (compile_blocks/compile_extras); "
+                             "calibrate, compile and warm up the serving bucket before serving")
     parser.add_argument("-qT", "--quant-text-enc", type=str, default="qfloat8",
                         choices=["qint4", "qfloat8", "qint2", "qint8", "bf16"],
                         dest="quant_text_enc",

@@ -9,6 +9,11 @@ as Python loops where the JAX package scans stacked leaves. Both fused layouts r
 rank's qkv, linear1 and linear2 hold only its heads and every head count below is
 read from the tensors (``parallel/mesh.py``).
 
+The serving forward can run each block, and the extras around the stacks, through
+their ``torch.compile``'d counterparts (:class:`Compiled`): the
+reference's ``compile_blocks`` / ``compile_extras`` (flux_pipeline.py:224-231), whose
+place the JAX package takes by jitting the whole step.
+
 Quantization tiers (``fp8``, ``int8``, ``int4``) follow the reference's partition
 (float8_quantize.py:320-369,395-496): ``final_layer`` never, modulation linears gated
 by ``quantize_modulation``, embedders gated by ``quantize_flow_embedder_layers``,
@@ -17,8 +22,9 @@ every other block linear always.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -440,12 +446,20 @@ def flux_cond_vec(model, cfg: FluxStatic, timesteps, y, guidance=None, tape: Opt
     return vec + _mlp_embedder(tape, "vector_in", model["vector_in"], y.to(dtype), dtype)
 
 
-def flux_cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance=None) -> torch.Tensor:
+def flux_cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance=None,
+                         compiled: "Compiled" = None) -> torch.Tensor:
     """The first double block's image-stream modulated input,
     ``modulate(layer_norm(img_in(img)), shift1, scale1)``: the change indicator of the
     step cache's dynamic mode (``sampling.CacheConfig``; JAX flux.py:525-552). Its
     relative L1 drift between steps follows the drift of the model's output; it costs
-    img_in, the conditioning MLPs and one modulation linear, none of the 57 blocks."""
+    img_in, the conditioning MLPs and one modulation linear, none of the 57 blocks.
+    ``compiled.extras`` runs it through its compiled counterpart (as an extra)."""
+    if compiled is not None and compiled.extras and _may_compile(cfg):
+        return _compiled(_cache_indicator)(model, cfg, img, timesteps, y, guidance)
+    return _cache_indicator(model, cfg, img, timesteps, y, guidance)
+
+
+def _cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance):
     dtype = cfg.dtype
     tape = _Tape.of(cfg)
     h = tape.lin("img_in", model["img_in"], img.to(dtype), dtype)
@@ -494,6 +508,7 @@ def flux_apply(
     guidance: Optional[torch.Tensor] = None,
     collect_amax: bool = False,
     stack_runner=None,
+    compiled: "Compiled" = None,
 ):
     """Full forward (reference ``Flux.forward``, flux_model.py:672-716).
 
@@ -510,6 +525,10 @@ def flux_apply(
         ``(img, txt)``, the single stack's the joined ``x``, the extras ``(vec_silu,
         cos, sin)``. None runs them as loops here;
         :func:`~..parallel.pp.make_pp_runner` pipelines them over a pp axis.
+      compiled: which parts run through their compiled counterparts
+        (:class:`Compiled`; default none). Only a serving forward compiles: with grad
+        enabled, ``collect_amax``, a ``stack_runner`` or a mesh (``cfg.mesh``),
+        everything runs eagerly.
 
     Returns:
       (B, L_img, in_channels) prediction, or (pred, amaxes) with ``collect_amax``.
@@ -524,7 +543,9 @@ def flux_apply(
         raise ValueError("collect_amax (calibration) does not combine with remat under grad")
     tape = _Tape.of(cfg, collect_amax)
     txt_len = txt.shape[1]
-    img, txt, vec_silu, cos, sin = flux_pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
+    compiled = EAGER if compiled is None or collect_amax or stack_runner is not None else compiled
+    pre, final, double, single = compiled.functions(cfg)
+    img, txt, vec_silu, cos, sin = pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
 
     def run(block_fn, *args):
         # per-block rematerialization: only the block's inputs are kept for backward
@@ -544,20 +565,20 @@ def flux_apply(
         img, txt = stack_runner(double_body, (img, txt), model["double_blocks"], extras, cfg.depth)
         x = stack_runner(single_body, torch.cat([txt, img], dim=1), model["single_blocks"], extras,
                          cfg.depth_single_blocks)
-        return flux_final(model, cfg, x[:, txt_len:], vec_silu, tape)
+        return final(model, cfg, x[:, txt_len:], vec_silu, tape)
 
     double_amaxes, single_amaxes = [], []
     for blk in model["double_blocks"]:
         block_tape = _Tape.of(cfg, collect_amax)
-        img, txt = run(_double_block, cfg, blk, img, txt, vec_silu, cos, sin, block_tape)
+        img, txt = run(double, cfg, blk, img, txt, vec_silu, cos, sin, block_tape)
         double_amaxes.append(block_tape.amaxes)
 
     x = torch.cat([txt, img], dim=1)
     for blk in model["single_blocks"]:
         block_tape = _Tape.of(cfg, collect_amax)
-        x = run(_single_block, cfg, blk, x, vec_silu, cos, sin, block_tape)
+        x = run(single, cfg, blk, x, vec_silu, cos, sin, block_tape)
         single_amaxes.append(block_tape.amaxes)
-    img = flux_final(model, cfg, x[:, txt_len:], vec_silu, tape)
+    img = final(model, cfg, x[:, txt_len:], vec_silu, tape)
 
     if collect_amax:
         amaxes: Dict[str, Any] = dict(tape.amaxes)
@@ -572,3 +593,97 @@ def _stack_amaxes(per_block):
     if not per_block:
         return {}
     return {k: torch.stack([blk[k] for blk in per_block]) for k in per_block[0]}
+
+
+# ------------------------------------------------------------------ compiled forward
+#
+# The compiled counterparts of the two blocks and the extras (flux_pre, flux_final and
+# the step cache's indicator): each function is ``torch.compile``'d once per process
+# with ``fullgraph=True`` (a graph break raises) and ``dynamic=False`` (one graph per
+# shape: per serving bucket, as JAX jits one program per (batch, resolution) bucket),
+# so every pipeline and every block shares one dynamo cache per function. A block's
+# weights are buffers of the module it is called with, and dynamo lifts them as graph
+# inputs: the 19 double blocks run one graph, and so do the 38 single ones, and a fresh
+# copy of a block (a streamed one at every step, a LoRA fuse) needs no new graph. What
+# the graph reads besides tensor values is guarded, and a change recompiles: the
+# config's fields, a Linear's kind, the attention tile that ops/attention.py picks from
+# its tables, each input's shape, dtype and dispatch keys (a tensor made under
+# inference mode and one made outside it are two graphs).
+
+# The backend of the compiled functions: inductor on the card. The CPU tests set
+# "aot_eager", and reset_compiled() around each test.
+COMPILE_BACKEND: Any = "inductor"
+
+# Graphs per function a process may hold (dynamo's recompile limit, raised to at least
+# this when the first compiled function is made): the tiers × buckets × attention
+# tiles one process serves. Past it dynamo raises (fail_on_recompile_limit_hit) instead
+# of running the function eagerly without a word.
+RECOMPILE_LIMIT = 64
+
+# Graphs compiled per function, counted where the backend is called: once per dynamo
+# frame, and with fullgraph=True each frame is one graph. A bucket's first call counts
+# one; every later call of the bucket runs the cached graph and counts nothing.
+COMPILES: Dict[str, int] = collections.Counter()
+
+_COMPILED: Dict[str, Callable] = {}
+
+
+def _compiled(fn: Callable) -> Callable:
+    """``fn``'s compiled counterpart, made at its first use with :data:`COMPILE_BACKEND`
+    and kept for the process."""
+    name = fn.__name__
+    if name not in _COMPILED:
+        import torch._dynamo
+
+        config = torch._dynamo.config
+        config.recompile_limit = max(config.recompile_limit, RECOMPILE_LIMIT)
+        config.accumulated_recompile_limit = max(config.accumulated_recompile_limit, 4 * RECOMPILE_LIMIT)
+        config.fail_on_recompile_limit_hit = True
+        backend = COMPILE_BACKEND
+        if isinstance(backend, str):
+            backend = torch._dynamo.lookup_backend(backend)
+
+        def counted(gm, example_inputs):
+            COMPILES[name] += 1
+            return backend(gm, example_inputs)
+
+        _COMPILED[name] = torch.compile(fn, backend=counted, fullgraph=True, dynamic=False)
+    return _COMPILED[name]
+
+
+def reset_compiled() -> None:
+    """Drop every compiled function, dynamo's caches and the counts: the next use
+    compiles anew with the current :data:`COMPILE_BACKEND`."""
+    import torch._dynamo
+
+    _COMPILED.clear()
+    COMPILES.clear()
+    torch._dynamo.reset()
+
+
+def _may_compile(cfg: FluxStatic) -> bool:
+    """A forward compiles only without a gradient and without a mesh: training and the
+    mesh's collectives run eagerly."""
+    return not torch.is_grad_enabled() and cfg.mesh is None
+
+
+class Compiled(NamedTuple):
+    """Which parts of the serving forward run compiled (``ModelSpec.compile_blocks``,
+    ``ModelSpec.compile_extras``): the double and single blocks, and the extras
+    (``flux_pre``, ``flux_final``, ``flux_cache_indicator``)."""
+
+    blocks: bool = False
+    extras: bool = False
+
+    def functions(self, cfg: FluxStatic):
+        """(pre, final, double block, single block) for a forward of ``cfg`` now:
+        the compiled counterparts asked for where :func:`_may_compile`, else the
+        eager functions."""
+        may = _may_compile(cfg)
+        extras, blocks = may and self.extras, may and self.blocks
+        return (_compiled(flux_pre) if extras else flux_pre, _compiled(flux_final) if extras else flux_final,
+                _compiled(_double_block) if blocks else _double_block,
+                _compiled(_single_block) if blocks else _single_block)
+
+
+EAGER = Compiled()

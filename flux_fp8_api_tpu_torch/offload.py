@@ -24,6 +24,9 @@ that module. The JAX package's four jitted step pieces (``make_stream_fns``) are
 functions the resident forward is built from (``models/flux.py``: ``flux_pre``,
 ``_double_block``, ``_single_block``, ``flux_final``), so a streamed step launches the
 same kernels in the same order as a resident one and gives its values bit for bit.
+With ``compiled`` they are the same compiled counterparts the resident loop runs
+(``models/flux.py:Compiled``), JAX's jitted per-block functions under offload: a
+block's fresh device copy is new graph inputs to the one graph, not a new graph.
 
 Each device tensor of a copied block is allocated on the side stream and read on the
 compute stream, so each gets ``record_stream(compute)``: without it the caching
@@ -40,7 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .models.flux import FluxStatic, _double_block, _single_block, _Tape, flux_final, flux_pre
+from .models.flux import EAGER, Compiled, FluxStatic, _Tape
 from .sampling import _euler, _guidance_vec, _update
 from .utils.tree import tree_nbytes, tree_to
 
@@ -153,6 +156,7 @@ def streamed_denoise(
     progress: bool = False,
     retain_bytes: Optional[int] = None,
     sync_every: int = 8,
+    compiled: Optional[Compiled] = None,
 ) -> torch.Tensor:
     """The Euler denoise loop with the blocks streamed from the host tree: at step 1
     each block's copy runs under the compute of the block before it; retained blocks
@@ -162,8 +166,9 @@ def streamed_denoise(
     ``dbl_blocks``/``sgl_blocks``: the host blocks. ``retain_bytes`` caps the block
     bytes kept on the card between steps (None keeps all; 0 re-streams every block
     every step, a rolling window of a few blocks). ``sync_every``: see
-    :class:`BlockStream`. The latents equal the resident loop's
-    (``sampling.denoise``) bit for bit at every budget."""
+    :class:`BlockStream`. ``compiled``: which of the step's functions run compiled,
+    as in ``sampling.denoise``. The latents equal the resident loop's
+    (``sampling.denoise``, with the same ``compiled``) bit for bit at every budget."""
     pairs = list(zip(timesteps[:-1], timesteps[1:]))
     if progress:
         from tqdm import tqdm
@@ -192,15 +197,16 @@ def streamed_denoise(
     g_vec = _guidance_vec(cfg, img, guidance)
     tape = _Tape(False, cfg.fp8_fast_accum)
     txt_len = txt.shape[1]
+    pre, final, double, single = (compiled or EAGER).functions(cfg)
     for t_curr, t_prev in pairs:
         t_vec, dt = _euler(cfg, img, t_curr, t_prev)
-        img_e, txt_e, vec_silu, cos, sin = flux_pre(tops_dev, cfg, img, img_ids, txt, txt_ids, t_vec, y, g_vec, tape)
+        img_e, txt_e, vec_silu, cos, sin = pre(tops_dev, cfg, img, img_ids, txt, txt_ids, t_vec, y, g_vec, tape)
         for j in range(n_dbl):
-            img_e, txt_e = _double_block(cfg, take(j), img_e, txt_e, vec_silu, cos, sin, tape)
+            img_e, txt_e = double(cfg, take(j), img_e, txt_e, vec_silu, cos, sin, tape)
             stream.computed()
         x = torch.cat([txt_e, img_e], dim=1)
         for j in range(n_dbl, n):
-            x = _single_block(cfg, take(j), x, vec_silu, cos, sin, tape)
+            x = single(cfg, take(j), x, vec_silu, cos, sin, tape)
             stream.computed()
-        img = _update(img, dt, flux_final(tops_dev, cfg, x[:, txt_len:], vec_silu, tape))
+        img = _update(img, dt, final(tops_dev, cfg, x[:, txt_len:], vec_silu, tape))
     return img

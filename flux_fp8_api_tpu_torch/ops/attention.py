@@ -173,7 +173,7 @@ def attention_core(
         tables) at the tile ``_pick_blocks_rect(lq, lkv)`` of this rank's shapes,
         which has no backward and raises under a gradient; False rotates q
         and k with the rope pass and runs :func:`_sdpa`, differentiable end to end
-        (the rope pass through its autograd Function and backward build, SDPA through
+        (the rope pass through its op's autograd formula and backward build, SDPA through
         its own backward): the training path.
       seq_mesh, seq_axis: sequence parallelism over ``seq_mesh``'s ``seq_axis``: this
         rank computes its L/sp q rows and all-gathers the output rows (L must divide).

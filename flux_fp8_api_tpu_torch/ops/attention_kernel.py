@@ -1,8 +1,8 @@
 """Max-free qk-norm attention: the hand-written CUDA kernel in its three builds
 (serving, stats, ablate) and the rope pass in front of it with its backward build,
-their plain PyTorch versions, the wrappers that pick between them by device, the
-autograd Function of the rope pass, the guard rail built on the stats build, and the
-kernels' build.
+their plain PyTorch versions, the ``torch.library`` ops that pick between them by
+device (the rope pass's with its autograd formula), the wrappers that call the ops,
+the guard rail built on the stats build, and the kernels' build.
 
 JAX counterpart: ``flux_fp8_api_tpu.ops.attention_kernel`` (the Pallas TPU kernel),
 whose docstring argues why FLUX's qk-RMSNorm makes a constant-shift softmax safe:
@@ -32,7 +32,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -264,18 +264,29 @@ def _check_table(t: torch.Tensor, rows: int, name: str, device: torch.device) ->
 
 
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the CUDA kernels take: bf16 (H, L, 128) on one device, k and v of one
-    shape, a contiguous and 16-byte aligned last dimension. Raises ValueError."""
+    """What the CUDA kernels take, as far as shapes and strides say: bf16 (H, L, 128)
+    on one device, k and v of one shape, a contiguous last dimension and 16-byte
+    multiple strides. Raises ValueError. The bases' alignment is checked at the
+    launch (:func:`check_aligned`), where the data pointers exist: under
+    ``torch.compile`` this runs on tensors that have none."""
     h = q.shape[0]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bfloat16 on {q.device}, got {t.dtype} on {t.device}")
         if t.dim() != 3 or t.shape[0] != h or t.shape[2] != HEAD_DIM:
             raise ValueError(f"{name} must be (H={h}, L, {HEAD_DIM}), got {tuple(t.shape)}")
-        if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+        if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8:
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned last dimension")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Each tensor's base 16-byte aligned, as the kernels' vector loads and TMA need.
+    Raises ValueError."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous, 16-byte aligned last dimension")
 
 
 def tma_params(t: torch.Tensor, rows: int = BLOCKS[1]) -> tuple:
@@ -312,6 +323,7 @@ def _rope_launch(entry: str, build: str, q, k, cos, sin, cos_q, sin_q):
     and k (H, Lkv, 128) with their tables, into new contiguous outputs. Raises on what
     the kernel cannot take and on a failed launch."""
     check_heads(q, k, k)
+    check_aligned(q=q, k=k)
     h, lq, d = q.shape
     lkv = k.shape[1]
     for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq), ("cos", cos, lkv), ("sin", sin, lkv)):
@@ -338,6 +350,116 @@ def _kernel_view(g: torch.Tensor) -> torch.Tensor:
     return g
 
 
+def _k1_launch(q, k, v, sm_scale: float, tile: tuple, build: int):
+    """One launch of a build of the attention kernel (:data:`K1_BUILDS`) at ``tile`` on
+    CUDA q (H, Lq, 128), k/v (H, Lkv, 128) → (the output allocated token-major,
+    (Lq, H, D); the stats build's max |logit|, 0-d fp32, else an empty tensor). Raises
+    on what the kernel cannot take and on a failed launch."""
+    h, lq, d = q.shape
+    lkv = k.shape[1]
+    check_heads(q, k, v)
+    maps = [(ctypes.c_int64 * 8)(*tma_params(t, rows)) for t, rows in ((q, tile[0]), (k, tile[1]), (v, tile[1]))]
+    out = torch.empty((lq, h, d), dtype=q.dtype, device=q.device)
+    stats = K1_BUILDS[build] == "qknorm_attention_stats"
+    # a fresh zero on the launch stream: the stats build atomicMax-es into it
+    max_logit = torch.zeros((), dtype=torch.float32, device=q.device) if stats else _no_max_logit(q)
+    err = getattr(load_library(), "qknorm_attention_bf16" + tile_suffix(tile))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *maps,
+        out.stride(1), out.stride(0), h, lq, lkv, float(sm_scale),
+        max_logit.data_ptr() if stats else None,
+        int(K1_BUILDS[build] == "qknorm_attention_ablate_exp"), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{K1_BUILDS[build]} kernel launch failed: cudaError {err}")
+    LAUNCHES[K1_BUILDS[build]] += 1
+    TILE_LAUNCHES[(K1_BUILDS[build], tile[:2])] += 1
+    return out, max_logit
+
+
+# ------------------------------------------------------------- the kernels as torch ops
+#
+# The rope pass, its backward and the attention kernel are ``torch.library`` custom ops
+# in the ``flux_fp8`` namespace, so that ``torch.compile`` (``models/flux.py:Compiled``)
+# keeps each as one opaque call inside its graph, where a ``ctypes`` call on data
+# pointers would break the graph. Each op has one implementation for every device: a
+# CPU tensor runs the plain version, a CUDA tensor launches the kernel (its launch
+# counted there, so a compiled graph counts each run too) or raises. The fake
+# implementations give the outputs' shapes and strides to the compiler; the tag asks
+# inductor to hand each op its inputs in the stride order eager gives them, since a
+# kernel never copies an input it cannot take on the forward path: it raises.
+
+# the K1 builds by the op's ``build`` argument
+K1_BUILDS = ("qknorm_attention", "qknorm_attention_stats", "qknorm_attention_ablate_exp")
+_OP_TAGS = (torch.Tag.needs_fixed_stride_order,)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """The ops' device decision: a CUDA tensor launches the kernel, any other runs the
+    plain version."""
+    return t.is_cuda
+
+
+def _no_max_logit(q: torch.Tensor) -> torch.Tensor:
+    """The op's second output for builds without statistics: an empty fp32 tensor."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("flux_fp8::rope_rotate", mutates_args=(), tags=_OP_TAGS)
+def _rope_rotate_op(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                    cos_q: torch.Tensor, sin_q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not _on_card(q):
+        return rope_rotate_ref(q, cos_q, sin_q).contiguous(), rope_rotate_ref(k, cos, sin).contiguous()
+    return _rope_launch("rope_rotate_bf16", "rope_rotate", q, k, cos, sin, cos_q, sin_q)
+
+
+@torch.library.custom_op("flux_fp8::rope_rotate_backward", mutates_args=(), tags=_OP_TAGS)
+def _rope_rotate_backward_op(gq: torch.Tensor, gk: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                             cos_q: torch.Tensor, sin_q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not _on_card(gq):
+        return (rope_rotate_ref_backward(gq, cos_q, sin_q).contiguous(),
+                rope_rotate_ref_backward(gk, cos, sin).contiguous())
+    return _rope_launch("rope_rotate_backward_bf16", "rope_rotate_backward",
+                        _kernel_view(gq), _kernel_view(gk), cos, sin, cos_q, sin_q)
+
+
+@_rope_rotate_op.register_fake
+@_rope_rotate_backward_op.register_fake
+def _rope_fake(q, k, cos, sin, cos_q, sin_q):
+    return q.new_empty(q.shape), k.new_empty(k.shape)
+
+
+def _rope_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[2:])
+
+
+def _rope_backward(ctx, gq, gk):
+    cos, sin, cos_q, sin_q = ctx.saved_tensors
+    dq, dk = torch.ops.flux_fp8.rope_rotate_backward(gq, gk, cos, sin, cos_q, sin_q)
+    return dq, dk, None, None, None, None
+
+
+_rope_rotate_op.register_autograd(_rope_backward, setup_context=_rope_setup_context)
+
+
+@torch.library.custom_op("flux_fp8::qknorm_attention", mutates_args=(), tags=_OP_TAGS)
+def _qknorm_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+                         block_q: int, block_kv: int, build: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not _on_card(q):
+        name = K1_BUILDS[build]
+        out = qknorm_attention_ref(q, k, v, sm_scale, return_max_logit=name == "qknorm_attention_stats",
+                                   ablate_exp=name == "qknorm_attention_ablate_exp")
+        out, m = out if isinstance(out, tuple) else (out, _no_max_logit(q))
+        return out.transpose(0, 1).contiguous(), m
+    return _k1_launch(q, k, v, sm_scale, check_tile((block_q, block_kv)), build)
+
+
+@_qknorm_attention_op.register_fake
+def _qknorm_attention_fake(q, k, v, sm_scale, block_q, block_kv, build):
+    h, lq, d = q.shape
+    m = q.new_empty((), dtype=torch.float32) if K1_BUILDS[build] == "qknorm_attention_stats" else _no_max_logit(q)
+    return q.new_empty((lq, h, d)), m
+
+
 def rope_rotate_backward(
     gq: torch.Tensor,
     gk: torch.Tensor,
@@ -347,7 +469,8 @@ def rope_rotate_backward(
     sin_q: Optional[torch.Tensor] = None,
 ):
     """The rope pass's backward: (dq, dk) from the gradients of the rotated q and k,
-    with the forward's tables (``cos_q``/``sin_q`` default to ``cos``/``sin``).
+    with the forward's tables (``cos_q``/``sin_q`` default to ``cos``/``sin``); the op
+    ``flux_fp8::rope_rotate_backward``.
 
     CPU tensors run :func:`rope_rotate_ref_backward`. CUDA tensors launch the backward
     build of ``csrc/rope_rotate.cu`` (one launch for both), which gives what the plain
@@ -356,29 +479,7 @@ def rope_rotate_backward(
     """
     cos_q = cos if cos_q is None else cos_q
     sin_q = sin if sin_q is None else sin_q
-    if not gq.is_cuda:
-        return rope_rotate_ref_backward(gq, cos_q, sin_q), rope_rotate_ref_backward(gk, cos, sin)
-    return _rope_launch("rope_rotate_backward_bf16", "rope_rotate_backward",
-                        _kernel_view(gq), _kernel_view(gk), cos, sin, cos_q, sin_q)
-
-
-class RopeRotate(torch.autograd.Function):
-    """The rope pass under autograd: forward :func:`rope_rotate`'s kernel (or its plain
-    version on the CPU), backward :func:`rope_rotate_backward`'s. q and k get
-    gradients; the tables get none."""
-
-    @staticmethod
-    def forward(ctx, q, k, cos, sin, cos_q, sin_q):
-        ctx.save_for_backward(cos, sin, cos_q, sin_q)
-        if not q.is_cuda:
-            return rope_rotate_ref(q, cos_q, sin_q), rope_rotate_ref(k, cos, sin)
-        return _rope_launch("rope_rotate_bf16", "rope_rotate", q, k, cos, sin, cos_q, sin_q)
-
-    @staticmethod
-    def backward(ctx, gq, gk):
-        cos, sin, cos_q, sin_q = ctx.saved_tensors
-        dq, dk = rope_rotate_backward(gq, gk, cos, sin, cos_q, sin_q)
-        return dq, dk, None, None, None, None
+    return torch.ops.flux_fp8.rope_rotate_backward(gq, gk, cos, sin, cos_q, sin_q)
 
 
 def rope_rotate(
@@ -390,17 +491,18 @@ def rope_rotate(
     sin_q: Optional[torch.Tensor] = None,
 ):
     """The rope pass: (q rotated with ``cos_q``/``sin_q``, k rotated with ``cos``/``sin``),
-    each a contiguous (H, L, D) tensor. ``cos_q``/``sin_q`` default to ``cos``/``sin``.
+    each a contiguous (H, L, D) tensor; the op ``flux_fp8::rope_rotate``. ``cos_q``/
+    ``sin_q`` default to ``cos``/``sin``.
 
     CPU tensors run :func:`rope_rotate_ref`. CUDA tensors launch the kernel
     (``csrc/rope_rotate.cu``, one launch for both), which takes bf16 (H, L, 128) with a
     contiguous last dimension and contiguous (L, 128) float32 tables, and gives what
-    the plain version gives, bit for bit; anything else raises. It runs through
-    :class:`RopeRotate`, so gradients of q and k flow through the backward build.
+    the plain version gives, bit for bit; anything else raises. Gradients of q and k
+    flow through the op's autograd formula, the backward op; the tables get none.
     """
     cos_q = cos if cos_q is None else cos_q
     sin_q = sin if sin_q is None else sin_q
-    return RopeRotate.apply(q, k, cos, sin, cos_q, sin_q)
+    return torch.ops.flux_fp8.rope_rotate(q, k, cos, sin, cos_q, sin_q)
 
 
 def qknorm_attention(
@@ -428,12 +530,13 @@ def qknorm_attention(
     ValueError on both devices.
 
     It has no backward: asked for a gradient (grad enabled and q, k or v requiring
-    one) it raises, on both devices. CPU tensors run the plain version, which has no
-    tile and ignores ``blocks``. CUDA tensors launch the rope pass
-    (:func:`rope_rotate`, when there are tables) and then the attention kernel at the
-    tile, which takes bf16 with D = 128, a contiguous last dimension and 16-byte
-    aligned strides (:func:`tma_params`); anything else raises. The output is allocated
-    token-major, (Lq, H, D), and returned as its (H, Lq, D) view.
+    one) it raises, on both devices. The rope pass (:func:`rope_rotate`, when there
+    are tables) and then the op ``flux_fp8::qknorm_attention`` at the build and tile
+    run: CPU tensors take the plain versions, which have no tile; CUDA tensors launch
+    the kernels, the attention kernel at the tile, which takes bf16 with D = 128, a
+    contiguous last dimension and 16-byte aligned strides (:func:`tma_params`);
+    anything else raises. The op allocates the output token-major, (Lq, H, D), and it
+    is returned as its (H, Lq, D) view.
     """
     if return_max_logit and ablate_exp:
         raise ValueError("the stats and ablate_exp builds do not combine")
@@ -443,31 +546,13 @@ def qknorm_attention(
             "the max-free attention kernel has no backward: train with use_pallas=False "
             "(the rope pass and scaled_dot_product_attention, both differentiable)"
         )
-    if not q.is_cuda:
-        return qknorm_attention_ref(q, k, v, sm_scale, cos, sin, cos_q, sin_q,
-                                    return_max_logit=return_max_logit, ablate_exp=ablate_exp)
-
-    h, lq, d = q.shape
-    lkv = k.shape[1]
-    check_heads(q, k, v)
+    if q.is_cuda:
+        check_heads(q, k, v)
     if cos is not None:
         q, k = rope_rotate(q, k, cos, sin, cos_q, sin_q)
-    maps = [(ctypes.c_int64 * 8)(*tma_params(t, rows)) for t, rows in ((q, tile[0]), (k, tile[1]), (v, tile[1]))]
-    out = torch.empty((lq, h, d), dtype=q.dtype, device=q.device).transpose(0, 1)
-    # a fresh zero on the launch stream: the stats build atomicMax-es into it
-    max_logit = torch.zeros((), dtype=torch.float32, device=q.device) if return_max_logit else None
-    err = getattr(load_library(), "qknorm_attention_bf16" + tile_suffix(tile))(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *maps,
-        out.stride(0), out.stride(1), h, lq, lkv, float(sm_scale),
-        None if max_logit is None else max_logit.data_ptr(),
-        int(ablate_exp), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build = ("qknorm_attention_stats" if return_max_logit
-             else "qknorm_attention_ablate_exp" if ablate_exp else "qknorm_attention")
-    if err != 0:
-        raise RuntimeError(f"{build} kernel launch failed: cudaError {err}")
-    LAUNCHES[build] += 1
-    TILE_LAUNCHES[(build, tile[:2])] += 1
+    build = 1 if return_max_logit else 2 if ablate_exp else 0
+    out, max_logit = torch.ops.flux_fp8.qknorm_attention(q, k, v, float(sm_scale), tile[0], tile[1], build)
+    out = out.transpose(0, 1)
     return (out, max_logit) if return_max_logit else out
 
 

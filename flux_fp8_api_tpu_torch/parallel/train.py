@@ -12,7 +12,7 @@ predicts the velocity ε − x₀ at ``x_t = (1 − t)·x₀ + t·ε``. Three st
 
 Every step trains with ``use_pallas=False``: the max-free attention kernel has no
 backward (it raises under a gradient, as the JAX package fails at trace time), so
-attention is the rope pass, through its autograd Function and CUDA backward build, and
+attention is the rope pass, through its op's autograd formula and CUDA backward build, and
 ``F.scaled_dot_product_attention``. ``remat`` (on by default) runs each block under
 ``torch.utils.checkpoint``.
 

@@ -26,6 +26,14 @@ rows (``models/autoencoder.py:Bands``), and the first rank answers. Calibration 
 each amax's MAX over the mesh. Offload under a mesh keeps each rank's own shard tree
 on the host and moves it whole around each request; the flow streams block by block
 only without a mesh, as in JAX.
+
+``compile_blocks`` / ``compile_extras`` run each denoise step's blocks and extras
+through their ``torch.compile``'d counterparts (``models/flux.py:Compiled``), one graph
+per function and serving bucket, which ``compile()`` compiles ahead for the warm-up
+buckets; JAX jits the whole step per bucket. With ``compilation_cache_dir`` the
+compiled graphs and kernels persist there (:func:`point_compile_cache`), as JAX's XLA
+executables do. Under a mesh the flags leave the forward eager (its collectives and
+pp's handoffs are not compiled), and training never compiles.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from .calibration import apply_input_scales, merge_amax, reduce_amaxes
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
 from .models.autoencoder import Bands, ae_decode, ae_encode
-from .models.flux import FluxStatic, max_logit_bound
+from .models.flux import EAGER, Compiled, FluxStatic, max_logit_bound
 from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
 from .ops.quant import ACTIVATION_KINDS, Linear
@@ -74,6 +82,31 @@ def _sync(t: torch.Tensor) -> None:
     """Wait for the device work behind ``t`` (timings end here)."""
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+def point_compile_cache(cache_dir: str) -> None:
+    """Keep inductor's caches under ``cache_dir``: its FX graph and AOTAutograd caches
+    in ``inductor/``, Triton's compiled kernels in ``triton/``, so a restart compiles
+    a bucket from them instead of from nothing (JAX pipeline.py:92-102, the XLA
+    executable cache). Process-global, as JAX's setting is: one pipeline per server
+    process is the serving model, and a pipeline with another directory points the
+    process there. Call it before the first compile: compile workers already started
+    keep the directories they started with."""
+    import torch._functorch.config
+    import torch._inductor.config
+
+    inductor = os.path.abspath(os.path.join(cache_dir, "inductor"))
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = inductor
+    os.environ["TRITON_CACHE_DIR"] = os.path.abspath(os.path.join(cache_dir, "triton"))
+    torch._inductor.config.fx_graph_cache = True
+    torch._functorch.config.enable_autograd_cache = True
+
+
+def _cache_compiles(config: ModelSpec, mesh) -> None:
+    """With the compile flags, no mesh and ``compilation_cache_dir``, the inductor
+    caches there (:func:`point_compile_cache`)."""
+    if mesh is None and (config.compile_blocks or config.compile_extras) and config.compilation_cache_dir:
+        point_compile_cache(config.compilation_cache_dir)
 
 
 class FluxPipeline:
@@ -175,6 +208,9 @@ class FluxPipeline:
                              "checkpoint (save_prequantized) or set num_scale_trials=0")
         self._amax_running = None
         self._trials_done = 0
+        if self.mesh is not None and (config.compile_blocks or config.compile_extras):
+            logger.info("compile_blocks/compile_extras: the forward runs eagerly on a mesh %s (its "
+                        "collectives and pp's stage handoffs are not compiled yet)", self.mesh.shape)
 
         # prompt → (CLIP vec, T5 txt) LRU of N=1 encoder outputs (cond_cache_size)
         self._cond_cache: "OrderedDict" = OrderedDict()
@@ -189,6 +225,16 @@ class FluxPipeline:
 
         if config.compile_blocks or config.compile_extras:
             self.compile()
+
+    # ---------------------------------------------------------------------- compile
+
+    @property
+    def compiled(self) -> Compiled:
+        """Which parts of each serving forward run compiled: what the config asks for
+        (``compile_blocks``, ``compile_extras``), or none under a mesh."""
+        if self.mesh is not None:
+            return EAGER
+        return Compiled(blocks=self.config.compile_blocks, extras=self.config.compile_extras)
 
     # -------------------------------------------------------------------------- mesh
 
@@ -579,13 +625,14 @@ class FluxPipeline:
                     tops, dbl, sgl, self.device_flux, img, img_ids, txt, txt_ids, vec,
                     timesteps, guidance, self.model_cfg, progress=not silent,
                     retain_bytes=None if retain_gb is None else int(retain_gb * 1024**3),
+                    compiled=self.compiled,
                 )
             else:
                 img = denoise(
                     self.model_params, cfg, img, img_ids, txt, txt_ids, vec,
                     timesteps, guidance, fused=silent, progress=not silent,
                     cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
-                    stack_runner=self._pp_runner,
+                    stack_runner=self._pp_runner, compiled=self.compiled,
                 )
             if rows is not None:  # every rank's rows, in order
                 img = self.mesh.all_gather(img, "dp", dim=0)
@@ -686,8 +733,9 @@ class FluxPipeline:
     def warmup(self, resolutions, num_steps: int = 4, prompt: str = "warmup",
                autotune: Optional[bool] = None, precompile_interactive: bool = True):
         """One silent generate per (width, height) bucket: first-use costs (the kernel
-        build, cuBLAS heuristics, allocator growth) land here instead of in a request
-        (JAX pipeline.py:824-925).
+        build, cuBLAS heuristics, allocator growth and, with ``compile_blocks`` /
+        ``compile_extras``, the bucket's compiled graphs) land here instead of in a
+        request (JAX pipeline.py:824-925).
 
         ``autotune`` (default: on when the flow is on a card with ``use_pallas``, and
         either no mesh or a mesh whose heads or q rows are sharded) measures the
@@ -697,8 +745,10 @@ class FluxPipeline:
         with the first rank measuring for all (``parallel/mesh.py:autotune_mesh_blocks``).
         With ``config.compilation_cache_dir`` the tiles persist in its
         ``attn_blocks.json``, loaded before and saved after, so a restart measures
-        nothing again. ``precompile_interactive`` adds one non-silent 1-step generate
-        per bucket: the path with the per-step progress bar."""
+        nothing again. The tile is picked before the bucket's first compiled call, which
+        then holds it as a guard (a later pick recompiles). ``precompile_interactive``
+        adds one non-silent 1-step generate per bucket: the path with the per-step
+        progress bar, which calls the same compiled functions as the silent one."""
         from .ops import attention as attn_mod
         from .parallel.mesh import autotune_mesh_blocks
 
@@ -729,17 +779,22 @@ class FluxPipeline:
                 attn_mod.save_tuned_blocks(blocks_path)
 
     def compile(self):
-        """Calibration + serving-bucket warmup (reference flux_pipeline.py:179-231).
+        """Calibration + serving-bucket compile and warmup (reference
+        flux_pipeline.py:179-231).
 
         1. While the input scales are uncalibrated, run the reference's warmup recipe —
-           768×768 at 12 steps (4 for schnell) — until they freeze.
+           768×768 at 12 steps (4 for schnell) — until they freeze. Calibration runs
+           eagerly.
         2. If the config asks for serving warmup (compile flags or
            ``warmup_resolutions``), warm each bucket (default 720×1024) at
            ``warmup_steps`` (default 24, 4 for schnell), autotuning the attention
-           tiles on the card and, with ``config.precompile_interactive``, running one
-           interactive 1-step generate per bucket too (:meth:`warmup`).
+           tiles on the card first and, with ``config.precompile_interactive``,
+           running one interactive 1-step generate per bucket too (:meth:`warmup`).
+           With ``compile_blocks`` / ``compile_extras`` each bucket's first generate
+           compiles its graphs, so a ``-C`` server's first request runs compiled.
         """
         schnell = self.name == ModelVersion.flux_schnell.value
+        _cache_compiles(self.config, self.mesh)
         while self._needs_calibration:
             self.generate(
                 prompt="A beautiful test image used to solidify the fp8 input scales prior to compilation",

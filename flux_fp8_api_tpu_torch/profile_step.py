@@ -7,7 +7,9 @@ steps of the served pipeline, kernel time summed by kind.
 
 Builds the pipeline from the config (``compile()`` calibrates and warms it), prepares
 one prompt at the given size, runs two warm denoise steps, then profiles ``--steps``
-steps of ``sampling.denoise`` between two device syncs. With ``--train KIND`` it
+steps of ``sampling.denoise`` between two device syncs. The steps run as the pipeline
+serves them: compiled where the config sets ``compile_blocks`` / ``compile_extras``
+(the warm steps compile the bucket), eagerly where it does not. With ``--train KIND`` it
 profiles ``bench_train``'s QLoRA step instead (flux-dev at full size from a seed, the
 KIND base, rank 16, batch 1, two warm steps first). Prints the card line, one
 markdown table (ms per step and share of device-busy time for each kind of kernel)
@@ -34,6 +36,7 @@ from .sampling import denoise
 # (kind, substrings of a kernel's name), first match wins
 KINDS = (
     ("attention, K1 (qknorm_attention)", ("qknorm_attention",)),
+    ("fused by inductor (triton_*)", ("triton_",)),
     ("rope pass backward (rope_rotate, backward build)", ("rope_rotate_kernel<true>",)),
     ("rope pass (rope_rotate)", ("rope_rotate",)),
     ("attention, SDPA forward and backward (flash / cuDNN / efficient)", ("flash", "fmha", "sdpa", "cudnn")),
@@ -43,6 +46,8 @@ KINDS = (
     ("copies and casts (the fp8 activation cast among them)", ("copy", "cat", "memcpy", "memset", "fill")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+
+TOP = 12  # kernels listed by name, the longest first
 
 
 def activities(device: torch.device) -> list:
@@ -79,14 +84,14 @@ def profile(pipe: FluxPipeline, width: int, height: int, steps: int, prompt: str
         img, timesteps = pipe.preprocess_latent(None, height, width, steps + 2, 1.0, gen, 1)
         img, img_ids, vec, txt, txt_ids = pipe.prepare(img, prompt)
         args = (pipe.model_params, pipe.model_cfg)
-        img = denoise(*args, img, img_ids, txt, txt_ids, vec, timesteps[:3], 3.5)  # warm
+        img = denoise(*args, img, img_ids, txt, txt_ids, vec, timesteps[:3], 3.5, compiled=pipe.compiled)  # warm
         torch.cuda.synchronize()
         with torch_profile(activities=activities(pipe.device_flux)) as prof:
             t = time.perf_counter()
-            img = denoise(*args, img, img_ids, txt, txt_ids, vec, timesteps[2:], 3.5)
+            img = denoise(*args, img, img_ids, txt, txt_ids, vec, timesteps[2:], 3.5, compiled=pipe.compiled)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-    return _breakdown(prof, steps, wall_ms, width=width, height=height)
+    return _breakdown(prof, steps, wall_ms, width=width, height=height, compiled=pipe.compiled._asdict())
 
 
 def profile_train(kind: str, width: int, height: int, steps: int) -> dict:
@@ -112,11 +117,13 @@ def profile_train(kind: str, width: int, height: int, steps: int) -> dict:
 
 
 def _breakdown(prof, steps: int, wall_ms: float, **fields) -> dict:
-    by_kind = defaultdict(float)
+    by_kind, by_name = defaultdict(float), defaultdict(float)
     kernels = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kind[kind_of(ev.name)] += ev.time_range.elapsed_us() / 1e3
+            ms = ev.time_range.elapsed_us() / 1e3
+            by_kind[kind_of(ev.name)] += ms
+            by_name[ev.name] += ms
             kernels += 1
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernel")
@@ -126,6 +133,8 @@ def _breakdown(prof, steps: int, wall_ms: float, **fields) -> dict:
         "ms_per_step": {k: v / steps for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
         "busy_ms_per_step": busy / steps, "wall_ms_per_step": wall_ms / steps,
         "idle_share": 1.0 - busy / wall_ms, "kernels_per_step": kernels / steps,
+        "top_kernels_ms_per_step": {k[:120]: v / steps
+                                    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]},
     }
 
 

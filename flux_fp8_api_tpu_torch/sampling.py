@@ -2,12 +2,17 @@
 
 Both of the JAX package's drive modes exist: the per-step loop with an optional tqdm
 bar (the reference's it/s metric, flux_pipeline.py:628-630) and the ``fused`` serving
-mode, which here is the same Python loop without the bar. Capturing the fused loop in
-a CUDA graph is later work (ROADMAP).
+mode, which here is the same Python loop without the bar. With ``compiled``
+(``models/flux.py:Compiled``, the pipeline's ``compile_blocks`` / ``compile_extras``)
+each model evaluation runs the compiled blocks and extras, one graph per function and
+bucket, where JAX jits the whole step per (batch, resolution, steps) bucket; both drive
+modes call the same compiled functions. The Euler update and the loop stay Python:
+capturing the loop in a CUDA graph, the counterpart of JAX's fused ``lax.scan``, is
+later work (ROADMAP).
 
 The step cache (:class:`CacheConfig`, JAX ``_denoise_scan_cached``) skips model
 evaluations that would change little and reuses the last evaluated velocity. The JAX
-scan decides on the device with ``lax.cond``; this eager loop decides on the host. The
+scan decides on the device with ``lax.cond``; this loop decides on the host. The
 ``interval`` mode and forced steps need no device value. The ``dynamic`` mode keeps its
 accumulated drift on the device and reads one boolean per unforced step: a device sync,
 after which the card waits while the host enqueues the next step's first kernels. At
@@ -25,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .models.flux import FluxStatic, flux_apply, flux_cache_indicator
+from .models.flux import Compiled, FluxStatic, flux_apply, flux_cache_indicator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,15 +118,16 @@ def _update(img, dt, pred):
     return img + dt * pred
 
 
-def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False, stack_runner=None):
+def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False, stack_runner=None,
+                      compiled: Optional[Compiled] = None):
     """Bind the model config; returns ``step(model, img, img_ids, txt, txt_ids, vec,
     t_curr, t_prev, guidance)`` → img, or (img, amaxes) with ``collect_amax``.
-    ``stack_runner``: as in ``flux_apply`` (pp)."""
+    ``stack_runner`` (pp) and ``compiled``: as in ``flux_apply``."""
 
     def step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance):
         t_vec, dt = _euler(cfg, img, t_curr, t_prev)
         out = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
-                         collect_amax=collect_amax, stack_runner=stack_runner)
+                         collect_amax=collect_amax, stack_runner=stack_runner, compiled=compiled)
         if collect_amax:
             pred, amaxes = out
             return _update(img, dt, pred), amaxes
@@ -152,14 +158,16 @@ def _relative_drift(ind: torch.Tensor, prev_ind: torch.Tensor, dp_mesh) -> torch
 
 
 def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, txt, txt_ids, vec,
-                    timesteps, guidance: float, pairs, dp_mesh=None) -> Tuple[torch.Tensor, int]:
+                    timesteps, guidance: float, pairs, dp_mesh=None,
+                    compiled: Optional[Compiled] = None) -> Tuple[torch.Tensor, int]:
     """The Euler loop with the step cache (JAX ``_denoise_scan_cached``, sampling.py:175-271);
     → (img, model evaluations). ``pairs`` iterates (t_curr, t_prev) over ``timesteps``.
 
     The skip decision is the host's: ``interval`` and forced steps need no device value,
     ``dynamic`` reads its accumulated drift once per unforced step (``dp_mesh``: the
     mesh whose dp ranks each hold some of the batch rows). Timestep differences are
-    fp32 tensors, as in the JAX scan (Python floats would give an fp64 slope)."""
+    fp32 tensors, as in the JAX scan (Python floats would give an fp64 slope).
+    ``compiled``: as in ``flux_apply``, the indicator an extra."""
     n_steps = len(timesteps) - 1
     dev = img.device
     ts = torch.tensor(timesteps, dtype=torch.float32, device=dev)
@@ -173,7 +181,7 @@ def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, tx
         t_vec, dt = _euler(cfg, img, t_curr, t_prev)
         evaluate = i < cache.warmup or i >= n_steps - cache.tail
         if dynamic:
-            ind = flux_cache_indicator(model, cfg, img, t_vec, vec, g_vec).float()
+            ind = flux_cache_indicator(model, cfg, img, t_vec, vec, g_vec, compiled).float()
             if not evaluate:  # step 0 is forced (warmup >= 1), so prev_ind exists here
                 rel = _relative_drift(ind, prev_ind, dp_mesh)
                 if cache.coefficients is not None:
@@ -185,7 +193,7 @@ def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, tx
             evaluate = i % cache.interval == 0
 
         if evaluate:
-            pred = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, g_vec)
+            pred = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, g_vec, compiled=compiled)
             n_evals += 1
             accum = zero
             if first_order:
@@ -219,6 +227,7 @@ def denoise(
     stats: Optional[Dict[str, Any]] = None,
     dp_mesh=None,
     stack_runner=None,
+    compiled: Optional[Compiled] = None,
 ) -> torch.Tensor:
     """Run the full denoise loop over ``timesteps`` (num_steps + 1 floats).
     ``fused=False`` with ``progress`` shows the per-step tqdm bar.
@@ -228,7 +237,8 @@ def denoise(
     ``dp_mesh``: the mesh over whose dp ranks the batch rows are split (the dynamic
     cache's drift is reduced over it). ``stack_runner`` plugs a block-stack strategy
     into ``flux_apply`` (``parallel/pp.py``); the step cache refuses one, as in JAX
-    (sampling.py:280-318)."""
+    (sampling.py:280-318). ``compiled``: which parts of each model evaluation run
+    compiled (``models/flux.py:Compiled``; default none)."""
     if cache is not None and cache.mode != "none" and stack_runner is not None:
         raise ValueError("the step cache requires the default scan runner (it does not run under pp)")
     pairs = list(zip(timesteps[:-1], timesteps[1:]))
@@ -238,11 +248,11 @@ def denoise(
         pairs = tqdm(pairs)
     if cache is not None and cache.mode != "none":
         img, n_evals = _denoise_cached(model, cfg, cache, img, img_ids, txt, txt_ids, vec,
-                                       timesteps, guidance, pairs, dp_mesh)
+                                       timesteps, guidance, pairs, dp_mesh, compiled)
         if stats is not None:
             stats["model_evals"] = n_evals
         return img
-    step = make_denoise_step(cfg, stack_runner=stack_runner)
+    step = make_denoise_step(cfg, stack_runner=stack_runner, compiled=compiled)
     for t_curr, t_prev in pairs:
         img = step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance)
     return img

@@ -97,6 +97,11 @@ class ModelSpec(BaseModel):
     # deprecated reference fields, kept so reference JSON files parse (util.py:57-62)
     num_to_quant: Optional[int] = 20
     quantize_extras: bool = False
+    # the reference's torch.compile switches (flux_pipeline.py:224-231): each denoise
+    # step runs the extras (img_in/txt_in and the conditioning, the final layer, the
+    # step cache's indicator) and the double and single blocks through their
+    # torch.compile'd counterparts (models/flux.py:Compiled), one graph per function
+    # and bucket; compile() compiles the warm-up buckets ahead. Eager under a mesh.
     compile_extras: bool = False
     compile_blocks: bool = False
     flow_quantization_dtype: Optional[QuantizationDtype] = QuantizationDtype.qfloat8
@@ -134,9 +139,10 @@ class ModelSpec(BaseModel):
     warmup_steps: Optional[int] = None
     # compile()'s warm-up also runs one interactive (non-silent, per-step progress)
     # 1-step generate per bucket (JAX utils/config.py:168-172). In JAX that step
-    # compiles the interactive program ahead; eager PyTorch has nothing to compile, so
-    # it only costs a model evaluation per bucket and is off by default here (JAX:
-    # True). main.py and main_gr.py set it False, as JAX's do.
+    # compiles the interactive program, a jit of its own, ahead; here the per-step
+    # loop and the silent loop call the same compiled functions, so it only costs a
+    # model evaluation per bucket and is off by default (JAX: True). main.py and
+    # main_gr.py set it False, as JAX's do.
     precompile_interactive: bool = False
     # the reference's use_fast_accum flag of its torch._scaled_mm call
     # (float8_quantize.py:284-292)
@@ -150,10 +156,11 @@ class ModelSpec(BaseModel):
     # LRU size of the prompt→(CLIP vec, T5 txt) conditioning cache; 0 disables
     cond_cache_size: int = 8
     # where warm-up keeps the attention tiles it measured (attn_blocks.json, read
-    # before the warm-up and written after it), so a restart measures nothing again.
-    # The JAX package keeps its XLA compile cache there too; the port has nothing to
-    # compile ahead, and its kernel library is cached by source hash under
-    # build/kernels/ (ops/attention_kernel.py)
+    # before the warm-up and written after it), so a restart measures nothing again,
+    # and, with the compile flags, inductor's graph and Triton's kernel caches
+    # (pipeline.py:point_compile_cache), so a restart compiles from them: the JAX
+    # package keeps its XLA compile cache there. The CUDA kernel library is cached by
+    # source hash under build/kernels/ (ops/attention_kernel.py)
     compilation_cache_dir: Optional[str] = None
 
     model_config: ConfigDict = {

@@ -293,8 +293,9 @@ def test_grouped_layout_export_equals_jax_export(jax_params):
 @pytest.mark.parametrize("flow", ["float", "fp8"])
 def test_training_after_a_generate_and_a_lora_load(flow):
     """A pipeline that has served (calibration froze its input scales under inference
-    mode) and fused a LoRA (new Linears made under inference mode) trains all the same:
-    finite losses, the adapters move, the served tree's bytes stay as they were."""
+    mode) and fused a LoRA (new Linears made outside inference mode, as the loaded ones
+    were, beside those frozen scales) trains all the same: finite losses, the adapters
+    move, the served tree's bytes stay as they were."""
     cfg = jflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32", use_pallas=True)
     params = numpy_flux_params(cfg, seed=2)
     if flow == "fp8":
@@ -310,7 +311,8 @@ def test_training_after_a_generate_and_a_lora_load(flow):
     pipe.generate("a cat", 64, 64, 3, seed=4, silent=True)
     pipe.load_lora(torch_sd(make_kohya_lora()), 1.0, name="k")
     touched = pipe.model_params["double_blocks"][0]["img_attn_proj"]
-    assert (touched.weight if flow == "float" else touched.q).is_inference()
+    assert not (touched.weight if flow == "float" else touched.q).is_inference()
+    assert flow == "float" or touched.in_scale.is_inference()
 
     base = pipe.model_params
     before = base_bytes(base)
