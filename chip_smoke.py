@@ -100,14 +100,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
     fp8_fast_accum SSIM is below 0.95;
 15. offload: ``configs/config-dev-offload.json`` (fp8 flow, T5 wo_int4, all three
     offloads) at full width and depth from a seed, the flow and the VAE in page-locked
-    host memory, served eagerly (the compile flags off; (e) compiles); (a) ``compile()``
-    (calibration over the whole tree's round trip, the
-    warm-up streamed; 57 K1 and rope-pass launches per evaluation) and one streamed
+    host memory, served compiled as shipped (the graphs each step compiles printed, at
+    most one per function and bucket; the LoRA fuse and unload of (d) none); (a)
+    ``compile()`` (calibration over the whole tree's round trip, eager; the warm-up
+    streamed and compiled; 57 K1 and rope-pass launches per evaluation) and one streamed
     1024x1024/28 request through ``PipelineServer``, with memory before, at peak and
     after; between requests no flow block, VAE or encoder weight on the card (every
     tree pinned on the host, the card holding only the top-level params, the LRU and
     the latents within ``RESIDENT_SLACK``); (b) fixed inputs through the resident loop
-    and ``offload.streamed_denoise`` at 1024x1024/28 (every block retained) and
+    and ``offload.streamed_denoise`` at 1024x1024/``OFFLOAD_LONG_STEPS`` (every block retained) and
     512x512/4 (retain 0, half the blocks, and retain 0 at ``sync_every`` 2): latents
     equal to the resident ones bit for bit (or within the resident loop's own
     run-to-run difference, printed), each run's it/s and peak memory, the copy rates
@@ -158,8 +159,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     and tp 2 x sp 2, each timed beside its bound and ``F.scaled_dot_product_attention``;
     then one-rank references of ``configs/config-dev-tp4.json`` (int8) and
     ``configs/config-dev.json`` (fp8), each calibrated, saved prequantized and run at
-    ``MESH_SIZE``² (512², cut from 1024²) for ``MESH_STEPS`` steps from
-    ``MESH_SEED`` (and, for phase 18, fp8 at 1024² for one and two images); (d) a world of one over
+    1024x1024 for ``MESH_STEPS`` steps from ``MESH_SEED``; (d) a world of one over
     NCCL (``{"dp": 1, "tp": 1}``), its latents bit for bit the fp8 reference's; (b)
     worlds of ranks sharing the one card over gloo, each rank loading its slice from
     the prequantized file: config-dev-tp4.json as 4 ranks, config-dev.json at
@@ -174,8 +174,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 18. pp, training and bands on the mesh (phase 17's files and references, or its own):
     (c) the rope pass's backward build at a tp rank's 12 and 6 heads, L = 1536 and
     4608, bit for bit its plain version, timed beside its bound; one rank's QLoRA step
-    (int8 file, ``TRAIN_MESH_SIZE``² (256², cut from 512²), batch 2, rank 16) and
-    whole 1024² VAE decode and encode; then
+    (int8 file, 512², batch 2, rank 16) and whole 1024² VAE decode and encode; then
     worlds sharing the card over gloo, each rank loading its slice: (a) pp 2 and
     dp 2 x pp 2 (two images; T5 and CLIP offloaded), the fp8 file at full depth, a
     ``MESH_STEPS``-step 1024² request from one rank's conditioning: latents bit for bit
@@ -183,7 +182,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     rope-pass launches per rank per evaluation, K1 on, the handoffs equal to the pinned
     budget (``pp_flux_budget``); on pp 2 POST /generate through the first rank and a
     cached request answering 400; (d) on pp 2, full-parameter SGD and AdamW steps at
-    2 + 4 blocks, full width, 256², under SDPA's memory-efficient backend, against one
+    2 + 4 blocks, full width, 512², under SDPA's memory-efficient backend, against one
     rank's computed on each rank first, which must repeat itself bit for bit: the loss
     and the block gradients bit for bit, each tensor around the stacks within
     ``PP_TRAIN_REL_TOL`` and, with ∂vec_silu left unsummed over pp (planted), outside
@@ -191,8 +190,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
     gradients against one rank's within ``QLORA_MESH_LOSS_TOL`` / ``QLORA_MESH_GRAD_TOL``,
     rope-pass forwards and backwards launched, no K1; (e) the 1024² decode in bands over
     tp 4 and dp 2 x tp 2 (pixels' mean |Δ| within ``BAND_PIXEL_MEAN_TOL``), the 1024²
-    encode in bands over tp 2 (within ``BAND_REL_TOL``), and on tp 2 a 256² request (cut
-    from 512²) with the three offload flags bit for bit the resident pipeline's.
+    encode in bands over tp 2 (within ``BAND_REL_TOL``), and on tp 2 a 512² request with
+    the three offload flags bit for bit the resident pipeline's.
 
 19. tiles and the autotuner (run after phase 13, while phase 10(a)'s pipeline and its
     prequantized file still exist; both pipelines served eagerly here, so that no tile
@@ -224,11 +223,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
     against eager on the same inputs (it/s of each, the compiled run twice and bit for
     bit, 57 K1 and rope-pass launches per evaluation in every run, no graph compiled,
     the latent images' SSIM at least COMPILED_SSIM), and each bucket's cold compile
-    seconds, phase 7's first denoise of it less a steady one; (c) the same buckets
-    compiled in a second process from COMPILE_CACHE (:func:`compile_child`): one graph
-    per function and bucket, each warm compile shorter than the cold one; (f)
-    ``profile_step`` of a compiled 1024² step. (d) runs in phase 9, (e) in
-    phase 15, and phase 14's gate is on the compiled path.
+    seconds, phase 7's first denoise of it less a steady one; (c) the first of those
+    buckets (720×1024, cut from all three) compiled in a second process from
+    COMPILE_CACHE (:func:`compile_child`): one graph per function, the warm compile
+    shorter than the cold one; (f) ``profile_step`` of a compiled 1024² step; the
+    host time of the bucket key (``models/flux.py:bucket``). (d) runs in phase 9, (e)
+    in phase 15, and phase 14's gate is on the compiled path. After phase 15, the last
+    that compiles, every compiled call of the run must have been in a bucket admitted
+    under ``models/flux.py:MAX_COMPILED_BUCKETS`` (:func:`check_buckets`).
 
 The last lines are the card line, one JSON object describing each kernel build (its
 launches counted in the path of phase 7, 4 or 16; its time, plain time, bound, library
@@ -1971,6 +1973,9 @@ RESIDENT_SLACK = 64 * 2**20
 # phase 15's padding of a single block's compute: about 20 ms at the H100's 1.98 GHz,
 # longer than a single block's copy (142 MB, about 3 ms at 47 GB/s)
 OFFLOAD_PAD_CYCLES = 40_000_000
+# the steps of (b)'s 1024² comparison of the streamed loop with the resident one (from 28:
+# step 1 and the steady step are what it reads)
+OFFLOAD_LONG_STEPS = 8
 
 
 def host_resident(tree) -> bool:
@@ -2042,13 +2047,18 @@ def phase_offload(card: str):
     if not all(host_resident(tree) for tree in trees.values()) or not pipe.t5.stream:
         fail("offload", f"after load: host-resident {[k for k, v in trees.items() if host_resident(v)]}, "
                         f"T5 streamed {pipe.t5.stream}")
-    # the phase serves eagerly (its graphs would be new ones: a streamed block's copies
-    # are made under inference mode, the resident tree's were not); (e) compiles
-    spec.warmup_resolutions = [[720, 1024]]
+    # served as shipped, compiled: the streamed loop's extras read a dict of the
+    # top-level entries, its own graphs; its blocks are device copies made under
+    # inference mode, which are one graph of their own per bucket at most
+    spec.compile_extras = spec.compile_blocks = True
     pinned, measured = pinned_lengths(), MEASUREMENTS["attention_calls"]
+    graphs0 = compile_counts()
     t = time.perf_counter()
     pipe.compile()
     compile_s = time.perf_counter() - t
+    served_graphs = {"compile()": graphs_since("offload", "compile()", graphs0, 1)}
+    if served_graphs["compile()"]["flux_pre"] != 1 or served_graphs["compile()"]["flux_final"] != 1:
+        fail("offload", f"compile() compiled {served_graphs['compile()']}: the streamed warm-up ran eagerly")
     # tiles measured in the warm-up, if any
     measured = measuring_calls("offload", bucket_joints(spec), pinned, MEASUREMENTS["attention_calls"] - measured)
     check_path_launches("offload", "compile()", dict(LAUNCHES), blocks * compile_evaluations(spec) + measured)
@@ -2100,7 +2110,9 @@ def phase_offload(card: str):
         body = {"prompt": prompt, "width": 1024, "height": 1024, "num_steps": 28, "seed": 61}
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        graphs0 = compile_counts()
         dt, _ = generate("(a) streamed POST /generate 1024x1024/28", body, 28)
+        served_graphs["(a) 1024x1024"] = graphs_since("offload", "(a)", graphs0, 1)
         peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
         held, expected = check_between("(a)")
         print(f"[{card}] (a) streamed POST /generate 1024x1024 28 steps: {dt:.3f} s/request, denoise "
@@ -2163,9 +2175,9 @@ def phase_offload(card: str):
             dev_tree = tree_to(host, dev, non_blocking=True)
             torch.cuda.synchronize()
             h2d_s = time.perf_counter() - t
-            x, ts28 = inputs(1024, 28)
-            r1, r1_s, _ = resident(dev_tree, x, ts28[:2])
-            r28, r28_s, r28_peak = resident(dev_tree, x, ts28)
+            x, ts_long = inputs(1024, OFFLOAD_LONG_STEPS)
+            r1, r1_s, _ = resident(dev_tree, x, ts_long[:2])
+            r_long, r_long_s, r_long_peak = resident(dev_tree, x, ts_long)
             t = time.perf_counter()
             copy_tree_(host, dev_tree)  # the round trip's way back (the same values)
             d2h_s = time.perf_counter() - t
@@ -2197,17 +2209,17 @@ def phase_offload(card: str):
             print(f"[{card}] (e) 512x512/4 compiled: resident {4 / rc_s:.3f} it/s, streamed at retain 0 "
                   f"{4 / sc_s:.3f} it/s, latents bit for bit; graphs compiled by the resident loop "
                   f"{ {k: resident_graphs[k] - graphs[k] for k in graphs} }, by the streamed one "
-                  f"{ {k: streamed_graphs[k] - resident_graphs[k] for k in graphs} } (its blocks' copies made "
-                  f"under inference mode), by its second run none", flush=True)
+                  f"{ {k: streamed_graphs[k] - resident_graphs[k] for k in graphs} } (its extras read a dict of the "
+                  f"top-level entries), by its second run none", flush=True)
             del dev_tree
             release()
             floor = float((ra.float() - rb.float()).abs().max())
             # step 1 first with the side stream's allocator pool empty (each block's
             # tensors cudaMalloc'd), then as a server meets it, the pool holding the
             # last request's blocks
-            _, s1_cold_s, _ = streamed(x, ts28[:2])
-            s1, s1_s, s1_peak = streamed(x, ts28[:2])
-            s28, s28_s, s28_peak = streamed(x, ts28)
+            _, s1_cold_s, _ = streamed(x, ts_long[:2])
+            s1, s1_s, s1_peak = streamed(x, ts_long[:2])
+            s_long, s_long_s, s_long_peak = streamed(x, ts_long)
             mid = sum(tree_nbytes(b) for b in list(dbl) + list(sgl)) // 2
             runs = {"retain 0": streamed(x512, ts4, 0), f"retain {mid / gib:.2f} GiB (mid)": streamed(x512, ts4, mid),
                     "retain 0, sync_every 2": streamed(x512, ts4, 0, 2)}
@@ -2223,18 +2235,19 @@ def phase_offload(card: str):
             slice_ = max(offload_mod.slice_nbytes(dbl), offload_mod.slice_nbytes(sgl))
             kept = offload_mod.retained_blocks(dbl, sgl, mid)
             kept_bytes = sum(tree_nbytes(b) for b, k in zip(list(dbl) + list(sgl), kept) if k)
-        resident_step, step1, steady = (r28_s - r1_s) / 27, s1_s, (s28_s - s1_s) / 27
-        diffs = {"1024x1024/28, retain all": float((s28.float() - r28.float()).abs().max())}
+        n = OFFLOAD_LONG_STEPS
+        resident_step, step1, steady = (r_long_s - r1_s) / (n - 1), s1_s, (s_long_s - s1_s) / (n - 1)
+        diffs = {f"1024x1024/{n}, retain all": float((s_long.float() - r_long.float()).abs().max())}
         diffs.update({f"512x512/4, {k}": float((v[0].float() - ra.float()).abs().max()) for k, v in runs.items()})
         print(f"[{card}] (b) host -> card copy of one block (pinned, non_blocking): "
               + ", ".join(f"{r:.2f}" for r in rates) + f" GB/s (double, double, single, single); the whole flow "
               f"{flow_bytes / 1e9:.3f} GB host -> card {h2d_s:.3f} s ({flow_bytes / h2d_s / 1e9:.2f} GB/s), card -> "
               f"host in place {d2h_s:.3f} s ({flow_bytes / d2h_s / 1e9:.2f} GB/s)", flush=True)
-        print(f"[{card}] (b) 1024x1024: resident step {resident_step * 1e3:.1f} ms (28 steps {r28_s:.3f} s, "
-              f"{28 / r28_s:.3f} it/s, peak {r28_peak / gib:.3f} GiB above the tree); streamed, every block "
+        print(f"[{card}] (b) 1024x1024: resident step {resident_step * 1e3:.1f} ms ({n} steps {r_long_s:.3f} s, "
+              f"{n / r_long_s:.3f} it/s, peak {r_long_peak / gib:.3f} GiB above the tree); streamed, every block "
               f"retained: step 1 {step1 * 1e3:.1f} ms ({s1_cold_s * 1e3:.1f} ms with the allocator's pool "
-              f"empty), steady step {steady * 1e3:.1f} ms (28 steps {s28_s:.3f} s, "
-              f"{28 / s28_s:.3f} it/s, peak {s28_peak / gib:.3f} GiB, step 1 alone {s1_peak / gib:.3f} GiB)", flush=True)
+              f"empty), steady step {steady * 1e3:.1f} ms ({n} steps {s_long_s:.3f} s, "
+              f"{n / s_long_s:.3f} it/s, peak {s_long_peak / gib:.3f} GiB, step 1 alone {s1_peak / gib:.3f} GiB)", flush=True)
         print(f"[{card}] (b) 512x512/4: resident {4 / ra_s:.3f} it/s (peak {ra_peak / gib:.3f} GiB above the tree); "
               + "; ".join(f"streamed {k}: {4 / v[1]:.3f} it/s, peak {v[2] / gib:.3f} GiB" for k, v in runs.items())
               + f"; resident run-to-run max |diff| {floor}", flush=True)
@@ -2265,7 +2278,7 @@ def phase_offload(card: str):
         if not step1 <= overlap_bound:
             fail("offload", f"step 1 {step1:.3f} s: the copies do not overlap the compute (bound {overlap_bound:.3f} s "
                             f"= copy {h2d_s:.3f} + step {resident_step:.3f} - half the smaller)")
-        del s1, s28, r28, ra, rb, ra2, runs, padded, padded_mid, x, x512, tops, dbl, sgl  # (d) rebuilds the stream state
+        del s1, s_long, r_long, ra, rb, ra2, runs, padded, padded_mid, x, x512, tops, dbl, sgl  # (d) rebuilds the stream state
 
         # (c) the same prompt again: the LRU hits and no encoder moves; then the
         # whole-tree round trip (stream_flow_offload=False)
@@ -2279,15 +2292,19 @@ def phase_offload(card: str):
 
             enc.to_device = spy
         body = {"prompt": prompt, "width": 512, "height": 512, "num_steps": 20, "seed": 63}
+        graphs0 = compile_counts()
         hit_s, hit_lat = generate("(c) LRU hit 512x512/20", body, 20)
+        served_graphs["(c) 512x512 streamed"] = graphs_since("offload", "(c) streamed", graphs0, 1)
         if moves != {"clip": 0, "t5": 0} or pipe.timings["cond_cache_hits"] != 1:
             fail("offload", f"(c) LRU hit: encoder moves {moves}, timings {pipe.timings}")
         check_between("(c) LRU hit")
         pipe.config.stream_flow_offload = False
+        graphs0 = compile_counts()
         try:
             rt_s, rt_lat = generate("(c) round trip 512x512/20", body, 20)
         finally:
             pipe.config.stream_flow_offload = True
+        served_graphs["(c) 512x512 round trip"] = graphs_since("offload", "(c) round trip", graphs0, 1)
         check_between("(c) round trip")
         if not torch.equal(rt_lat, hit_lat):
             fail("offload", "(c) the round trip's latents differ from the streamed request's")
@@ -2310,6 +2327,7 @@ def phase_offload(card: str):
                 fail("offload", f"POST /lora {body}: {status} {payload[:200]!r}")
             return time.perf_counter() - t
 
+        graphs0 = compile_counts()
         load_s = lora({"action": "load", "path": str(path), "scale": 1.0, "name": "offload"})
         unpinned = sum(1 for b in pipe.model_params.buffers() if not b.is_pinned())
         if pipe._stream_state is not None:
@@ -2320,6 +2338,9 @@ def phase_offload(card: str):
         unload_s = lora({"action": "unload", "name": "offload"})
         restored_s, restored_lat = generate("(d) unfused 512x512/20", body, 20)
         check_between("(d)")
+        # the fused blocks and the blocks restored are new tensors streamed in the
+        # same layout: the graphs of (c)'s streamed request run them
+        served_graphs["(d) fused and unfused"] = graphs_since("offload", "(d)", graphs0, 0)
         fused_rel = rel(fused_lat, hit_lat)
         restored_rel = rel(restored_lat, hit_lat)
         print(f"[{card}] (d) POST /lora rank {LORA_RANK} over double block 0 and single block 37 "
@@ -2329,6 +2350,8 @@ def phase_offload(card: str):
               f"{restored_rel:.3e}", flush=True)
         if not (fused_rel > 1e-3 and restored_rel < 0.5 * fused_rel):
             fail("offload", f"(d) fused {fused_rel}, unloaded {restored_rel}")
+        print(f"[{card}] (offload) served compiled, as shipped: graphs compiled per function by each step "
+              f"{served_graphs}", flush=True)
     finally:
         server.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2662,10 +2685,11 @@ def phase_training(card: str):
 
 # ----------------------------------------------------------------------- phase 17: mesh
 
-MESH_STEPS = 2
-# the image side of phase 17's and 18's requests and references (the kernels of 17(a)
-# run at 1024² and 720×1024 all the same)
-MESH_SIZE = 512
+# the steps of phase 17's and 18's requests: every check of the worlds holds per
+# model evaluation, and one evaluation shows each
+MESH_STEPS = 1
+# the image side of phase 17's and 18's requests and references
+MESH_SIZE = 1024
 MESH_IMG_TOKENS = (MESH_SIZE // 16) ** 2
 MESH_SEED = 23
 MESH_PROMPT = "a photo of a red house on a hill"
@@ -2679,10 +2703,11 @@ TP4_CONFIG = ROOT / "configs" / "config-dev-tp4.json"
 # wherever the two land one bf16 ulp apart and the next layer's e5m2 cast (2 mantissa
 # bits) crosses a boundary, the element moves by up to 25%, and the 57 blocks spread it.
 # The reading is a floor that does not depend on the size of the first differences:
-# 5.72–5.74e-2 at MESH_SEED and MESH_FP8_SEEDS, 5.70e-2 with fp32 accumulation on both
-# sides (NVIDIA H100 80GB HBM3, 700 W; PERF.md). The limit was set after the first
-# reading, not predicted. It sees the sp rows gathered out of order (0.138) but not a
-# bias added on every tp rank (6.03e-2): the layer check (MESH_LAYER_REL_TOL) does.
+# after two steps 5.72–5.74e-2 at MESH_SEED and MESH_FP8_SEEDS, 5.70e-2 with fp32
+# accumulation on both sides; after one 6.66–6.69e-2 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md). The limit was set after the first reading, not predicted. It sees the sp
+# rows gathered out of order (0.138 after two steps, 0.159 after one) but not a bias
+# added on every tp rank (6.03e-2, 7.10e-2): the layer check (MESH_LAYER_REL_TOL) does.
 MESH_FP8_REL_TOL = 0.1
 # the sharded text encoders' (vec, txt) against one rank's, ‖a − b‖ / ‖b‖: a
 # row-parallel product sums the ranks' fp32 partials in another order than one rank's
@@ -3052,10 +3077,6 @@ def mesh_references(card: str, tmp: Path):
                 pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=seed,
                               num_images=n, silent=True)
                 refs[(quant, n, seed)] = pipe.last_latents.cpu()
-            for n in (1, 2) if quant == "fp8" else ():  # phase 18's pp worlds serve at P18_SIZE
-                pipe.generate(MESH_PROMPT, width=P18_SIZE, height=P18_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
-                              num_images=n, silent=True)
-                refs[(quant, n, MESH_SEED, P18_SIZE)] = pipe.last_latents.cpu()
             if quant == "fp8":  # the same request with _scaled_mm's accumulation promoted to fp32
                 pipe.model_cfg = dataclasses.replace(pipe.model_cfg, fp8_fast_accum=False)
                 pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
@@ -3080,7 +3101,7 @@ def phase_mesh(card: str, hold: Optional[dict] = None):
 
     from flux_fp8_api_tpu_torch.ops.attention_kernel import LAUNCHES
     from flux_fp8_api_tpu_torch.parallel import mesh as pmesh
-    from flux_fp8_api_tpu_torch.parallel.launch import free_port, run_ranks
+    from flux_fp8_api_tpu_torch.parallel.launch import free_port
     from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
     from flux_fp8_api_tpu_torch.utils.safetensors_io import save_safetensors
 
@@ -3122,17 +3143,19 @@ def phase_mesh(card: str, hold: Optional[dict] = None):
                    {"seeds": MESH_FP8_SEEDS, "faults": ("bias", "sp order"), "exact_accum": True,
                     "layer_check": True}),
                   ("config-dev.json (fp8), dp 2, two images", CONFIG, "fp8", {"dp": 2}, 2, {}))
+        jobs = []
         for what, config, quant, shape, n, extras in worlds:
             out = tmp / f"world{len(shape)}{quant}{n}"
             out.mkdir()
-            job = {"config": str(config), "ckpt": str(tmp / f"{quant}.safetensors"), "mesh": shape,
-                   "cond": str(tmp / f"{quant}-cond.pt"), "num_images": n, "out": str(out),
-                   "lora": str(tmp / "lora.safetensors"), **extras}
-            world = math.prod(shape.values())
-            t = time.perf_counter()
-            run_ranks(_mesh_rank, world, (job,))
-            wall = time.perf_counter() - t
-            ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+            jobs.append({"config": str(config), "ckpt": str(tmp / f"{quant}.safetensors"), "mesh": shape,
+                         "cond": str(tmp / f"{quant}-cond.pt"), "num_images": n, "out": str(out),
+                         "lora": str(tmp / "lora.safetensors"), **extras})
+        # the tp 4 and tp 2 x sp 2 worlds at once (18 + 35 GiB of the card at their
+        # peaks), then the dp 2 world (35 GiB)
+        walls = run_worlds(_mesh_rank, jobs[:2]) + run_worlds(_mesh_rank, jobs[2:])
+        for (what, config, quant, shape, n, extras), job, wall in zip(worlds, jobs, walls):
+            out = Path(job["out"])
+            ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(math.prod(shape.values()))]
             check_mesh_world(card, what, shape, quant, n, ranks, torch.load(out / "latents.pt"),
                              torch.load(out / "extra.pt"), refs, one_bytes[quant], wall)
     finally:
@@ -3140,6 +3163,23 @@ def phase_mesh(card: str, hold: Optional[dict] = None):
             shutil.rmtree(tmp, ignore_errors=True)
     print(f"[{card}] phase mesh: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
+
+
+def run_worlds(fn, jobs: list) -> list:
+    """Run ``fn(job)`` in a world of ``math.prod(job["mesh"].values())`` ranks for each
+    job, the worlds at once and their ranks sharing the card (each world's checks read
+    only its own ranks' files). → each world's wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flux_fp8_api_tpu_torch.parallel.launch import run_ranks
+
+    def one(job):
+        t = time.perf_counter()
+        run_ranks(fn, math.prod(job["mesh"].values()), (job,))
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(one, jobs))
 
 
 def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, one_bytes, wall):
@@ -3260,12 +3300,8 @@ def check_mesh_world(card, what, shape, quant, n, ranks, latents, extra, refs, o
 CUT_FLUX = dict(in_channels=64, vec_in_dim=768, context_in_dim=4096, hidden_size=3072, mlp_ratio=4.0, num_heads=24,
                 depth=2, depth_single_blocks=4, axes_dim=[16, 56, 56], theta=10_000, qkv_bias=True,
                 guidance_embed=True)
-TRAIN_MESH_SIZE = 256  # the QLoRA and full-parameter steps of phase 18 (cut from 512)
-# the requests, the decode and the encode of phase 18, kept at 1024²: pp's latents at
-# M = 1 are one rank's bit for bit there, where at 512² cuBLAS takes another fp8 kernel
-# for a dp rank's batch than for one rank's two images
-P18_SIZE = 1024
-OFFLOAD_MESH_SIZE = 256  # the request with every offload flag (cut from 512)
+TRAIN_MESH_SIZE = 512  # the QLoRA and full-parameter steps of phase 18, as phase 16 trains
+OFFLOAD_MESH_SIZE = 512  # the request with every offload flag
 # QLoRA on a mesh against one rank, from the same batch, draws and adapters (bf16): a
 # row-parallel product sums the ranks' fp32 partials where one rank's GEMM sums its
 # products, and a dp rank runs one example where one rank runs the batch, so the two
@@ -3383,9 +3419,9 @@ def mesh_train_references(card: str, tmp: Path) -> dict:
     ae_spec = _mesh_spec(CONFIG, mesh=None)
     ae = load_autoencoder(ae_spec)
     g = torch.Generator(device=dev).manual_seed(210)
-    h, z = P18_SIZE // 8, ae_spec.ae_params.z_channels
+    h, z = MESH_SIZE // 8, ae_spec.ae_params.z_channels
     latents = torch.randn((1, h, h, z), generator=g, device=dev).to(torch.bfloat16)
-    image = (torch.rand((1, P18_SIZE, P18_SIZE, 3), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+    image = (torch.rand((1, MESH_SIZE, MESH_SIZE, 3), generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
     with torch.inference_mode():
         decoded = ae_decode(ae, ae_spec.ae_params, latents).float()
         encoded = ae_encode(ae, ae_spec.ae_params, image, torch.Generator(device=dev).manual_seed(211)).float()
@@ -3394,7 +3430,7 @@ def mesh_train_references(card: str, tmp: Path) -> dict:
     del ae
     release()
     print(f"[{card}] (b, e) one rank's QLoRA step (int8, {TRAIN_MESH_SIZE}², batch 2, loss {ref['loss']:.6f}) "
-          f"and whole VAE decode and encode at {P18_SIZE}²: {time.perf_counter() - t0:.1f} s", flush=True)
+          f"and whole VAE decode and encode at {MESH_SIZE}²: {time.perf_counter() - t0:.1f} s", flush=True)
     return ref
 
 
@@ -3430,7 +3466,7 @@ def _p18_serve(mesh, job, out: dict) -> None:
     torch.cuda.synchronize()
     t = time.perf_counter()
     with torch.inference_mode():
-        pipe.generate(MESH_PROMPT, width=P18_SIZE, height=P18_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
+        pipe.generate(MESH_PROMPT, width=MESH_SIZE, height=MESH_SIZE, num_steps=MESH_STEPS, seed=MESH_SEED,
                       num_images=job["num_images"], silent=True)
     torch.cuda.synchronize()
     out.update(generate_s=time.perf_counter() - t, launches=dict(LAUNCHES),
@@ -3449,7 +3485,7 @@ def _p18_serve(mesh, job, out: dict) -> None:
                 from PIL import Image
 
                 url = f"http://127.0.0.1:{server.port}"
-                body = {"prompt": "a lighthouse at dusk", "width": P18_SIZE, "height": P18_SIZE,
+                body = {"prompt": "a lighthouse at dusk", "width": MESH_SIZE, "height": MESH_SIZE,
                         "num_steps": MESH_STEPS, "seed": 5}
                 t = time.perf_counter()
                 status, _, payload = post(url + "/generate", body)
@@ -3643,12 +3679,12 @@ def _p18_vae(mesh, job, out: dict) -> None:
         x = lat.permute(0, 3, 1, 2)  # NCHW
         from flux_fp8_api_tpu_torch.ops.packing import pack_latents
 
-        pixels = pipe.vae_decode(pack_latents(x.float()), P18_SIZE, P18_SIZE)
+        pixels = pipe.vae_decode(pack_latents(x.float()), MESH_SIZE, MESH_SIZE)
         want = torch.floor(torch.clamp((torch.clamp(ref["decoded"], -1.0, 1.0) + 1.0) * 127.5, 0, 255)).to(torch.uint8)
         diff = (torch.from_numpy(pixels).short() - want.short()).abs()
-        res["decode"] = {"axes": pipe.ae_band_axes(P18_SIZE // 8), "mean": float(diff.float().mean()), "max": int(diff.max())}
+        res["decode"] = {"axes": pipe.ae_band_axes(MESH_SIZE // 8), "mean": float(diff.float().mean()), "max": int(diff.max())}
         if job.get("encode"):
-            band = pipe._bands(P18_SIZE, 2 ** (len(spec.ae_params.ch_mult) - 1))
+            band = pipe._bands(MESH_SIZE, 2 ** (len(spec.ae_params.ch_mult) - 1))
             img = ref["image"].to(mesh.device)
             z = ae_encode(pipe.ae_params, spec.ae_params, band.rows(img, 1),
                           torch.Generator(device=mesh.device).manual_seed(211), band)
@@ -3748,10 +3784,6 @@ def phase_pp_and_training_mesh(card: str, held: Optional[dict] = None):
     QLoRA; e: the img2img encode in bands and the request with every offload) and
     dp 2 × tp 2 (b; e: the decode in bands), tp 4 (e: the decode). ``held``: phase 17's
     temporary directory and references, else they are made here."""
-    import torch
-
-    from flux_fp8_api_tpu_torch.parallel.launch import run_ranks
-
     t_phase = time.perf_counter()
     rows = mesh_rope_backward(card)
     own = held is None
@@ -3769,15 +3801,21 @@ def phase_pp_and_training_mesh(card: str, held: Optional[dict] = None):
             ("dp 2 x tp 2", {"dp": 2, "tp": 2}, {"parts": ["qlora", "vae"]}),
             ("tp 4", {"tp": 4}, {"parts": ["vae"]}),
         )
+        jobs = []
         for what, shape, extra in worlds:
             out = tmp / ("p18-" + "-".join(f"{a}{n}" for a, n in shape.items()))
             out.mkdir()
-            job = {"mesh": shape, "out": str(out), **files, **extra}
-            world = math.prod(shape.values())
-            t = time.perf_counter()
-            run_ranks(_phase18_rank, world, (job,))
-            ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
-            check_phase18_world(card, what, shape, job, ranks, refs, qref, time.perf_counter() - t)
+            jobs.append({"mesh": shape, "out": str(out), **files, **extra})
+        # tp 2 and tp 4's decode at once; the others one at a time: pp 2's full-parameter
+        # steps must repeat themselves bit for bit, which SDPA's backward does not do beside
+        # another world's work, and dp 2 x pp 2 alone takes 58 GiB of the card
+        walls = {}
+        for group in ((0,), (1,), (2, 4), (3,)):
+            walls.update(zip(group, run_worlds(_phase18_rank, [jobs[i] for i in group])))
+        for i, ((what, shape, _), job) in enumerate(zip(worlds, jobs)):
+            out = Path(job["out"])
+            ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(math.prod(shape.values()))]
+            check_phase18_world(card, what, shape, job, ranks, refs, qref, walls[i])
     finally:
         if own:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -3796,9 +3834,9 @@ def check_phase18_world(card, what, shape, job, ranks, refs, qref, wall):
     if "serve" in job["parts"]:
         n, dp, s = job["num_images"], shape.get("dp", 1), shape["pp"]
         spec = _mesh_spec(CONFIG)
-        p, l_img = spec.params, (P18_SIZE // 16) ** 2
+        p, l_img = spec.params, (MESH_SIZE // 16) ** 2
         latents = torch.load(out / "pp-latents.pt")
-        ref = refs[("fp8", n, MESH_SEED, P18_SIZE)]
+        ref = refs[("fp8", n, MESH_SEED)]
         exact, rel = bool(torch.equal(latents, ref)), _rel(latents, ref)
         budgets = pp_flux_budget(shape, p, n // dp, spec.text_enc_max_length, l_img)
         # each stage's blocks: a depth slice of a stack the stages divide, else all of it
@@ -3831,10 +3869,10 @@ def check_phase18_world(card, what, shape, job, ranks, refs, qref, wall):
         http = ranks[0].get("http")
         if job.get("serve") and http is not None:
             cached = ranks[0]["http_cached"]
-            if http["status"] != 200 or http["size"] != [P18_SIZE, P18_SIZE] or cached["status"] != 400 \
+            if http["status"] != 200 or http["size"] != [MESH_SIZE, MESH_SIZE] or cached["status"] != 400 \
                     or "pp" not in cached["body"]:
                 fail("pp and training mesh", f"(a) HTTP through the pp world's first rank: {http}, cached {cached}")
-            print(f"[{card}] (a) HTTP on {what}: POST /generate {P18_SIZE}x{P18_SIZE} {http['s']:.1f} s; a cached request "
+            print(f"[{card}] (a) HTTP on {what}: POST /generate {MESH_SIZE}x{MESH_SIZE} {http['s']:.1f} s; a cached request "
                   f"answers {cached['status']}: {cached['body']}", flush=True)
     if "pp_train" in job["parts"]:
         for r in ranks:
@@ -3877,7 +3915,7 @@ def check_phase18_world(card, what, shape, job, ranks, refs, qref, wall):
                 fail("pp and training mesh", f"(e) {what} rank {r['rank']}: band encode {v}")
         v = ranks[0]["vae"]
         enc = f"; encode over {v['encode']['axes']} ‖a - b‖/‖b‖ {v['encode']['rel']:.3e}" if "encode" in v else ""
-        print(f"[{card}] (e) {what}: {P18_SIZE}² decode in bands over {v['decode']['axes']}: pixels mean |Δ| "
+        print(f"[{card}] (e) {what}: {MESH_SIZE}² decode in bands over {v['decode']['axes']}: pixels mean |Δ| "
               f"{v['decode']['mean']:.4f}, max {v['decode']['max']} from one rank's whole decode{enc}; "
               f"{max(r['vae']['s'] for r in ranks):.1f} s", flush=True)
     if "offload" in job["parts"]:
@@ -3921,6 +3959,15 @@ def compile_counts() -> dict:
     from flux_fp8_api_tpu_torch.models.flux import COMPILES
 
     return {fn: COMPILES[fn] for fn in COMPILED_FUNCTIONS}
+
+
+def graphs_since(phase: str, what: str, before: dict, most: int) -> dict:
+    """The graphs compiled per function since ``before`` (compile_counts()), at most
+    ``most`` each. → the counts added."""
+    added = {fn: n - before[fn] for fn, n in compile_counts().items()}
+    if any(n > most for n in added.values()):
+        fail(phase, f"{what}: graphs compiled {added}, at most {most} per function expected")
+    return added
 
 
 def check_frames(phase: str, what: str, before: dict, buckets: int, shared_extras: bool = False) -> dict:
@@ -3980,10 +4027,11 @@ def compile_child(cache_dir: str) -> None:
     """Phase 20(c) in a second process: config-dev.json's pipeline (random weights
     from its seed; no calibration trials, since no graph depends on the scales'
     values) with ``compilation_cache_dir`` = ``cache_dir`` and the compile flags, one
-    eager 1-step request first (the encoders, the VAE and cuBLAS warm), then each
-    bucket of COMPILE_BUCKETS served at one step twice: the first generate compiles
-    the bucket's graphs (from the cache where it holds them), the second runs them,
-    and the difference is the bucket's compile seconds. Prints one JSON line."""
+    eager 1-step request first (the encoders, the VAE and cuBLAS warm), then the first
+    bucket of COMPILE_BUCKETS (the warm-up's, which phase 7 compiled first, cold)
+    served at one step twice: the first generate compiles the bucket's graphs (from
+    the cache where it holds them), the second runs them, and the difference is the
+    bucket's compile seconds. Prints one JSON line."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -3999,7 +4047,7 @@ def compile_child(cache_dir: str) -> None:
     pipe.config.compile_blocks = pipe.config.compile_extras = True
     point_compile_cache(cache_dir)
     rows = []
-    for w, h, _ in COMPILE_BUCKETS:
+    for w, h, _ in COMPILE_BUCKETS[:1]:
         before = compile_counts()
         t = time.perf_counter()
         pipe.generate(width=w, height=h, **body)
@@ -4015,9 +4063,9 @@ def compile_child(cache_dir: str) -> None:
 
 
 def warm_compile_seconds(card: str) -> dict:
-    """(c) Each bucket's compile seconds in a fresh process (:func:`compile_child`)
-    from COMPILE_CACHE as phase 7's cold compiles left it: one graph per function and
-    bucket. → the child's report."""
+    """(c) The first bucket's compile seconds in a fresh process (:func:`compile_child`)
+    from COMPILE_CACHE as phase 7's cold compiles left it: one graph per function.
+    → the child's report."""
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", f"import chip_smoke as c; c.compile_child({str(COMPILE_CACHE)!r})"],
                           cwd=ROOT, capture_output=True, text=True, timeout=900)
@@ -4111,12 +4159,47 @@ def compiled_against_eager(card: str, phase: str, pipe, width: int, height: int,
     return {"compiled_its": max(its_c1, its_c2), "eager_its": its_e, "ssim": value, "rel": diff}
 
 
+def bucket_key_us(pipe, reps: int = 200) -> float:
+    """Host microseconds of the bucket key that each compiled evaluation computes
+    (``models/flux.py:bucket``), for ``pipe``'s model at 1024x1024: the median of
+    ``reps`` calls."""
+    import torch
+
+    from flux_fp8_api_tpu_torch.models import flux as flux_mod
+
+    model, cfg, dev = pipe.model_params, pipe.model_cfg, pipe.device_flux
+    blocks = [model["double_blocks"][0], model["single_blocks"][0]]
+    with torch.inference_mode():
+        x = [torch.zeros(s, device=dev) for s in ((1, 4096, 64), (1, 4096, 3), (1, 512, 4096), (1, 512, 3), (1,),
+                                                   (1, 768), (1,))]
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            flux_mod.bucket(cfg, model, blocks, 4608, *x)
+            times.append(time.perf_counter() - t)
+    return 1e6 * sorted(times)[reps // 2]
+
+
+def check_buckets(card: str) -> None:
+    """The buckets each compiled function admitted in this one process, against
+    ``models/flux.py:MAX_COMPILED_BUCKETS``: every compiled call of the run in one of
+    them, so no call ran eagerly for want of room."""
+    from flux_fp8_api_tpu_torch.models import flux as flux_mod
+
+    admitted = {fn: len(flux_mod._ADMITTED[fn]) for fn in (*COMPILED_FUNCTIONS, "_cache_indicator")}
+    print(f"[{card}] (compiled) buckets admitted per function in this process {admitted} of "
+          f"{flux_mod.MAX_COMPILED_BUCKETS}; graphs {dict(flux_mod.COMPILES)}; calls run eagerly for want of room "
+          f"{dict(flux_mod.EAGER_CALLS)}", flush=True)
+    if any(flux_mod.EAGER_CALLS.values()):
+        fail("compiled", f"calls ran eagerly past MAX_COMPILED_BUCKETS: {dict(flux_mod.EAGER_CALLS)}")
+
+
 def phase_compiled(card: str, pipe, first_denoise: dict) -> dict:
     """(b) phase 7's pipeline (config-dev.json as shipped: fp8, the compile flags on;
     its buckets compiled in phase 7): compiled against eager at each bucket of
     COMPILE_BUCKETS, and each bucket's cold compile seconds, phase 7's first denoise
-    of the bucket less a steady one of as many steps; (c) the warm compile seconds in a
-    second process, each below the cold ones; (f) ``profile_step``'s breakdown of the
+    of the bucket less a steady one of as many steps; (c) the first bucket's warm
+    compile seconds in a second process, below the cold ones; (f) ``profile_step``'s breakdown of the
     compiled step at 1024². (a) ran before phase 7
     (:func:`compiled_ops`); (d) runs in phase 9, (e) in phase 15, and the fidelity gate
     on the compiled path is phase 14."""
@@ -4132,11 +4215,15 @@ def phase_compiled(card: str, pipe, first_denoise: dict) -> dict:
     for r in warm["buckets"]:
         rows[r["bucket"]]["compile_warm_s"] = r["compile_s"]
     print(f"[{card}] (compiled) (b, c) compile seconds per bucket, cold (phase 7, empty cache) / warm (a second "
-          f"process): " + ", ".join(f"{b} {r['compile_cold_s']:.2f} / {r['compile_warm_s']:.2f}" for b, r in rows.items()),
-          flush=True)
+          f"process, its first bucket only): " + ", ".join(
+              f"{b} {r['compile_cold_s']:.2f} / " + (f"{r['compile_warm_s']:.2f}" if "compile_warm_s" in r else "-")
+              for b, r in rows.items()), flush=True)
     for b, r in rows.items():
-        if not r["compile_warm_s"] < r["compile_cold_s"]:
+        if "compile_warm_s" in r and not r["compile_warm_s"] < r["compile_cold_s"]:
             fail("compiled", f"{b}: warm compile {r['compile_warm_s']:.2f} s, cold {r['compile_cold_s']:.2f} s")
+    key_us = bucket_key_us(pipe)
+    print(f"[{card}] (compiled) the bucket key of one 1024x1024 evaluation (models/flux.py:bucket, on the host): "
+          f"{key_us:.1f} us", flush=True)
     r = profile_step.profile(pipe, 1024, 1024, 4)
     print(f"[{card}] (compiled) (f) profile_step 1024x1024, compiled: busy {r['busy_ms_per_step']:.2f} / wall "
           f"{r['wall_ms_per_step']:.2f} ms per step, idle {100 * r['idle_share']:.1f}%, "
@@ -4197,6 +4284,7 @@ def main() -> int:
     release()
     phase_fidelity(card_line)
     phase_offload(card_line)
+    check_buckets(card_line)  # the last phase that compiles
     train_launches, bwd = phase_training(card_line)
     held: dict = {}
     try:

@@ -24,13 +24,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention
+from ..ops.attention import _pick_blocks_rect, attention
 from ..ops.math import (
     clamp_policy,
     gelu_tanh,
@@ -44,6 +45,9 @@ from ..ops.quant import FLOW_QUANTIZERS, Linear, linear_apply, tp_copy
 from ..ops.rope import embed_nd_cos_sin
 from ..utils.config import FluxParams, into_dtype
 from ..utils.tree import ParamTree
+
+logger = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass(frozen=True)
 class FluxStatic:
@@ -455,7 +459,9 @@ def flux_cache_indicator(model, cfg: FluxStatic, img, timesteps, y, guidance=Non
     img_in, the conditioning MLPs and one modulation linear, none of the 57 blocks.
     ``compiled.extras`` runs it through its compiled counterpart (as an extra)."""
     if compiled is not None and compiled.extras and _may_compile(cfg):
-        return _compiled(_cache_indicator)(model, cfg, img, timesteps, y, guidance)
+        key = bucket(cfg, model, model["double_blocks"][:1], None, img, timesteps, y, guidance)
+        if _admit("_cache_indicator", key):
+            return _compiled(_cache_indicator)(model, cfg, img, timesteps, y, guidance)
     return _cache_indicator(model, cfg, img, timesteps, y, guidance)
 
 
@@ -544,7 +550,9 @@ def flux_apply(
     tape = _Tape.of(cfg, collect_amax)
     txt_len = txt.shape[1]
     compiled = EAGER if compiled is None or collect_amax or stack_runner is not None else compiled
-    pre, final, double, single = compiled.functions(cfg)
+    pre, final, double, single = compiled.functions(
+        cfg, model, [*model["double_blocks"][:1], *model["single_blocks"][:1]], txt_len + img.shape[1],
+        img, img_ids, txt, txt_ids, timesteps, y, guidance)
     img, txt, vec_silu, cos, sin = pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
 
     def run(block_fn, *args):
@@ -614,18 +622,32 @@ def _stack_amaxes(per_block):
 # "aot_eager", and reset_compiled() around each test.
 COMPILE_BACKEND: Any = "inductor"
 
+# Buckets a process compiles, per function. A bucket is what one graph is specialised
+# to besides tensor values (:func:`bucket`). A server meets as many as its requests
+# have sizes (any multiple of 16 a side, any number of images), so the first
+# MAX_COMPILED_BUCKETS a function meets compile, and a call in any other bucket runs
+# that function eagerly (a warning at the first): every size is still served, as the
+# eager forward served it. 32 holds what one serving process compiles (one tier,
+# its warm-up buckets and the sizes its clients send first) and what chip_smoke's
+# tiers and buckets compile in its one process.
+MAX_COMPILED_BUCKETS = 32
+
 # Graphs per function a process may hold (dynamo's recompile limit, raised to at least
-# this when the first compiled function is made): the tiers × buckets × attention
-# tiles one process serves. Past it dynamo raises (fail_on_recompile_limit_hit) instead
-# of running the function eagerly without a word.
-RECOMPILE_LIMIT = 64
+# this when the first compiled function is made): one per admitted bucket, twice over,
+# so that a guard the bucket leaves out has room. Past it dynamo raises
+# (fail_on_recompile_limit_hit) instead of running the function eagerly without a word.
+RECOMPILE_LIMIT = 2 * MAX_COMPILED_BUCKETS
 
 # Graphs compiled per function, counted where the backend is called: once per dynamo
 # frame, and with fullgraph=True each frame is one graph. A bucket's first call counts
 # one; every later call of the bucket runs the cached graph and counts nothing.
 COMPILES: Dict[str, int] = collections.Counter()
 
+# Calls per function run eagerly because it had admitted MAX_COMPILED_BUCKETS others.
+EAGER_CALLS: Dict[str, int] = collections.Counter()
+
 _COMPILED: Dict[str, Callable] = {}
+_ADMITTED: Dict[str, Dict[Any, None]] = collections.defaultdict(dict)
 
 
 def _compiled(fn: Callable) -> Callable:
@@ -637,7 +659,8 @@ def _compiled(fn: Callable) -> Callable:
 
         config = torch._dynamo.config
         config.recompile_limit = max(config.recompile_limit, RECOMPILE_LIMIT)
-        config.accumulated_recompile_limit = max(config.accumulated_recompile_limit, 4 * RECOMPILE_LIMIT)
+        # the limit over every function's graphs together: the five functions' limits
+        config.accumulated_recompile_limit = max(config.accumulated_recompile_limit, 5 * RECOMPILE_LIMIT)
         config.fail_on_recompile_limit_hit = True
         backend = COMPILE_BACKEND
         if isinstance(backend, str):
@@ -652,18 +675,53 @@ def _compiled(fn: Callable) -> Callable:
 
 
 def reset_compiled() -> None:
-    """Drop every compiled function, dynamo's caches and the counts: the next use
-    compiles anew with the current :data:`COMPILE_BACKEND`."""
+    """Drop every compiled function, dynamo's caches, the admitted buckets and the
+    counts: the next use compiles anew with the current :data:`COMPILE_BACKEND`."""
     import torch._dynamo
 
     _COMPILED.clear()
+    _ADMITTED.clear()
     COMPILES.clear()
+    EAGER_CALLS.clear()
     torch._dynamo.reset()
+
+
+def bucket(cfg: FluxStatic, tops, blocks, joint: Optional[int], *inputs) -> tuple:
+    """The bucket of a forward (:data:`MAX_COMPILED_BUCKETS`): the config; the top-level
+    weights' container (the model's tree, or the streamed loop's dict) and the layout
+    of its entries and of ``blocks`` (each module's kind and its buffers' dtypes and
+    shapes; every block of a stack is laid out as the first one given); the attention
+    tile that ops/attention.py picks for the ``joint`` length; each input's shape,
+    dtype, device and whether inference mode made it (the weights' too), and whether
+    the call runs under it."""
+    tile = _pick_blocks_rect(joint, joint) if joint and cfg.use_pallas else None
+    trees = [v for k, v in tops.items() if k not in ("double_blocks", "single_blocks")
+             and isinstance(v, torch.nn.Module)] + list(blocks)
+    layout = tuple((getattr(m, "kind", None), tuple((k, b.dtype, b.shape, b.is_inference())
+                                                    for k, b in m._buffers.items() if b is not None))
+                   for tree in trees for m in tree.modules())
+    shapes = tuple(None if x is None else (x.shape, x.dtype, x.device, x.is_inference()) for x in inputs)
+    # the streamed loop's blocks are copied in the mode the call runs in
+    return cfg, type(tops), layout, tile, shapes, torch.is_inference_mode_enabled()
+
+
+def _admit(name: str, key: tuple) -> bool:
+    """Whether function ``name`` runs compiled in bucket ``key``: a bucket it has
+    admitted, or a new one while it has admitted fewer than MAX_COMPILED_BUCKETS."""
+    admitted = _ADMITTED[name]
+    if key in admitted or len(admitted) < MAX_COMPILED_BUCKETS:
+        admitted[key] = None
+        return True
+    if not EAGER_CALLS[name]:
+        logger.warning("%s has compiled its %d buckets: a call in any other bucket runs it eagerly "
+                       "(models/flux.py:MAX_COMPILED_BUCKETS)", name, MAX_COMPILED_BUCKETS)
+    EAGER_CALLS[name] += 1
+    return False
 
 
 def _may_compile(cfg: FluxStatic) -> bool:
     """A forward compiles only without a gradient and without a mesh: training and the
-    mesh's collectives run eagerly."""
+    mesh's collectives run eagerly. The one place that decides it."""
     return not torch.is_grad_enabled() and cfg.mesh is None
 
 
@@ -675,15 +733,17 @@ class Compiled(NamedTuple):
     blocks: bool = False
     extras: bool = False
 
-    def functions(self, cfg: FluxStatic):
-        """(pre, final, double block, single block) for a forward of ``cfg`` now:
-        the compiled counterparts asked for where :func:`_may_compile`, else the
-        eager functions."""
-        may = _may_compile(cfg)
-        extras, blocks = may and self.extras, may and self.blocks
-        return (_compiled(flux_pre) if extras else flux_pre, _compiled(flux_final) if extras else flux_final,
-                _compiled(_double_block) if blocks else _double_block,
-                _compiled(_single_block) if blocks else _single_block)
+    def functions(self, cfg: FluxStatic, tops, blocks, joint: int, *inputs):
+        """(pre, final, double block, single block) for a forward of ``cfg`` now, in
+        the bucket of ``tops``, ``blocks``, the ``joint`` length and ``inputs``
+        (:func:`bucket`): the compiled counterparts asked for where
+        :func:`_may_compile` and the bucket is admitted, else the eager functions."""
+        fns = (flux_pre, flux_final, _double_block, _single_block)
+        if not (self.blocks or self.extras) or not _may_compile(cfg):
+            return fns
+        key = bucket(cfg, tops, blocks, joint, *inputs)
+        asked = (self.extras, self.extras, self.blocks, self.blocks)
+        return tuple(_compiled(fn) if ask and _admit(fn.__name__, key) else fn for fn, ask in zip(fns, asked))
 
 
 EAGER = Compiled()

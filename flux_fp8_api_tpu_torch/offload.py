@@ -197,7 +197,9 @@ def streamed_denoise(
     g_vec = _guidance_vec(cfg, img, guidance)
     tape = _Tape(False, cfg.fp8_fast_accum)
     txt_len = txt.shape[1]
-    pre, final, double, single = (compiled or EAGER).functions(cfg)
+    pre, final, double, single = (compiled or EAGER).functions(
+        cfg, tops_dev, [blocks[i] for i in (0, n_dbl) if i < n], txt_len + img.shape[1],
+        img, img_ids, txt, txt_ids, y, g_vec)
     for t_curr, t_prev in pairs:
         t_vec, dt = _euler(cfg, img, t_curr, t_prev)
         img_e, txt_e, vec_silu, cos, sin = pre(tops_dev, cfg, img, img_ids, txt, txt_ids, t_vec, y, g_vec, tape)

@@ -376,6 +376,23 @@ def _k1_launch(q, k, v, sm_scale: float, tile: tuple, build: int):
     return out, max_logit
 
 
+def _rope_plain(entry: str, build: str, q, k, cos, sin, cos_q, sin_q):
+    """What :func:`_rope_launch` gives, from the plain version: the ops' path for a
+    tensor that is not on the card."""
+    ref = rope_rotate_ref_backward if build == "rope_rotate_backward" else rope_rotate_ref
+    return ref(q, cos_q, sin_q).contiguous(), ref(k, cos, sin).contiguous()
+
+
+def _k1_plain(q, k, v, sm_scale: float, tile: tuple, build: int):
+    """What :func:`_k1_launch` gives, from the plain version: the ops' path for a tensor
+    that is not on the card."""
+    name = K1_BUILDS[build]
+    out = qknorm_attention_ref(q, k, v, sm_scale, return_max_logit=name == "qknorm_attention_stats",
+                               ablate_exp=name == "qknorm_attention_ablate_exp")
+    out, m = out if isinstance(out, tuple) else (out, _no_max_logit(q))
+    return out.transpose(0, 1).contiguous(), m
+
+
 # ------------------------------------------------------------- the kernels as torch ops
 #
 # The rope pass, its backward and the attention kernel are ``torch.library`` custom ops
@@ -393,12 +410,6 @@ K1_BUILDS = ("qknorm_attention", "qknorm_attention_stats", "qknorm_attention_abl
 _OP_TAGS = (torch.Tag.needs_fixed_stride_order,)
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """The ops' device decision: a CUDA tensor launches the kernel, any other runs the
-    plain version."""
-    return t.is_cuda
-
-
 def _no_max_logit(q: torch.Tensor) -> torch.Tensor:
     """The op's second output for builds without statistics: an empty fp32 tensor."""
     return q.new_empty((0,), dtype=torch.float32)
@@ -407,19 +418,16 @@ def _no_max_logit(q: torch.Tensor) -> torch.Tensor:
 @torch.library.custom_op("flux_fp8::rope_rotate", mutates_args=(), tags=_OP_TAGS)
 def _rope_rotate_op(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                     cos_q: torch.Tensor, sin_q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    if not _on_card(q):
-        return rope_rotate_ref(q, cos_q, sin_q).contiguous(), rope_rotate_ref(k, cos, sin).contiguous()
-    return _rope_launch("rope_rotate_bf16", "rope_rotate", q, k, cos, sin, cos_q, sin_q)
+    launch = _rope_launch if q.is_cuda else _rope_plain
+    return launch("rope_rotate_bf16", "rope_rotate", q, k, cos, sin, cos_q, sin_q)
 
 
 @torch.library.custom_op("flux_fp8::rope_rotate_backward", mutates_args=(), tags=_OP_TAGS)
 def _rope_rotate_backward_op(gq: torch.Tensor, gk: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                              cos_q: torch.Tensor, sin_q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    if not _on_card(gq):
-        return (rope_rotate_ref_backward(gq, cos_q, sin_q).contiguous(),
-                rope_rotate_ref_backward(gk, cos, sin).contiguous())
-    return _rope_launch("rope_rotate_backward_bf16", "rope_rotate_backward",
-                        _kernel_view(gq), _kernel_view(gk), cos, sin, cos_q, sin_q)
+    launch = _rope_launch if gq.is_cuda else _rope_plain
+    return launch("rope_rotate_backward_bf16", "rope_rotate_backward",
+                  _kernel_view(gq), _kernel_view(gk), cos, sin, cos_q, sin_q)
 
 
 @_rope_rotate_op.register_fake
@@ -444,13 +452,8 @@ _rope_rotate_op.register_autograd(_rope_backward, setup_context=_rope_setup_cont
 @torch.library.custom_op("flux_fp8::qknorm_attention", mutates_args=(), tags=_OP_TAGS)
 def _qknorm_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
                          block_q: int, block_kv: int, build: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    if not _on_card(q):
-        name = K1_BUILDS[build]
-        out = qknorm_attention_ref(q, k, v, sm_scale, return_max_logit=name == "qknorm_attention_stats",
-                                   ablate_exp=name == "qknorm_attention_ablate_exp")
-        out, m = out if isinstance(out, tuple) else (out, _no_max_logit(q))
-        return out.transpose(0, 1).contiguous(), m
-    return _k1_launch(q, k, v, sm_scale, check_tile((block_q, block_kv)), build)
+    launch = _k1_launch if q.is_cuda else _k1_plain
+    return launch(q, k, v, sm_scale, check_tile((block_q, block_kv)), build)
 
 
 @_qknorm_attention_op.register_fake

@@ -30,7 +30,9 @@ only without a mesh, as in JAX.
 ``compile_blocks`` / ``compile_extras`` run each denoise step's blocks and extras
 through their ``torch.compile``'d counterparts (``models/flux.py:Compiled``), one graph
 per function and serving bucket, which ``compile()`` compiles ahead for the warm-up
-buckets; JAX jits the whole step per bucket. With ``compilation_cache_dir`` the
+buckets; JAX jits the whole step per bucket. A process compiles the first
+``models/flux.py:MAX_COMPILED_BUCKETS`` buckets it meets, and serves a request in any
+other eagerly, so no request size fails. With ``compilation_cache_dir`` the
 compiled graphs and kernels persist there (:func:`point_compile_cache`), as JAX's XLA
 executables do. Under a mesh the flags leave the forward eager (its collectives and
 pp's handoffs are not compiled), and training never compiles.
@@ -59,7 +61,7 @@ from .calibration import apply_input_scales, merge_amax, reduce_amaxes
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
 from .models.autoencoder import Bands, ae_decode, ae_encode
-from .models.flux import EAGER, Compiled, FluxStatic, max_logit_bound
+from .models.flux import Compiled, FluxStatic, max_logit_bound
 from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
 from .ops.quant import ACTIVATION_KINDS, Linear
@@ -100,13 +102,6 @@ def point_compile_cache(cache_dir: str) -> None:
     os.environ["TRITON_CACHE_DIR"] = os.path.abspath(os.path.join(cache_dir, "triton"))
     torch._inductor.config.fx_graph_cache = True
     torch._functorch.config.enable_autograd_cache = True
-
-
-def _cache_compiles(config: ModelSpec, mesh) -> None:
-    """With the compile flags, no mesh and ``compilation_cache_dir``, the inductor
-    caches there (:func:`point_compile_cache`)."""
-    if mesh is None and (config.compile_blocks or config.compile_extras) and config.compilation_cache_dir:
-        point_compile_cache(config.compilation_cache_dir)
 
 
 class FluxPipeline:
@@ -230,10 +225,9 @@ class FluxPipeline:
 
     @property
     def compiled(self) -> Compiled:
-        """Which parts of each serving forward run compiled: what the config asks for
-        (``compile_blocks``, ``compile_extras``), or none under a mesh."""
-        if self.mesh is not None:
-            return EAGER
+        """Which parts of each serving forward the config asks to run compiled
+        (``compile_blocks``, ``compile_extras``); the forward decides where it may
+        (``models/flux.py:_may_compile``: not under a mesh, not with grad)."""
         return Compiled(blocks=self.config.compile_blocks, extras=self.config.compile_extras)
 
     # -------------------------------------------------------------------------- mesh
@@ -794,7 +788,8 @@ class FluxPipeline:
            compiles its graphs, so a ``-C`` server's first request runs compiled.
         """
         schnell = self.name == ModelVersion.flux_schnell.value
-        _cache_compiles(self.config, self.mesh)
+        if (self.config.compile_blocks or self.config.compile_extras) and self.config.compilation_cache_dir:
+            point_compile_cache(self.config.compilation_cache_dir)
         while self._needs_calibration:
             self.generate(
                 prompt="A beautiful test image used to solidify the fp8 input scales prior to compilation",

@@ -1,6 +1,7 @@
 """The compiled serving path on the CPU: the kernels' ``torch.library`` ops under
 ``torch.library.opcheck``, and the blocks and extras through ``torch.compile``
-(``models/flux.py:Compiled``, the pipeline's ``compile_blocks`` / ``compile_extras``).
+(``models/flux.py:Compiled``, the pipeline's ``compile_blocks`` / ``compile_extras``;
+through the pipeline itself in test_torch_compile_pipeline.py).
 
 The backend is ``aot_eager`` (``models/flux.py:COMPILE_BACKEND``): dynamo traces each
 function whole (``fullgraph=True``), AOTAutograd traces the graph through the ops' fake
@@ -15,8 +16,6 @@ to see what the kernels would be given (their tile, their launch counts), it swa
 launches for stand-ins that count as the wrappers count and compute the plain version.
 """
 
-import logging
-
 import numpy as np
 import pytest
 import torch
@@ -25,20 +24,15 @@ from flux_fp8_api_tpu.models import flux as jflux
 from flux_fp8_api_tpu.ops import attention as jattn
 from flux_fp8_api_tpu_torch import calibration as tcal
 from flux_fp8_api_tpu_torch import offload as toffload
-from flux_fp8_api_tpu_torch import pipeline as tpipeline
 from flux_fp8_api_tpu_torch import sampling as tsampling
 from flux_fp8_api_tpu_torch.models import flux as tflux
 from flux_fp8_api_tpu_torch.ops import attention as tattn
 from flux_fp8_api_tpu_torch.ops import attention_kernel as tak
 from flux_fp8_api_tpu_torch.ops import packing as tpacking
 from flux_fp8_api_tpu_torch.ops.schedule import get_schedule
-from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
 from flux_fp8_api_tpu_torch.utils.config import FluxParams
 
-from .helpers import TINY_AE_PARAMS, TINY_FLUX_PARAMS, tiny_spec
-from .test_lora import make_kohya_lora
-from .test_torch_lora import torch_sd
-from .torch_parity import numpy_ae_params, numpy_flux_params, t, to_torch
+from .torch_parity import numpy_flux_params, t
 
 torch.set_num_threads(1)
 
@@ -113,27 +107,27 @@ def denoise_inputs(seed=0, h=8, w=8, txt_len=6, steps=3):
 
 
 class Launches:
-    """Stand-ins for the kernels' launches on the CPU: the ops take them for every
-    tensor (``_on_card``), and each counts as the wrapper counts (``LAUNCHES``,
-    ``TILE_LAUNCHES``) and returns the plain version's outputs in the kernel's layout."""
+    """Stand-ins for the kernels' launches on the CPU, in the place of the ops' plain
+    path (``_rope_plain``, ``_k1_plain``, which take a launch's arguments): each counts
+    as the launch counts (``LAUNCHES``), keeps the tile it was given, and returns the
+    plain path's outputs."""
 
     def __init__(self, monkeypatch):
         self.tiles = []
-        monkeypatch.setattr(tak, "_on_card", lambda x: True)
-        monkeypatch.setattr(tak, "_rope_launch", self.rope)
-        monkeypatch.setattr(tak, "_k1_launch", self.k1)
+        self._rope, self._k1 = tak._rope_plain, tak._k1_plain
+        monkeypatch.setattr(tak, "_rope_plain", self.rope)
+        monkeypatch.setattr(tak, "_k1_plain", self.k1)
         for key in tak.LAUNCHES:
             monkeypatch.setitem(tak.LAUNCHES, key, 0)
 
-    def rope(self, entry, build, q, k, cos, sin, cos_q, sin_q):
+    def rope(self, entry, build, *args):
         tak.LAUNCHES[build] += 1
-        return tak.rope_rotate_ref(q, cos_q, sin_q).contiguous(), tak.rope_rotate_ref(k, cos, sin).contiguous()
+        return self._rope(entry, build, *args)
 
     def k1(self, q, k, v, sm_scale, tile, build):
         tak.LAUNCHES[tak.K1_BUILDS[build]] += 1
         self.tiles.append(tile[:2])
-        out = tak.qknorm_attention_ref(q, k, v, sm_scale)
-        return out.transpose(0, 1).contiguous(), tak._no_max_logit(q)
+        return self._k1(q, k, v, sm_scale, tile, build)
 
 
 # -------------------------------------------------------------------------- the ops
@@ -275,30 +269,6 @@ def test_one_graph_per_function_and_bucket_across_steps_and_retain_0_offload(por
         assert graphs() == {fn: n + 1 for fn, n in both.items()}
 
 
-def test_one_graph_per_bucket_across_a_lora_load_and_unload(monkeypatch):
-    """A pipeline with the compile flags (the tiny fp8 flux of test_torch_lora.py): a
-    LoRA fused in and out replaces Linears by new ones with new buffers, which are new
-    inputs to the same graphs. Calibration runs eagerly."""
-    pipe = _tiny_pipeline(monkeypatch, quantized=True, num_scale_trials=1, compile_blocks=False,
-                          compile_extras=False)
-    pipe.generate("a cat", 64, 64, 3, seed=4, silent=True)  # calibration
-    assert not pipe._needs_calibration
-    pipe.config.compile_blocks = pipe.config.compile_extras = True
-    pipe.generate("a cat", 64, 64, 3, seed=4, silent=True)
-    unfused = pipe.last_latents.clone()
-    assert graphs() == per_function(1)
-    pipe.load_lora(torch_sd(make_kohya_lora()), 1.0, name="k")
-    pipe.generate("a cat", 64, 64, 3, seed=4, silent=True)
-    assert torch.isfinite(pipe.last_latents).all() and not torch.equal(pipe.last_latents, unfused)
-    pipe.unload_lora("k")
-    pipe.generate("a cat", 64, 64, 3, seed=4, silent=True)
-    assert graphs() == per_function(1)
-    compiled = pipe.last_latents.clone()
-    pipe.config.compile_blocks = pipe.config.compile_extras = False
-    pipe.generate("a cat", 64, 64, 3, seed=4, silent=True)
-    assert torch.equal(pipe.last_latents, compiled) and graphs() == per_function(1)
-
-
 # ------------------------------------------------------------------- guards
 
 
@@ -352,62 +322,3 @@ def test_past_the_recompile_limit_it_raises(port_cfg, monkeypatch):
     port_forward(model, port_cfg, make_inputs(0, h=4, w=8), ALL)
     with pytest.raises(Exception, match="recompile_limit|cache_size_limit|recompile limit"):
         port_forward(model, port_cfg, make_inputs(0, h=8, w=8), ALL)
-
-
-# ------------------------------------------------------------------ the pipeline
-
-
-def _tiny_pipeline(monkeypatch, quantized=False, **overrides):
-    """The tiny flux of tests/helpers.py in a pipeline with the compile flags, fixed
-    conditioning in place of the text encoders; compile() (in the constructor) warms
-    one 64x64 bucket at 2 steps unless ``overrides`` say otherwise."""
-    cfg = tflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32")
-    params = numpy_flux_params(jflux.FluxStatic.from_params(TINY_FLUX_PARAMS, compute_dtype="float32"))
-    if quantized:
-        params = jflux.quantize_flux_tree(params)
-    r = np.random.default_rng(6)
-    vec = torch.from_numpy(r.normal(size=(1, TINY_FLUX_PARAMS.vec_in_dim)).astype(np.float32))
-    txt = torch.from_numpy(r.normal(size=(1, 6, TINY_FLUX_PARAMS.context_in_dim)).astype(np.float32))
-    monkeypatch.setattr(FluxPipeline, "_encode_prompts", lambda self, prompts: {p: (vec, txt) for p in prompts})
-    fields = dict(num_scale_trials=0, flow_dtype="float32", ae_dtype="float32", compile_blocks=True,
-                  compile_extras=True, warmup_resolutions=[[64, 64]], warmup_steps=2)
-    fields.update(overrides)
-    return FluxPipeline("flux-dev", model=to_torch(params), model_cfg=cfg,
-                        ae=to_torch(numpy_ae_params(TINY_AE_PARAMS)), config=tiny_spec(**fields))
-
-
-def test_a_mesh_pipeline_with_the_flags_logs_and_stays_eager(caplog, monkeypatch):
-    with caplog.at_level(logging.INFO, logger=tpipeline.__name__):
-        pipe = _tiny_pipeline(monkeypatch, mesh={"dp": 1, "tp": 1})
-    assert pipe.compiled == tflux.EAGER
-    assert [r for r in caplog.records if "runs eagerly on a mesh" in r.getMessage()]
-    assert graphs() == per_function(0)  # compile() warmed its bucket eagerly
-
-
-def test_compile_warms_the_bucket_compiled(monkeypatch):
-    """compile() compiles the warm-up bucket ahead: a request at it compiles nothing."""
-    pipe = _tiny_pipeline(monkeypatch)
-    assert pipe.compiled == ALL and graphs() == per_function(1)
-    pipe.generate("a cat", 64, 64, 2, seed=1, silent=True)
-    assert graphs() == per_function(1)
-
-
-def test_the_cache_dir_receives_inductors_caches(tmp_path, monkeypatch):
-    """With compilation_cache_dir and the flags, the process's inductor caches point
-    there (FX graphs and AOTAutograd in inductor/, Triton's kernels in triton/), and a
-    graph that inductor compiles lands in it."""
-    import os
-
-    monkeypatch.delenv("TORCHINDUCTOR_CACHE_DIR", raising=False)
-    monkeypatch.delenv("TRITON_CACHE_DIR", raising=False)
-    spec = tiny_spec(compile_blocks=True, compile_extras=True, compilation_cache_dir=str(tmp_path))
-    tpipeline._cache_compiles(spec, None)
-    assert os.environ["TORCHINDUCTOR_CACHE_DIR"] == str(tmp_path / "inductor")
-    assert os.environ["TRITON_CACHE_DIR"] == str(tmp_path / "triton")
-    fn = torch.compile(lambda a: torch.sin(a) * 2 + 1, backend="inductor", fullgraph=True)
-    fn(torch.arange(8, dtype=torch.float32))
-    assert any(p.is_file() for p in (tmp_path / "inductor").rglob("*"))
-    tpipeline._cache_compiles(tiny_spec(compilation_cache_dir=str(tmp_path / "other")), None)  # no flags
-    tpipeline._cache_compiles(spec.model_copy(update={"compilation_cache_dir": str(tmp_path / "other")}),
-                              object())  # a mesh
-    assert os.environ["TORCHINDUCTOR_CACHE_DIR"] == str(tmp_path / "inductor")
