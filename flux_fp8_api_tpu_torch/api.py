@@ -6,7 +6,7 @@ The request schemas are the JAX app's, validated by pydantic (422 on a malformed
 body). The work, the lock that serialises /generate against /lora, the counters and
 the LoRA envelopes are the stdlib server's (:class:`.server.PipelineServer`), run on
 ``app.state.model``; the 400s are raised as FastAPI's ``{"detail": ...}``, as in the
-JAX app.
+JAX app. :class:`.server.ReplyTimer` times and counts the replies to POST /generate.
 
     app.state.model = pipeline
     uvicorn.run(app, host=..., port=...)
@@ -30,12 +30,13 @@ except ImportError as e:
     ) from e
 from pydantic import BaseModel, Field
 
-from .server import MAX_RAND, PipelineServer
+from .server import MAX_RAND, PipelineServer, ReplyTimer
 from .webui import render_index
 
 app = FastAPI()
 app.state.model = None
 app.state.server = PipelineServer(None)
+app.add_middleware(ReplyTimer, server=lambda: app.state.server)
 
 
 class GenerateArgs(BaseModel):

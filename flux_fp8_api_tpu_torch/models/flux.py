@@ -43,6 +43,7 @@ from ..ops.math import (
 )
 from ..ops.quant import FLOW_QUANTIZERS, Linear, linear_apply, tp_copy
 from ..ops.rope import embed_nd_cos_sin
+from ..tracing import span
 from ..utils.config import FluxParams, into_dtype
 from ..utils.tree import ParamTree
 
@@ -550,10 +551,12 @@ def flux_apply(
     tape = _Tape.of(cfg, collect_amax)
     txt_len = txt.shape[1]
     compiled = EAGER if compiled is None or collect_amax or stack_runner is not None else compiled
-    pre, final, double, single = compiled.functions(
-        cfg, model, [*model["double_blocks"][:1], *model["single_blocks"][:1]], txt_len + img.shape[1],
-        img, img_ids, txt, txt_ids, timesteps, y, guidance)
-    img, txt, vec_silu, cos, sin = pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
+    with span("dispatch"):
+        pre, final, double, single = compiled.functions(
+            cfg, model, [*model["double_blocks"][:1], *model["single_blocks"][:1]], txt_len + img.shape[1],
+            img, img_ids, txt, txt_ids, timesteps, y, guidance)
+    with span("pre"):
+        img, txt, vec_silu, cos, sin = pre(model, cfg, img, img_ids, txt, txt_ids, timesteps, y, guidance, tape)
 
     def run(block_fn, *args):
         # per-block rematerialization: only the block's inputs are kept for backward
@@ -570,23 +573,29 @@ def flux_apply(
         def single_body(x, blk, ex):
             return _single_block(cfg, blk, x, *ex, _Tape.of(cfg))
 
-        img, txt = stack_runner(double_body, (img, txt), model["double_blocks"], extras, cfg.depth)
-        x = stack_runner(single_body, torch.cat([txt, img], dim=1), model["single_blocks"], extras,
-                         cfg.depth_single_blocks)
-        return final(model, cfg, x[:, txt_len:], vec_silu, tape)
+        with span("double_blocks"):
+            img, txt = stack_runner(double_body, (img, txt), model["double_blocks"], extras, cfg.depth)
+        with span("single_blocks"):
+            x = stack_runner(single_body, torch.cat([txt, img], dim=1), model["single_blocks"], extras,
+                             cfg.depth_single_blocks)
+        with span("final"):
+            return final(model, cfg, x[:, txt_len:], vec_silu, tape)
 
     double_amaxes, single_amaxes = [], []
-    for blk in model["double_blocks"]:
-        block_tape = _Tape.of(cfg, collect_amax)
-        img, txt = run(double, cfg, blk, img, txt, vec_silu, cos, sin, block_tape)
-        double_amaxes.append(block_tape.amaxes)
+    with span("double_blocks"):
+        for blk in model["double_blocks"]:
+            block_tape = _Tape.of(cfg, collect_amax)
+            img, txt = run(double, cfg, blk, img, txt, vec_silu, cos, sin, block_tape)
+            double_amaxes.append(block_tape.amaxes)
 
-    x = torch.cat([txt, img], dim=1)
-    for blk in model["single_blocks"]:
-        block_tape = _Tape.of(cfg, collect_amax)
-        x = run(single, cfg, blk, x, vec_silu, cos, sin, block_tape)
-        single_amaxes.append(block_tape.amaxes)
-    img = final(model, cfg, x[:, txt_len:], vec_silu, tape)
+    with span("single_blocks"):
+        x = torch.cat([txt, img], dim=1)
+        for blk in model["single_blocks"]:
+            block_tape = _Tape.of(cfg, collect_amax)
+            x = run(single, cfg, blk, x, vec_silu, cos, sin, block_tape)
+            single_amaxes.append(block_tape.amaxes)
+    with span("final"):
+        img = final(model, cfg, x[:, txt_len:], vec_silu, tape)
 
     if collect_amax:
         amaxes: Dict[str, Any] = dict(tape.amaxes)
@@ -646,6 +655,10 @@ COMPILES: Dict[str, int] = collections.Counter()
 # Calls per function run eagerly because it had admitted MAX_COMPILED_BUCKETS others.
 EAGER_CALLS: Dict[str, int] = collections.Counter()
 
+# Calls per function that _admit let run compiled: one per selection of the function for
+# a forward (the 19 double blocks of one forward are one call).
+COMPILED_CALLS: Dict[str, int] = collections.Counter()
+
 _COMPILED: Dict[str, Callable] = {}
 _ADMITTED: Dict[str, Dict[Any, None]] = collections.defaultdict(dict)
 
@@ -683,7 +696,15 @@ def reset_compiled() -> None:
     _ADMITTED.clear()
     COMPILES.clear()
     EAGER_CALLS.clear()
+    COMPILED_CALLS.clear()
     torch._dynamo.reset()
+
+
+def dispatch_counts() -> Dict[str, int]:
+    """The process's compiled calls, graphs built and eager calls so far, over every
+    function: a generate's ``timings`` take the deltas over its denoise loop."""
+    return {"compiled_calls": sum(COMPILED_CALLS.values()), "graphs_built": sum(COMPILES.values()),
+            "eager_calls": sum(EAGER_CALLS.values())}
 
 
 def bucket(cfg: FluxStatic, tops, blocks, joint: Optional[int], *inputs) -> tuple:
@@ -711,6 +732,7 @@ def _admit(name: str, key: tuple) -> bool:
     admitted = _ADMITTED[name]
     if key in admitted or len(admitted) < MAX_COMPILED_BUCKETS:
         admitted[key] = None
+        COMPILED_CALLS[name] += 1
         return True
     if not EAGER_CALLS[name]:
         logger.warning("%s has compiled its %d buckets: a call in any other bucket runs it eagerly "

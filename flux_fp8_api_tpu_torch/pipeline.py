@@ -47,7 +47,6 @@ import io
 import logging
 import math
 import os
-import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -61,7 +60,7 @@ from .calibration import apply_input_scales, merge_amax, reduce_amaxes
 from .emphasis import get_weighted_text_embeddings
 from .image_encoder import ImageEncoder
 from .models.autoencoder import Bands, ae_decode, ae_encode
-from .models.flux import Compiled, FluxStatic, max_logit_bound
+from .models.flux import Compiled, FluxStatic, dispatch_counts, max_logit_bound
 from .ops.attention_kernel import MAX_SAFE_LOGIT
 from .ops.packing import make_img_ids, make_txt_ids, pack_latents, unpack_latents
 from .ops.quant import ACTIVATION_KINDS, Linear
@@ -71,6 +70,7 @@ from .parallel.mesh import (
 )
 from .parallel.pp import make_pp_runner
 from .sampling import CacheConfig, denoise, make_denoise_step
+from .tracing import recording, span, timed
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
 from .utils.loader import load_models_from_config
 from .utils.tree import ParamTree, copy_tree_, pin_tree_, tree_to
@@ -418,18 +418,18 @@ class FluxPipeline:
         if init_image is not None:
             arr = self.resize_center_crop(init_image, height, width)
             nhwc = torch.from_numpy(arr.astype(np.float32) / 127.5 - 1.0)[None]
-            t_encode = time.perf_counter()
-            # in bands over the mesh where they divide the rows into even bands at every
-            # stride-2 level of the encoder
-            band = self._bands(height, 2 ** (len(self.config.ae_params.ch_mult) - 1))
-            args = (self._ae_on_device(), self.config.ae_params, nhwc.to(self.device_ae, self.ae_dtype), generator)
-            if band is None:
-                z = ae_encode(*args)  # (1, h, w, z)
-            else:  # the band's rows in, the whole latent out
-                z = ae_encode(*args[:2], band.rows(args[2], 1), generator, band)
-            z = z.permute(0, 3, 1, 2).to(self.device_flux, self.dtype).repeat(num_images, 1, 1, 1)
-            _sync(z)
-            self.timings["encode_seconds"] = time.perf_counter() - t_encode
+            with timed("vae_encode", self.timings, "encode_seconds"):
+                # in bands over the mesh where they divide the rows into even bands at every
+                # stride-2 level of the encoder
+                band = self._bands(height, 2 ** (len(self.config.ae_params.ch_mult) - 1))
+                args = (self._ae_on_device(), self.config.ae_params, nhwc.to(self.device_ae, self.ae_dtype),
+                        generator)
+                if band is None:
+                    z = ae_encode(*args)  # (1, h, w, z)
+                else:  # the band's rows in, the whole latent out
+                    z = ae_encode(*args[:2], band.rows(args[2], 1), generator, band)
+                z = z.permute(0, 3, 1, 2).to(self.device_flux, self.dtype).repeat(num_images, 1, 1, 1)
+                _sync(z)
             t_idx = int((1 - strength) * num_steps)
             t = timesteps[t_idx]
             timesteps = timesteps[t_idx:]
@@ -452,21 +452,27 @@ class FluxPipeline:
             else:
                 misses.append(p)
         if misses:  # a full hit moves no encoder
-            if self.offload_text_encoder:
-                self.clip.to_device()
-                self.t5.to_device()
-            for p in misses:
-                enc = get_weighted_text_embeddings(
-                    self.clip, self.t5, p, num_images_per_prompt=1, t5_length=t5_len
-                )
-                out[p] = enc
-                if size > 0:
-                    self._cond_cache[(p, t5_len)] = enc
-                    while len(self._cond_cache) > size:
-                        self._cond_cache.popitem(last=False)
-            if self.offload_text_encoder:
-                self.clip.to_host()
-                self.t5.to_host()
+            with timed("text", self.timings, "text_seconds"):
+                if self.offload_text_encoder:
+                    self.clip.to_device()
+                    self.t5.to_device()
+                for p in misses:
+                    enc = get_weighted_text_embeddings(
+                        self.clip, self.t5, p, num_images_per_prompt=1, t5_length=t5_len
+                    )
+                    out[p] = enc
+                    if size > 0:
+                        self._cond_cache[(p, t5_len)] = enc
+                        while len(self._cond_cache) > size:
+                            self._cond_cache.popitem(last=False)
+                if self.offload_text_encoder:
+                    self.clip.to_host()
+                    self.t5.to_host()
+                if recording():
+                    # the span then ends with the encoders' device work; unprofiled the host
+                    # goes on to the denoise loop: a sync here cost 1.6% of a 1024² 4-step
+                    # request on an H100 (PERF.md)
+                    _sync(enc[1])
         hits = len(out) - len(misses)
         misses = len(misses)
         self.cond_cache_hits += hits
@@ -570,7 +576,11 @@ class FluxPipeline:
         "dynamic", "threshold": 0.25}`` from the HTTP body), which skips model
         evaluations; ignored with a warning while calibration trials are pending or
         the flow streams (JAX pipeline.py:677-684). ``timings["cache_model_evals"]``
-        then counts the evaluations run."""
+        then counts the evaluations run.
+
+        ``timings`` holds the seconds of this call's phases (spans of ``tracing.py``),
+        its conditioning-cache hits and misses, and the compiled calls, graphs built
+        and eager calls of its denoise loop."""
         cache = CacheConfig.parse(cache)
         # streamed offload (offload.py) once the input scales are frozen and without a
         # mesh; calibration, a mesh and stream_flow_offload=False move the whole tree
@@ -584,18 +594,18 @@ class FluxPipeline:
             logger.warning("step cache ignored: calibration trials pending or streamed offload active")
             cache = CacheConfig(mode="none")
         num_steps = 4 if self.name == ModelVersion.flux_schnell.value else num_steps
-        init_image = self.load_init_image_if_needed(init_image)
-        self.timings.pop("encode_seconds", None)
-        height = 16 * (height // 16)
-        width = 16 * (width // 16)
-        generator, seed = self.set_seed(seed)
-
-        img, timesteps = self.preprocess_latent(
-            init_image, height, width, num_steps, strength, generator, num_images
-        )
-        t_prepare = time.perf_counter()
-        img, img_ids, vec, txt, txt_ids = self.prepare(img, prompt)
-        self.timings["prepare_seconds"] = time.perf_counter() - t_prepare
+        for key in ("encode_seconds", "text_seconds"):
+            self.timings.pop(key, None)
+        with span("preprocess"):
+            init_image = self.load_init_image_if_needed(init_image)
+            height = 16 * (height // 16)
+            width = 16 * (width // 16)
+            generator, seed = self.set_seed(seed)
+            img, timesteps = self.preprocess_latent(
+                init_image, height, width, num_steps, strength, generator, num_images
+            )
+        with timed("prepare", self.timings, "prepare_seconds"):
+            img, img_ids, vec, txt, txt_ids = self.prepare(img, prompt)
         cfg = self.model_cfg
         rows = None
         if self.mesh is not None:
@@ -606,35 +616,36 @@ class FluxPipeline:
         host_flow = None
         if self.offload_flow and not streaming:  # outside the denoise time, as in JAX
             host_flow, self.model_params = self.model_params, tree_to(self.model_params, self.device_flux)
-        t_denoise = time.perf_counter()
+        counts = dispatch_counts()
         try:
-            if self._needs_calibration:
-                img = self._calibration_denoise(
-                    img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg
-                )
-            elif streaming:
-                tops, dbl, sgl = self._ensure_stream_state()
-                retain_gb = self.config.offload_retain_gb
-                img = offload_mod.streamed_denoise(
-                    tops, dbl, sgl, self.device_flux, img, img_ids, txt, txt_ids, vec,
-                    timesteps, guidance, self.model_cfg, progress=not silent,
-                    retain_bytes=None if retain_gb is None else int(retain_gb * 1024**3),
-                    compiled=self.compiled,
-                )
-            else:
-                img = denoise(
-                    self.model_params, cfg, img, img_ids, txt, txt_ids, vec,
-                    timesteps, guidance, fused=silent, progress=not silent,
-                    cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
-                    stack_runner=self._pp_runner, compiled=self.compiled,
-                )
-            if rows is not None:  # every rank's rows, in order
-                img = self.mesh.all_gather(img, "dp", dim=0)
-            _sync(img)
-            self.timings["denoise_seconds"] = time.perf_counter() - t_denoise
+            with timed("denoise", self.timings, "denoise_seconds"):
+                if self._needs_calibration:
+                    img = self._calibration_denoise(
+                        img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg
+                    )
+                elif streaming:
+                    tops, dbl, sgl = self._ensure_stream_state()
+                    retain_gb = self.config.offload_retain_gb
+                    img = offload_mod.streamed_denoise(
+                        tops, dbl, sgl, self.device_flux, img, img_ids, txt, txt_ids, vec,
+                        timesteps, guidance, self.model_cfg, progress=not silent,
+                        retain_bytes=None if retain_gb is None else int(retain_gb * 1024**3),
+                        compiled=self.compiled,
+                    )
+                else:
+                    img = denoise(
+                        self.model_params, cfg, img, img_ids, txt, txt_ids, vec,
+                        timesteps, guidance, fused=silent, progress=not silent,
+                        cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
+                        stack_runner=self._pp_runner, compiled=self.compiled,
+                    )
+                if rows is not None:  # every rank's rows, in order
+                    img = self.mesh.all_gather(img, "dp", dim=0)
+                _sync(img)
         finally:
             if host_flow is not None:  # back into the pinned host tree, calibrated scales too
                 self.model_params = copy_tree_(host_flow, self.model_params)
+        self.timings.update({k: v - counts[k] for k, v in dispatch_counts().items()})
         # schedule steps per second: with the step cache, the JAX package's "effective"
         # rate (a skipped step costs a few elementwise passes)
         self.timings["denoise_it_per_s"] = (len(timesteps) - 1) / max(
@@ -651,10 +662,11 @@ class FluxPipeline:
                 self.vae_decode(img, height, width)
             return (None, seed) if return_seed else None
 
-        t_decode = time.perf_counter()
-        pixels = self.vae_decode(img, height, width)
-        out = self.into_bytes(pixels, jpeg_quality=jpeg_quality)
-        self.timings["decode_seconds"] = time.perf_counter() - t_decode
+        with timed("decode", self.timings, "decode_seconds"):
+            with span("vae_decode"):
+                pixels = self.vae_decode(img, height, width)
+            with span("jpeg"):
+                out = self.into_bytes(pixels, jpeg_quality=jpeg_quality)
         if return_seed:
             return out, seed
         return out

@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .models.flux import Compiled, FluxStatic, flux_apply, flux_cache_indicator
+from .tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,13 +126,14 @@ def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False, stack_runner=
     ``stack_runner`` (pp) and ``compiled``: as in ``flux_apply``."""
 
     def step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance):
-        t_vec, dt = _euler(cfg, img, t_curr, t_prev)
-        out = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
-                         collect_amax=collect_amax, stack_runner=stack_runner, compiled=compiled)
-        if collect_amax:
-            pred, amaxes = out
-            return _update(img, dt, pred), amaxes
-        return _update(img, dt, out)
+        with span("step"):
+            t_vec, dt = _euler(cfg, img, t_curr, t_prev)
+            out = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
+                             collect_amax=collect_amax, stack_runner=stack_runner, compiled=compiled)
+            pred, amaxes = out if collect_amax else (out, None)
+            with span("update"):
+                img = _update(img, dt, pred)
+        return (img, amaxes) if collect_amax else img
 
     return step
 
@@ -178,36 +180,38 @@ def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, tx
     cached = prev = t_last = t_prev_last = None  # order 1: the last two evaluations, fp32
     n_evals = 0
     for i, (t_curr, t_prev) in enumerate(pairs):
-        t_vec, dt = _euler(cfg, img, t_curr, t_prev)
-        evaluate = i < cache.warmup or i >= n_steps - cache.tail
-        if dynamic:
-            ind = flux_cache_indicator(model, cfg, img, t_vec, vec, g_vec, compiled).float()
-            if not evaluate:  # step 0 is forced (warmup >= 1), so prev_ind exists here
-                rel = _relative_drift(ind, prev_ind, dp_mesh)
-                if cache.coefficients is not None:
-                    rel = _polyval(cache.coefficients, rel)
-                accum = accum + rel.abs()
-                evaluate = bool(accum >= cache.threshold)  # the step's one device sync
-            prev_ind = ind
-        elif not evaluate:
-            evaluate = i % cache.interval == 0
+        with span("step"):
+            t_vec, dt = _euler(cfg, img, t_curr, t_prev)
+            evaluate = i < cache.warmup or i >= n_steps - cache.tail
+            if dynamic:
+                ind = flux_cache_indicator(model, cfg, img, t_vec, vec, g_vec, compiled).float()
+                if not evaluate:  # step 0 is forced (warmup >= 1), so prev_ind exists here
+                    rel = _relative_drift(ind, prev_ind, dp_mesh)
+                    if cache.coefficients is not None:
+                        rel = _polyval(cache.coefficients, rel)
+                    accum = accum + rel.abs()
+                    evaluate = bool(accum >= cache.threshold)  # the step's one device sync
+                prev_ind = ind
+            elif not evaluate:
+                evaluate = i % cache.interval == 0
 
-        if evaluate:
-            pred = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, g_vec, compiled=compiled)
-            n_evals += 1
-            accum = zero
-            if first_order:
-                prev, t_prev_last = cached, t_last
-                cached, t_last = pred.float(), ts[i]
-                pred = cached
+            if evaluate:
+                pred = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, g_vec, compiled=compiled)
+                n_evals += 1
+                accum = zero
+                if first_order:
+                    prev, t_prev_last = cached, t_last
+                    cached, t_last = pred.float(), ts[i]
+                    pred = cached
+                else:
+                    cached = pred
+            elif first_order and prev is not None:
+                slope = (cached - prev) / (t_last - t_prev_last)
+                pred = cached + (ts[i] - t_last) * slope
             else:
-                cached = pred
-        elif first_order and prev is not None:
-            slope = (cached - prev) / (t_last - t_prev_last)
-            pred = cached + (ts[i] - t_last) * slope
-        else:
-            pred = cached
-        img = _update(img, dt, pred.to(img.dtype) if first_order else pred)
+                pred = cached
+            with span("update"):
+                img = _update(img, dt, pred.to(img.dtype) if first_order else pred)
     return img, n_evals
 
 

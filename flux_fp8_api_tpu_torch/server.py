@@ -15,19 +15,28 @@ Endpoints and JSON shapes are the JAX server's:
 
 One lock serialises generate and LoRA calls. ``api.py`` serves the same handlers
 under FastAPI.
+
+The server numbers its generate requests and opens the ``request``, ``queue`` and
+``reply`` spans of ``tracing.py``. ``last_timings`` is the last generate's ``timings``
+with its ``request_id``, its ``queue_seconds`` (the wait for the lock) and the reply
+totals (``replies``, ``reply_seconds``, ``reply_writes``: replies to POST /generate
+sent, their seconds from the response's start to its last body message, and their
+body writes) as they stood when its generate ended; GET /metrics shows them as they
+stand.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import threading
-import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
+from . import tracing
 from .sampling import CacheConfig
 from .webui import render_index
 
@@ -57,13 +66,17 @@ class PipelineServer:
         self.host = host
         self.port = port
         self.lock = threading.Lock()
-        self.metrics = {"requests": 0, "images": 0, "total_seconds": 0.0, "last_seconds": None}
+        self.metrics = {"requests": 0, "total_seconds": 0.0, "last_seconds": None}
         self.last_timings: Dict[str, Any] = {}  # of the last completed request
+        self.replies = tracing.Totals(replies=0, reply_seconds=0.0, reply_writes=0)
+        self._request_ids = itertools.count(1)
         self._httpd: Optional[ThreadingHTTPServer] = None
 
     # ------------------------------------------------------------------- handlers
     def handle_generate(self, body: Dict[str, Any]):
-        """→ (status, content_type, payload, headers), error paths included."""
+        """→ (status, content_type, payload, headers), error paths included.
+        ``metrics["last_seconds"]``: the ``request`` span to the end of generate, the
+        wait for the lock included."""
         if "prompt" not in body:
             return (*_error(400, "prompt is required"), {})
         args = dict(GENERATE_DEFAULTS)
@@ -80,19 +93,29 @@ class PipelineServer:
             # raises inside the request, a 500)
             return (*_error(400, "the step cache does not run under pipeline parallelism (pp): "
                                  "send the request without a cache"), {})
-        t0 = time.perf_counter()
-        with self.lock:
+        request_id = next(self._request_ids)
+        with tracing.timed("request", args=str(request_id)) as request:
+            with tracing.timed("queue") as queue:
+                self.lock.acquire()
             try:
-                out = self.pipeline.generate(silent=True, **args)
+                with tracing.span("generate"):
+                    out = self.pipeline.generate(silent=True, **args)
             except NotImplementedError as e:
                 return (*_error(501, str(e)), {})
-            dt = time.perf_counter() - t0
-            self.metrics["requests"] += 1
-            self.metrics["images"] += 1
-            self.metrics["total_seconds"] += dt
-            self.metrics["last_seconds"] = dt
-            self.last_timings = dict(getattr(self.pipeline, "timings", {}))
+            else:
+                dt = request.elapsed()
+                self.metrics["requests"] += 1
+                self.metrics["total_seconds"] += dt
+                self.metrics["last_seconds"] = dt
+                self.last_timings = {**getattr(self.pipeline, "timings", {}), "request_id": request_id,
+                                     "queue_seconds": queue.seconds, **self.replies.snapshot()}
+            finally:
+                self.lock.release()
         return 200, "image/jpeg", out.getvalue(), {"x-seed": str(args["seed"])}
+
+    def count_reply(self, seconds: float, writes: int) -> None:
+        """One reply to POST /generate sent, in ``seconds`` and ``writes`` body writes."""
+        self.replies.add(replies=1, reply_seconds=seconds, reply_writes=writes)
 
     def handle_lora(self, body: Dict[str, Any]):
         """→ (status, content_type, payload): the JAX server's envelopes and messages
@@ -136,6 +159,7 @@ class PipelineServer:
         if out["requests"]:
             out["avg_seconds"] = out["total_seconds"] / out["requests"]
         out.update(self.last_timings)
+        out.update(self.replies.snapshot())
         return 200, "application/json", json.dumps(out).encode()
 
     # --------------------------------------------------------------------- server
@@ -174,7 +198,10 @@ class PipelineServer:
                     return
                 try:
                     if self.path == "/generate":
-                        self._send(*server.handle_generate(body))
+                        reply = server.handle_generate(body)
+                        with tracing.timed("reply") as sent:
+                            self._send(*reply)
+                        server.count_reply(sent.seconds, 1)  # _send writes the body once
                     elif self.path == "/lora":
                         self._send(*server.handle_lora(body))
                     else:
@@ -207,6 +234,41 @@ class PipelineServer:
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
+
+
+class ReplyTimer:
+    """An ASGI wrapper around ``app`` that opens the ``reply`` span of each POST
+    /generate at its response's start, closes it when its last body message has been
+    sent, and counts the reply, its seconds and its body messages that carry bytes in
+    ``server()``'s totals, whatever Response class serves the body. A reply cut short
+    closes its span and is not counted."""
+
+    def __init__(self, app, server: Callable[[], PipelineServer]):
+        self.app, self.server = app, server
+
+    async def __call__(self, scope, receive, send):
+        if scope["type"] != "http" or scope["method"] != "POST" or scope["path"] != "/generate":
+            await self.app(scope, receive, send)
+            return
+        reply, writes = None, 0
+
+        async def timed_send(message):
+            nonlocal reply, writes
+            if message["type"] == "http.response.start":
+                reply = tracing.timed("reply").__enter__()
+            await send(message)
+            if message["type"] == "http.response.body":
+                writes += bool(message.get("body"))
+                if not message.get("more_body", False):
+                    reply.__exit__(None, None, None)
+                    self.server().count_reply(reply.seconds, writes)
+                    reply = None
+
+        try:
+            await self.app(scope, receive, timed_send)
+        finally:
+            if reply is not None:
+                reply.__exit__(None, None, None)
 
 
 def serve(pipeline, host: str = "0.0.0.0", port: int = 8088):
