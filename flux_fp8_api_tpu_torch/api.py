@@ -1,6 +1,13 @@
 """FastAPI app (JAX counterpart: ``flux_fp8_api_tpu.api``; reference ``api.py:1-123``):
-POST /generate → streamed JPEG with ``x-seed``, POST /lora → load/unload, GET / (the
+POST /generate → the JPEG with ``x-seed``, POST /lora → load/unload, GET / (the
 browser UI), GET /health and /metrics.
+
+POST /generate sends the JPEG whole, as one body with its ``content-length``, as the
+stdlib server does. This deviates on purpose from the reference's
+``StreamingResponse(io.BytesIO(...))`` (reference ``api.py:54-86``): Starlette iterates
+a ``BytesIO`` line by line, one thread-pool hop and one chunked write per ``\n``, so a
+1024² JPEG left as thousands of body messages and took longer to send than to decode.
+The bytes, the status and the headers are otherwise the same.
 
 The request schemas are the JAX app's, validated by pydantic (422 on a malformed
 body). The work, the lock that serialises /generate against /lora, the counters and
@@ -14,7 +21,6 @@ JAX app. :class:`.server.ReplyTimer` times and counts the replies to POST /gener
 
 from __future__ import annotations
 
-import io
 import json
 from typing import Optional
 
@@ -22,7 +28,7 @@ import numpy as np
 
 try:
     from fastapi import FastAPI, HTTPException
-    from fastapi.responses import JSONResponse, Response, StreamingResponse
+    from fastapi.responses import JSONResponse, Response
 except ImportError as e:
     raise ImportError(
         "fastapi is not installed; the stdlib server (flux_fp8_api_tpu_torch.server) "
@@ -85,7 +91,7 @@ def generate(args: GenerateArgs):
     """Generate an image from the prompt (reference api.py:54-86)."""
     status, ctype, payload, headers = _server().handle_generate(args.model_dump())
     _raise_client_error(status, payload)
-    return StreamingResponse(io.BytesIO(payload), media_type=ctype, headers=headers)
+    return Response(content=payload, media_type=ctype, headers=headers)
 
 
 @app.post("/lora", response_model=LoraLoadResponse)

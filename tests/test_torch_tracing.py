@@ -8,7 +8,6 @@ ASGI wrapper alone; the lock wait inside ``last_seconds``.
 """
 
 import asyncio
-import io
 import json
 import threading
 import time
@@ -219,30 +218,48 @@ def _streaming_app(chunks):
     return app
 
 
-def test_the_asgi_wrapper_counts_body_messages_that_carry_bytes():
-    totals, sent = _asgi_run(_streaming_app, "/generate", [b"a\n", b"b\n", b"c"])
-    assert (totals["replies"], totals["reply_writes"]) == (1, 3) and totals["reply_seconds"] > 0
-    assert len(sent) == 5  # every message passed on as it was
-    assert _asgi_run(_streaming_app, "/lora", [b"x"])[0]["replies"] == 0
-    totals, sent = _asgi_run(_streaming_app, "/generate", [b"a", b"b"], fail_at=2)
-    assert totals["replies"] == 0 and len(sent) == 2  # cut short: closed, not counted
+def _whole_app(chunks):
+    """What ``Response`` sends: the start, then the whole body in one last message."""
+    async def app(scope, receive, send):
+        await send({"type": "http.response.start", "status": 200, "headers": []})
+        await send({"type": "http.response.body", "body": b"".join(chunks), "more_body": False})
+
+    return app
 
 
-def test_fastapi_counts_the_lines_streamed():
+@pytest.mark.parametrize("app, writes, messages, fail_at",
+                         [(_streaming_app, 3, 5, 2), (_whole_app, 1, 2, 1)], ids=["streamed", "whole"])
+def test_the_asgi_wrapper_counts_body_messages_that_carry_bytes(app, writes, messages, fail_at):
+    totals, sent = _asgi_run(app, "/generate", [b"a\n", b"b\n", b"c"])
+    assert (totals["replies"], totals["reply_writes"]) == (1, writes) and totals["reply_seconds"] > 0
+    assert len(sent) == messages  # every message passed on as it was
+    assert _asgi_run(app, "/lora", [b"x"])[0]["replies"] == 0
+    totals, sent = _asgi_run(app, "/generate", [b"a", b"b"], fail_at=fail_at)
+    assert totals["replies"] == 0 and len(sent) == fail_at  # cut short: closed, not counted
+
+
+def test_fastapi_replies_in_one_write_with_its_length(server):
+    """POST /generate leaves the FastAPI app as one body message framed by its length,
+    the stdlib server's bytes for the same body and seed."""
     pytest.importorskip("fastapi")
     pytest.importorskip("httpx")  # fastapi's TestClient
     from fastapi.testclient import TestClient
 
     from flux_fp8_api_tpu_torch.api import app
 
-    app.state.model = FluxPipeline.load_pipeline_from_config_path(TINY)
+    body = {**BODY, "prompt": "one write", "seed": 3}
+    app.state.model = server.pipeline
     try:
         client = TestClient(app)
         before = app.state.server.replies.snapshot()
-        resp = client.post("/generate", json={**BODY, "prompt": "x", "seed": 3})
-        assert resp.status_code == 200
+        resp = client.post("/generate", json=body)
+        assert resp.status_code == 200 and resp.headers["content-type"] == "image/jpeg"
         after = app.state.server.replies.snapshot()
         assert after["replies"] - before["replies"] == 1
-        assert after["reply_writes"] - before["reply_writes"] == len(list(io.BytesIO(resp.content)))
+        assert after["reply_writes"] - before["reply_writes"] == 1
+        assert int(resp.headers["content-length"]) == len(resp.content) > 0
+        assert "chunked" not in resp.headers.get("transfer-encoding", "")
+        assert resp.headers["x-seed"] == "3"
+        assert resp.content == _post(server, body)
     finally:
         app.state.model = None
