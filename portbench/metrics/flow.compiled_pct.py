@@ -1,4 +1,4 @@
-"""Compiled dispatch (``models/flux.py:Compiled``): of the function selections the
+"""Compiled dispatch (the program's ``Compiled``): of the function selections the
 window's denoise loops made, the share that ran a graph already built, in percent:
 100 × (Σ ``compiled_calls`` − Σ ``graphs_built``) / (Σ ``compiled_calls`` + Σ
 ``eager_calls``), from each answered request's ``timings`` (the program's counters'

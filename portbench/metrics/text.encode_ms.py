@@ -1,7 +1,7 @@
-"""The text encoders (``emphasis.py``, ``models/{t5,clip,conditioner}.py``): the mean of
-the program's ``text`` span over the window's answered requests that encoded a prompt
-(``timings["text_seconds"]``, absent on a conditioning-cache hit: T5, CLIP, emphasis and
-the encoders' offload moves), in milliseconds. Outside a profiler the span ends when the
+"""The text encoders (``emphasis.py`` and the encoder models): the mean of the program's
+``text`` span over the window's answered requests that encoded a prompt
+(``timings["text_seconds"]``, absent on a conditioning-cache hit: the encoders, emphasis
+and their offload moves), in milliseconds. Outside a profiler the span ends when the
 host has enqueued the encoders' work, not in a device sync."""
 
 

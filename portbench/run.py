@@ -19,6 +19,7 @@ T0 = time.perf_counter()  # the run's start, before anything heavy is imported
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -46,8 +47,16 @@ def point_caches() -> None:
     os.environ["USE_FLAX"] = "0"  # transformers, where anything imports it, loads no JAX
 
 
+def load_family(name: str):
+    """The module ``families/<name>.py`` (what it provides: ``families/__init__.py``)."""
+    if not (name.isidentifier() and (HERE / "families" / f"{name}.py").is_file()):
+        raise SystemExit(f"no family {name!r}: portbench/families/{name}.py is missing")
+    return importlib.import_module(f"portbench.families.{name}")
+
+
 def load_cell(name: str) -> Dict:
-    """The cell ``name`` of BENCHMARK.json with its configuration file and its mix."""
+    """The cell ``name`` of BENCHMARK.json with its configuration file, its family and
+    its mix."""
     from .generator import load_mix
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -59,7 +68,8 @@ def load_cell(name: str) -> Dict:
     metrics = [m for m in bench["per_layer"] if cell["name"] in m.get("workloads", [cell["name"]])]
     from .check import limits
 
-    return {"cell": cell, "spec": spec, "mix": load_mix(cell["traffic"]), "limits": limits(name), "per_layer": metrics,
+    return {"cell": cell, "spec": spec, "family": load_family(spec["family"]), "mix": load_mix(cell["traffic"]),
+            "limits": limits(name), "per_layer": metrics,
             "end_to_end": [m for m in bench["end_to_end"] if cell["name"] in m.get("workloads", [cell["name"]])]}
 
 
@@ -70,21 +80,14 @@ def forbidden_modules() -> List[str]:
 @dataclass
 class RunData:
     """What the per-layer readers (``metrics/<name>.py``) read: the window's answered
-    requests, the traced requests and their trace, the cell's spec and mix."""
+    requests, the traced requests and their trace, the cell's family, spec and mix."""
 
+    family: object
     spec: Dict
     mix: Dict
     records: List = field(default_factory=list)
     profiled: List = field(default_factory=list)
     trace: Optional[object] = None
-
-    @property
-    def params(self) -> Dict:
-        return self.spec["spec"]["params"]
-
-    @property
-    def txt_len(self) -> int:
-        return self.spec["spec"]["text_enc_max_length"]
 
     @staticmethod
     def timed(records: List) -> List:
@@ -97,12 +100,6 @@ class RunData:
         ran, else the schedule's steps (its rate times its seconds)."""
         t = record.kept["timings"]
         return t.get("cache_model_evals", round(t["denoise_it_per_s"] * t["denoise_seconds"]))
-
-    def lengths(self, record) -> tuple:
-        """(image tokens, joint tokens) of one request, from the size its body asked for."""
-        from .flops import lengths
-
-        return lengths(self.params, record.body["width"], record.body["height"], self.txt_len)
 
 
 class Phases:
@@ -143,17 +140,19 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool, device: str = "
 
     from . import check, generator, system
     from . import trace as tracing
-    from .weights import model_weights
 
-    spec, mix = cell["spec"], cell["mix"]
-    steps = 4 if spec["spec"]["version"] == "flux-schnell" else max(sh["num_steps"] for sh in generator.shapes(mix))
+    spec, mix, family = cell["spec"], cell["mix"], cell["family"]
+    bodies = [generator.request(seed, i, mix) for i in range(len(generator.shapes(mix)))]  # every shape
+    for body in bodies:
+        family.check_body(body)  # before set-up: a body the reference cannot judge never runs
+    steps = max(family.steps(spec, body) for body in bodies)
     overrides = {"warmup_resolutions": generator.resolutions(mix), "warmup_steps": steps,
                  "compilation_cache_dir": str(CACHE / "compile"), **(overrides or {})}
     phases = Phases(device)
     phases.mark("import")
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    pipeline = system.build_pipeline(spec, model_weights(spec, seed, device), overrides, phases.mark)
+    pipeline = family.build(spec, family.weights(spec, seed, device), overrides, phases.mark)
     served = (serve or system.serve)(pipeline)
     phases.mark("serve")
     try:
@@ -163,13 +162,12 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool, device: str = "
         t_window = phases.last
 
         def keep(rec):
-            rec.kept = {"latents": pipeline.last_latents, "cond": system.conditioning(pipeline, rec.body["prompt"]),
-                        "timings": dict(served.counters.last_timings),
+            rec.kept = {"check": family.keep(pipeline, rec.body), "timings": dict(served.counters.last_timings),
                         "server_seconds": served.counters.metrics["last_seconds"]}
 
         records = generator.drive(served.port, seed, mix, seconds=seconds, after=keep)
         window = records[-1].done - records[0].sent
-        data = RunData(spec, mix, records)
+        data = RunData(family, spec, mix, records)
         if trace:
             from torch.profiler import ProfilerActivity, profile
 
@@ -197,13 +195,12 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool, device: str = "
     checked = check.sample(records, seed, mix["checked_requests"])
     for r in records + data.profiled:  # what the check does not read is freed with the program
         if all(r is not c for c in checked):
-            r.kept.pop("latents", None)
-            r.kept.pop("cond", None)
+            r.kept.pop("check", None)
     del pipeline
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    numbers = check.judge(spec, seed, checked, device)
+    numbers = family.judge(spec, seed, checked, device)
     limits = cell["limits"]
     ok = [r for r in records if r.ok]
     result = {
@@ -233,7 +230,7 @@ def run_cell(cell: Dict, seed: int, seconds: float, trace: bool, device: str = "
     result["window"] = {"seconds": window, "requests": len(records),
                         "jpeg_bytes": sum(len(r.payload) for r in ok) / max(len(ok), 1)}
     result["setup_phases"] = phases.seconds
-    result["check"] = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
+    result["check"] = check.compared(numbers, limits)
     return result
 
 

@@ -1,22 +1,18 @@
-"""The system under test: the port's pipeline, built as a configuration ships it from
-weights the benchmark drew, and its FastAPI app served by uvicorn in this process.
+"""The system under test: the port's FastAPI app served by uvicorn in this process,
+and the stand-in for the program's checkpoint reader through which a family's
+``build`` loads the weights the benchmark drew.
 
-This module and ``trace.spans`` are the benchmark's only contact with the program's
-insides. The flow and the VAE load through the program's own checkpoint path, as a
-BFL file would: a stand-in for its safetensors reader hands out the drawn tensors by
-their BFL names.
-T5 and CLIP are built from their published sizes through the program's config
-classes, HF-name loaders, weight-only tiers and ``TextEncoder``, with the word-level
-tokenizer the program draws for random weights.
+This module, the family modules' ``build`` and ``keep``, and ``trace.spans`` are the
+benchmark's only contact with the program's insides.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from contextlib import ExitStack
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 from unittest import mock
 
 DRAWN = "drawn:"  # the path prefix the stand-in reader answers to
@@ -46,62 +42,18 @@ def _drawn_file_class(models: Dict):
     return DrawnFile
 
 
-def model_spec(spec: Dict, overrides: Dict):
-    from flux_fp8_api_tpu_torch.utils.config import ModelSpec
-
-    return ModelSpec(**{**spec["spec"], **overrides})
-
-
-def build_pipeline(spec: Dict, weights: Dict, overrides: Dict, mark=lambda phase: None):
-    """The configuration's ``FluxPipeline`` over the drawn weights. Its constructor
-    calibrates and, with the compile flags, warms ``overrides["warmup_resolutions"]``.
-    ``mark(phase)`` is called as each phase of the build ends: ``flow`` (drawn and
-    quantized), ``ae``, ``text`` (T5 and CLIP), ``calibrate``, ``warm`` (the buckets
-    compiled or read from the cache, and run)."""
-    from flux_fp8_api_tpu_torch.models.clip import CLIPConfig, load_clip_checkpoint
-    from flux_fp8_api_tpu_torch.models.conditioner import TextEncoder, apply_quantization
-    from flux_fp8_api_tpu_torch.models.t5 import T5Config, load_t5_checkpoint
-    from flux_fp8_api_tpu_torch.pipeline import FluxPipeline
+@contextlib.contextmanager
+def drawn_checkpoints(models: Dict):
+    """While open, the program's loaders read a checkpoint path ``drawn:<name>`` from
+    ``models[name]`` (a :class:`portbench.weights.Weights`) by its tensors' names, as
+    they would read a safetensors file."""
     from flux_fp8_api_tpu_torch.utils import checkpoint, loader
-    from flux_fp8_api_tpu_torch.utils.config import into_device, into_dtype
 
-    config = model_spec(spec, {"ckpt_path": DRAWN + "flux", "ae_path": DRAWN + "ae", **overrides})
-    drawn = _drawn_file_class(weights)
-    with ExitStack() as stack:
+    drawn = _drawn_file_class(models)
+    with contextlib.ExitStack() as stack:
         for mod in (loader, checkpoint):
             stack.enter_context(mock.patch.object(mod, "SafetensorsFile", drawn))
-        flow, flow_cfg, _ = loader.load_flow_model(config)
-        weights["flux"].release()
-        mark("flow")
-        ae = loader.load_autoencoder(config)
-        weights["ae"].release()
-        mark("ae")
-    device, dtype = into_device(config.text_enc_device), into_dtype(config.text_enc_dtype)
-    t5_cfg, clip_cfg = T5Config(**spec["t5"]), CLIPConfig(**spec["clip"])
-    t5 = TextEncoder(
-        "t5", apply_quantization("t5", load_t5_checkpoint(weights["t5"].get, t5_cfg, dtype, device=device),
-                                 config.text_enc_quantization_dtype),
-        t5_cfg, loader.ToyTokenizer("t5"), max_length=config.text_enc_max_length, dtype=dtype, device=device,
-        offload=config.offload_text_encoder, stream=config.stream_text_encoder)
-    weights["t5"].release()
-    clip = TextEncoder(
-        "clip", apply_quantization("clip", load_clip_checkpoint(weights["clip"].get, clip_cfg, dtype, device=device),
-                                   config.clip_quantization_dtype),
-        clip_cfg, loader.ToyTokenizer("clip"), max_length=77, dtype=dtype, device=device,
-        offload=config.offload_text_encoder)
-    weights["clip"].release()
-    mark("text")
-    warmup = FluxPipeline.warmup
-
-    def timed_warmup(self, *args, **kwargs):
-        mark("calibrate")
-        return warmup(self, *args, **kwargs)
-
-    with mock.patch.object(FluxPipeline, "warmup", timed_warmup):
-        pipeline = FluxPipeline(name=str(getattr(config.version, "value", config.version)), clip=clip, t5=t5,
-                                model=flow, model_cfg=flow_cfg, ae=ae, config=config, prequantized=False)
-    mark("warm")
-    return pipeline
+        yield
 
 
 @dataclass
@@ -139,9 +91,3 @@ def serve(pipeline, timeout: float = 60.0) -> Served:
         app.state.model = None
 
     return Served(port, app.state.server, stop)
-
-
-def conditioning(pipeline, prompt: str) -> Optional[Tuple]:
-    """The (pooled CLIP, weighted T5) the served path computed for ``prompt``, from the
-    pipeline's conditioning cache, while it still holds the entry."""
-    return pipeline._cond_cache.get((prompt, pipeline.config.text_enc_max_length))

@@ -26,8 +26,8 @@ def eager_compile():
     flux.reset_compiled()
 
 
-def tiny_run(version="flux-dev"):
-    return run.run_cell(tiny_cell(version), SEED, seconds=0.5, trace=False, device="cpu", serve=stdlib_serve)
+def tiny_run(version="flux-dev", **cell):
+    return run.run_cell(tiny_cell(version, **cell), SEED, seconds=1.5, trace=False, device="cpu", serve=stdlib_serve)
 
 
 @pytest.mark.parametrize("version", ["flux-dev", "flux-schnell"])
@@ -46,8 +46,47 @@ def test_served_path_matches_the_reference(version):
 def test_control_fails_the_check():
     cell = tiny_cell()
     bodies = [generator.request(SEED, i, cell["mix"]) for i in range(2)]
-    numbers = check.control(cell["spec"], SEED, bodies, "cpu")
+    numbers = cell["family"].control(cell["spec"], SEED, bodies, "cpu")
     assert not check.verdict(numbers, cell["limits"]), numbers
+
+
+# 7 steps at interval 3 (warmup 2, tail 1): steps 0, 1, 3 and 6 evaluate, 2, 4 and 5 skip
+CACHE3 = {"cache": {"mode": "interval", "interval": 3}}
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_the_cached_path_matches_the_reference(order):
+    res = tiny_run(steps=7, body={"cache": {**CACHE3["cache"], "order": order}}, limits="dev-1024-cache3")
+    assert res["correct"], res["check"]
+    assert res["check"]["evaluations_off"] == {"value": 0.0, "limit": 0}
+    assert list(res["check"]) == ["t5_rel", "clip_rel", "latent_rel", "pixel_mad", "evaluations_off"]
+
+
+def test_a_served_path_that_ignores_the_cache_fails(monkeypatch):
+    import flux_fp8_api_tpu_torch.pipeline as pipeline_mod
+
+    denoise = pipeline_mod.denoise
+    monkeypatch.setattr(pipeline_mod, "denoise", lambda *a, **k: denoise(*a, **{**k, "cache": None}))
+    res = tiny_run(steps=7, body=CACHE3, limits="dev-1024-cache3")
+    assert not res["correct"] and res["check"]["evaluations_off"]["value"] == 3.0
+
+
+def test_the_uncached_control_fails_a_cached_cell():
+    cell = tiny_cell(steps=7, body=CACHE3, limits="dev-1024-cache3")
+    bodies = [generator.request(SEED, i, cell["mix"]) for i in range(2)]
+    numbers = cell["family"].control(cell["spec"], SEED, bodies, "cpu", "uncached")
+    assert numbers["evaluations_off"] == 3.0 and numbers["latent_rel"] > cell["limits"]["latent_rel"]
+    assert not check.verdict(numbers, cell["limits"])
+
+
+@pytest.mark.parametrize("body,field", [
+    ({"cache": {"mode": "dynamic", "threshold": 0.25}}, "dynamic"),
+    ({"init_image": "aGVsbG8="}, "init_image"),
+    ({"strength": 0.6}, "strength"),
+])
+def test_a_body_the_reference_does_not_model_is_refused_before_set_up(body, field):
+    with pytest.raises(ValueError, match=field):
+        tiny_run(body=body)
 
 
 def test_a_step_that_returns_its_state_unchanged_fails(monkeypatch):

@@ -42,7 +42,10 @@ def test_benchmark_shape():
 def test_cells_load_by_name(cell):
     c = run.load_cell(cell)
     spec, mix = c["spec"], c["mix"]
-    assert spec["reduced"] == [] and spec["name"] == c["cell"]["config"]
+    conf = next(x for x in BENCH["configs"] if x["name"] == c["cell"]["config"])
+    assert spec["reduced"] == conf["reduced"] and spec["name"] == c["cell"]["config"]
+    # a reduced key is never one of the widths the family holds to the published ones
+    assert not set(conf["reduced"]) & set(c["family"].widths(spec))
     shipped = json.loads((ROOT / spec["shipped_as"]).read_text())
     assert spec["spec"] == shipped  # the configuration as it ships
     assert (HERE_TRAFFIC / f"{mix['loop']}.py").is_file() and len(mix["word_list"]) == 270
@@ -53,12 +56,13 @@ def test_cells_load_by_name(cell):
     assert a == b and a != request(8, 3, mix)
     assert {k: v for k, v in request(2**40 + 1, 0, mix).items() if k not in ("prompt", "seed")} == \
         {**mix["body"], **generator.shapes(mix)[0]}
+    c["family"].check_body(a)  # the reference models every field the mix sends
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
 def test_metric_readers_load_and_find_nothing_without_records(metric):
-    spec = run.load_cell("dev-1024")
-    assert run.read_metric(metric, run.RunData(spec["spec"], spec["mix"])) is None
+    c = run.load_cell("dev-1024")
+    assert run.read_metric(metric, run.RunData(c["family"], c["spec"], c["mix"])) is None
 
 
 @pytest.mark.parametrize("family", ["gemm_fp8", "attention_k1"])
@@ -67,17 +71,26 @@ def test_kernel_families_load(family):
     assert fam["include"] and isinstance(fam.get("exclude", []), list)
 
 
-def test_published_widths():
-    for name in ("flux-dev-fp8", "flux-schnell-fp8"):
-        spec = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())
-        p = spec["spec"]["params"]
-        assert (p["hidden_size"], p["num_heads"], p["depth"], p["depth_single_blocks"]) == (3072, 24, 19, 38)
-        assert spec["t5"] == {"vocab_size": 32128, "d_model": 4096, "d_ff": 10240, "num_layers": 24,
-                              "num_heads": 64, "d_kv": 64, "relative_attention_num_buckets": 32,
-                              "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6}
-        assert (spec["clip"]["hidden_size"], spec["clip"]["num_layers"], spec["clip"]["vocab_size"]) == (768, 12, 49408)
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_published_widths(config):
+    conf = next(c for c in BENCH["configs"] if c["name"] == config)
+    spec = json.loads((ROOT / conf["file"]).read_text())
+    family = run.load_family(spec["family"])
+    assert family.widths(spec) == family.PUBLISHED[conf["source"]]
     mix = load_mix("closed1-1024sq-28step")
     assert generator.shapes(mix) == [{"width": 1024, "height": 1024, "num_steps": 28}]
+
+
+def test_the_flux_family_holds_the_published_widths():
+    family = run.load_family("flux")
+    for widths in family.PUBLISHED.values():
+        p = widths["params"]
+        assert (p["hidden_size"], p["num_heads"], p["depth"], p["depth_single_blocks"]) == (3072, 24, 19, 38)
+        assert widths["t5"] == {"vocab_size": 32128, "d_model": 4096, "d_ff": 10240, "num_layers": 24,
+                                "num_heads": 64, "d_kv": 64, "relative_attention_num_buckets": 32,
+                                "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6}
+        assert (widths["clip"]["hidden_size"], widths["clip"]["num_layers"], widths["clip"]["vocab_size"]) == \
+            (768, 12, 49408)
 
 
 # kernel names read from traced runs of both cells on an H100 (the fp8 GEMMs, a bf16

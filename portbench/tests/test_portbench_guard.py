@@ -13,10 +13,9 @@ torch.set_num_threads(2)
 from portbench.tests.tiny import tiny_cell
 from portbench import generator
 from portbench.reference.pipeline import Precision
-import portbench.check as check
 cell = tiny_cell()
 bodies = [generator.request(5, 0, cell["mix"])]
-out = check.reference(cell["spec"], 5, bodies, "cpu", Precision.of(cell["spec"]))
+out = cell["family"].reference(cell["spec"], 5, bodies, "cpu", Precision.of(cell["spec"]))
 assert out[0].pixels.shape == (1, 64, 64, 3)
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """

@@ -26,7 +26,8 @@ def _record(i, status=200, **timings):
 
 def _read(name, records, profiled=(), trace=None):
     c = _cell()
-    return run.read_metric(name, run.RunData(c["spec"], c["mix"], list(records), list(profiled), trace))
+    data = run.RunData(c["family"], c["spec"], c["mix"], list(records), list(profiled), trace)
+    return run.read_metric(name, data)
 
 
 def test_text_encode_ms_is_the_mean_over_requests_that_encoded():
@@ -101,6 +102,6 @@ def test_program_spans_leave_the_trace_and_its_readers_as_they_were():
     recs = [_record(i, text_seconds=0.05) for i in range(3)]
     c = _cell()
     for metric in (m["name"] for m in c["per_layer"]):
-        a = run.read_metric(metric, run.RunData(c["spec"], c["mix"], recs, recs[:1], plain))
-        b = run.read_metric(metric, run.RunData(c["spec"], c["mix"], recs, recs[:1], both))
+        a = run.read_metric(metric, run.RunData(c["family"], c["spec"], c["mix"], recs, recs[:1], plain))
+        b = run.read_metric(metric, run.RunData(c["family"], c["spec"], c["mix"], recs, recs[:1], both))
         assert a == b, metric

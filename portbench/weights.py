@@ -1,11 +1,12 @@
 """Seeded weights, drawn on the device by checkpoint name, for the program and the
-reference alike.
+reference alike: the group drawers of the models the families use, and the lazy
+:class:`Weights` a family's ``weights`` builds from them.
 
 Each model's tensors are named as its published checkpoint names them (BFL's
 ``flux1-dev.sft`` and ``ae.sft``, HF's T5EncoderModel and CLIPTextModel) and split into
 groups: a flux block, a T5 layer, the VAE's encoder. A group is drawn in one call of a
-generator seeded from (run seed, model, group), so any group can be drawn again alone
-and gives the same bits. Every tensor comes back as a bf16 tensor of its own (never a
+generator seeded from (run seed, the model's tag, group), so any group can be drawn
+again alone and gives the same bits. Every tensor comes back as a bf16 tensor of its own (never a
 view of the group's draw), because bf16 is the type the configurations serve them in.
 
 Initialisations: flux linears U(±sqrt(3/in)) with biases U(±1/sqrt(in)) and unit
@@ -27,12 +28,11 @@ import torch
 Init = Tuple
 Entry = Tuple[str, Tuple[int, ...], Init]  # (name, shape, init)
 
-MODEL_TAGS = {"flux": 1, "t5": 2, "clip": 3, "ae": 4}
 
 
-def group_seed(seed: int, model: str, group: int) -> int:
-    """A 63-bit generator seed for one group of one model of a run."""
-    words = np.random.SeedSequence([int(seed) & (2**64 - 1), MODEL_TAGS[model], group]).generate_state(2, np.uint32)
+def group_seed(seed: int, tag: int, group: int) -> int:
+    """A 63-bit generator seed for one group of the model tagged ``tag`` of a run."""
+    words = np.random.SeedSequence([int(seed) & (2**64 - 1), tag, group]).generate_state(2, np.uint32)
     return (int(words[0]) << 31) ^ int(words[1])
 
 
@@ -203,12 +203,12 @@ def ae_groups(a: Dict) -> List[List[Entry]]:
 # ------------------------------------------------------------------------------- draw
 
 
-def draw_group(entries: List[Entry], seed: int, model: str, group: int,
+def draw_group(entries: List[Entry], seed: int, tag: int, group: int,
                device) -> Dict[str, torch.Tensor]:
     """One group's tensors in bf16: a single uniform and a single normal draw over the
     group, each tensor cut from them and transformed by its init."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(group_seed(seed, model, group))
+    gen.manual_seed(group_seed(seed, tag, group))
     n_u = sum(math.prod(s) for _, s, init in entries if init[0] == "u")
     n_n = sum(math.prod(s) for _, s, init in entries if init[0] == "n")
     u = torch.rand(n_u, generator=gen, device=device) if n_u else None
@@ -235,10 +235,11 @@ class Weights:
     """The tensors of one model of one run, drawn a group at a time on demand: the
     last group drawn is kept, so a loader reading in checkpoint order draws each group
     once; the first group (the small top-level layers, read at both ends of a flux
-    load) is kept throughout."""
+    load) is kept throughout. ``tag``, a number of the model's own within its family,
+    seeds its groups apart from the other models'."""
 
-    def __init__(self, model: str, groups: List[List[Entry]], seed: int, device):
-        self.model, self.groups, self.seed, self.device = model, groups, seed, torch.device(device)
+    def __init__(self, tag: int, groups: List[List[Entry]], seed: int, device):
+        self.tag, self.groups, self.seed, self.device = tag, groups, seed, torch.device(device)
         self.where = {name: gi for gi, g in enumerate(groups) for name, _, _ in g}
         self.shapes = {name: shape for g in groups for name, shape, _ in g}
         self._cache: Dict[int, Dict[str, torch.Tensor]] = {}
@@ -253,7 +254,7 @@ class Weights:
         if gi not in self._cache:
             for k in [k for k in self._cache if k != 0]:
                 del self._cache[k]
-            self._cache[gi] = draw_group(self.groups[gi], self.seed, self.model, gi, self.device)
+            self._cache[gi] = draw_group(self.groups[gi], self.seed, self.tag, gi, self.device)
         return self._cache[gi]
 
     def get(self, name: str) -> torch.Tensor:
@@ -263,14 +264,3 @@ class Weights:
 
     def release(self) -> None:
         self._cache.clear()
-
-
-def model_weights(spec: Dict, seed: int, device) -> Dict[str, Weights]:
-    """flux, t5, clip and ae :class:`Weights` of a configuration file's sizes."""
-    return {
-        "flux": Weights("flux", flux_groups(spec["spec"]["params"]), seed, device),
-        "t5": Weights("t5", t5_groups(spec["t5"]), seed, device),
-        "clip": Weights("clip", clip_groups(spec["clip"]), seed, device),
-        "ae": Weights("ae", ae_groups(spec["spec"]["ae_params"]), seed, device),
-    }
-
