@@ -9,7 +9,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: the attention kernel library, from this checkout's sources, with nvcc;
 3. kernel: the rope pass (bit for bit) and the CUDA attention kernel K1 against their
    plain PyTorch versions at flux-dev's shapes (24 heads × 128; L = 4608, 3392 and
-   1536, an Lq ≠ Lkv call, no rope, and rows whose logits all underflow), each timed
+   1536, an Lq ≠ Lkv call, no rope, and rows whose logits all underflow) and at
+   Kontext's 1024² edit (L = 8704, the context's ids at first axis 1; K1 at the tile
+   the autotuner picks there, every other tile bit for bit the pick), each timed
    beside its plain version and its bound (the published bf16 tensor-core rate or HBM
    bandwidth, whichever bounds it), and K1 beside ``F.scaled_dot_product_attention`` on
    the same rotated inputs under each backend that runs (a yardstick the port never
@@ -357,15 +359,20 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rope_tables(h_img: int, w_img: int):
-    """flux-dev's rope tables for an h_img × w_img image and 512 text tokens, on the card."""
+def rope_tables(h_img: int, w_img: int, context: bool = False):
+    """flux-dev's rope tables for an h_img × w_img image and 512 text tokens, on the card;
+    with ``context``, a Kontext context image of the same size after them, its ids'
+    first axis 1 (``sampling.joint_img_ids``)."""
     import torch
 
     from flux_fp8_api_tpu_torch.ops.packing import make_img_ids, make_txt_ids
     from flux_fp8_api_tpu_torch.ops.rope import embed_nd_cos_sin
 
     dev = torch.device("cuda")
-    ids = torch.cat([make_txt_ids(512, 1, dev), make_img_ids(h_img // 8, w_img // 8, 1, dev)], 1)
+    parts = [make_txt_ids(512, 1, dev), make_img_ids(h_img // 8, w_img // 8, 1, dev)]
+    if context:
+        parts.append(make_img_ids(h_img // 8, w_img // 8, 1, dev, first=1))
+    ids = torch.cat(parts, 1)
     cos, sin = embed_nd_cos_sin(ids, (16, 56, 56), 10_000)
     return cos[0].contiguous(), sin[0].contiguous()
 
@@ -418,12 +425,16 @@ def library_attention(card: str, q, k, v, scale: float, ref):
 
 
 def phase_kernel(card: str):
-    """The rope pass and K1 against their plain versions at the three serving lengths,
-    each timed beside its plain version, its bound and (K1) the library call."""
+    """The rope pass and K1 against their plain versions at the three serving lengths
+    and at Kontext's 1024² edit (L = 8704, a context image's ids at first axis 1), each
+    timed beside its plain version, its bound and (K1) the library call. At 8704 K1 runs
+    at the tile the autotuner picks there, and every other compiled tile gives the
+    pick's output bit for bit."""
     import torch
 
+    from flux_fp8_api_tpu_torch.ops import attention as attn
     from flux_fp8_api_tpu_torch.ops.attention_kernel import (
-        qknorm_attention, qknorm_attention_ref, rope_rotate, rope_rotate_ref,
+        TILES, qknorm_attention, qknorm_attention_ref, rope_rotate, rope_rotate_ref,
     )
 
     dev = torch.device("cuda")
@@ -439,9 +450,9 @@ def phase_kernel(card: str):
     worst = 0.0
     k1, rope = {}, {}  # L → {"ms", "plain_ms", "bound_ms", "bound_by", ...}
 
-    def check(name, q, k, v, sm_scale, **tables):
+    def check(name, q, k, v, sm_scale, blocks=None, **tables):
         nonlocal worst
-        out = qknorm_attention(q, k, v, sm_scale, **tables)
+        out = qknorm_attention(q, k, v, sm_scale, blocks=blocks, **tables)
         ref = qknorm_attention_ref(q, k, v, sm_scale, **tables)
         torch.cuda.synchronize()
         o, r = out.float(), ref.float()
@@ -458,10 +469,16 @@ def phase_kernel(card: str):
         worst = max(worst, err)
         return out, ref
 
-    for h_img, w_img in ((1024, 1024), (720, 1024), (512, 512)):
-        l = 512 + (h_img // 16) * (w_img // 16)
+    for h_img, w_img, context in ((1024, 1024, False), (720, 1024, False), (512, 512, False), (1024, 1024, True)):
+        l = 512 + (1 + context) * (h_img // 16) * (w_img // 16)
         q, k, v = normed(heads, l, d), normed(heads, l, d), torch.randn(heads, l, d, generator=gen, device=dev).to(torch.bfloat16)
-        cos, sin = rope_tables(h_img, w_img)
+        cos, sin = rope_tables(h_img, w_img, context)
+        blocks = None
+        if context:  # the tile a Kontext warm-up autotunes at this length
+            timings = attn.autotune_blocks(l)
+            blocks = attn._pick_blocks(l)
+            print(f"[{card}] autotune L={l}: " + ", ".join(f"{c} {t * 1e3:.4f}" for c, t in timings.items())
+                  + f" ms → {blocks}", flush=True)
 
         qr, kr = rope_rotate(q, k, cos, sin)
         qp, kp = rope_rotate_ref(q, cos, sin), rope_rotate_ref(k, cos, sin)
@@ -476,19 +493,28 @@ def phase_kernel(card: str):
               f"({100 * b_ms / rope[l]['ms']:.1f}% of its {b_ms:.4f} ms bound, {b_by}), plain "
               f"{rope[l]['plain_ms']:.4f} ms", flush=True)
 
-        check(f"L={l} rope", q, k, v, scale, cos=cos, sin=sin)
-        _, ref = check(f"L={l} pre-rotated", qr, kr, v, scale)
+        check(f"L={l} rope", q, k, v, scale, blocks, cos=cos, sin=sin)
+        out, ref = check(f"L={l} pre-rotated", qr, kr, v, scale, blocks)
+        if context:
+            for tile in TILES:
+                if tile[:2] != tuple(blocks) and not torch.equal(qknorm_attention(qr, kr, v, scale, blocks=tile[:2]), out):
+                    fail("kernel", f"L={l}: tile {tile[:2]}'s output differs from the pick {blocks}'s")
+            print(f"[{card}] K1 L={l}: every compiled tile's output bit for bit the pick {blocks}'s", flush=True)
         b_ms, b_by = attention_bound(heads, l)
-        k1[l] = {"ms": cuda_time_ms(lambda: qknorm_attention(qr, kr, v, scale), 20),
-                 "with_rope_ms": cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, cos=cos, sin=sin), 20),
+        k1[l] = {"ms": cuda_time_ms(lambda: qknorm_attention(qr, kr, v, scale, blocks=blocks), 20),
+                 "with_rope_ms": cuda_time_ms(lambda: qknorm_attention(q, k, v, scale, cos=cos, sin=sin, blocks=blocks), 20),
                  "plain_ms": cuda_time_ms(lambda: qknorm_attention_ref(qr, kr, v, scale), 5),
                  "bound_ms": b_ms, "bound_by": b_by}
         k1[l]["library_ms"] = library_attention(card, qr, kr, v, scale, ref)
         t = k1[l]
         lib = "none ran" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"[{card}] K1 L={l}: kernel {t['ms']:.4f} ms on rotated q/k ({4 * heads * l * l * d / t['ms'] / 1e9:.1f} "
+        print(f"[{card}] K1 L={l}{'' if blocks is None else f' at {tuple(blocks)}'}: kernel {t['ms']:.4f} ms on rotated q/k ({4 * heads * l * l * d / t['ms'] / 1e9:.1f} "
               f"TFLOP/s, {100 * b_ms / t['ms']:.1f}% of its {b_ms:.4f} ms bound, {b_by}); rope pass + kernel "
               f"{t['with_rope_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; library {lib}", flush=True)
+        if context:  # later phases start from the tables as they were
+            attn._TUNED_BLOCKS.pop(l, None)
+            attn._TUNED_MARGINS.pop(l, None)
+            k1[l]["blocks"] = list(blocks)
         if l == 4608:
             # Lq != Lkv: a q shard of 1536 rows against the full sequence
             check("Lq=1536 Lkv=4608 rope", q[:, :1536], k, v, scale, cos=cos, sin=sin,
@@ -4309,6 +4335,9 @@ def main() -> int:
     ]
     # phase 17's local shapes of a mesh rank beside the one-rank row
     shape = ("world", "heads", "lq", "lkv")
+    # phase 3's Kontext length (K1 at its autotuned tile) beside the row
+    for r, t in ((kernels[0], k1[8704]), (kernels[1], rope[8704])):
+        r["kontext_shape"] = {"l": 8704, **t}
     kernels[0]["mesh_shapes"] = [{**{k: m[k] for k in shape}, "ms": m["k1_ms"], "bound_ms": m["k1_bound_ms"],
                                   "bound_by": m["k1_bound_by"], "library_ms": m["sdpa_ms"],
                                   "max_abs_err": m["k1_max_abs_err"]} for m in mesh_rows]

@@ -58,6 +58,8 @@ class GenerateArgs(BaseModel):
     strength: Optional[float] = 1.0
     init_image: Optional[str] = None
     cache: Optional[dict] = None
+    # a Kontext model's context image, base64 (BFL's hosted Kontext API names it so)
+    input_image: Optional[str] = None
 
 
 class LoraArgs(BaseModel):

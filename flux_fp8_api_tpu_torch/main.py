@@ -35,7 +35,7 @@ def parse_args(argv=None):
     parser.add_argument("-t", "--text-enc-path", type=str, help="Path to the T5 encoder directory")
     parser.add_argument("-a", "--autoencoder-path", type=str, help="Path to the autoencoder safetensors")
     parser.add_argument("-m", "--model-version", type=str,
-                        choices=["flux-dev", "flux-schnell"], default="flux-dev")
+                        choices=["flux-dev", "flux-schnell", "flux-dev-kontext"], default="flux-dev")
     parser.add_argument("-F", "--flux-device", type=str, default="tpu:0",
                         help="Device for the flow model (tpu:N, gpu:N and cuda:N all select CUDA device N)")
     parser.add_argument("-T", "--text-enc-device", type=str, default="tpu:0")

@@ -28,10 +28,13 @@ def unpack_latents(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return x.reshape(b, c, h * 2, w * 2)
 
 
-def make_img_ids(h_latent: int, w_latent: int, batch: int, device=None) -> torch.Tensor:
-    """(B, (h/2)(w/2), 3) position ids: (0, row, col)."""
+def make_img_ids(h_latent: int, w_latent: int, batch: int, device=None, first: int = 0) -> torch.Tensor:
+    """(B, (h/2)(w/2), 3) position ids: (first, row, col). A Kontext context image's
+    tokens take ``first`` 1, the image being denoised 0 (BFL flux/sampling.py
+    ``prepare_kontext``)."""
     h2, w2 = h_latent // 2, w_latent // 2
     ids = torch.zeros((h2, w2, 3), dtype=torch.float32, device=device)
+    ids[..., 0] = first
     ids[..., 1] = torch.arange(h2, dtype=torch.float32, device=device)[:, None]
     ids[..., 2] = torch.arange(w2, dtype=torch.float32, device=device)[None, :]
     return ids.reshape(1, h2 * w2, 3).expand(batch, h2 * w2, 3)

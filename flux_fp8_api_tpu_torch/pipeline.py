@@ -1,4 +1,4 @@
-"""FluxPipeline: txt2img, img2img and LoRA hot-load (JAX counterpart:
+"""FluxPipeline: txt2img, img2img, Kontext editing and LoRA hot-load (JAX counterpart:
 ``flux_fp8_api_tpu.pipeline``; reference ``flux_pipeline.py:58-729``).
 
 The same public surface and the same calibration protocol: the first
@@ -26,6 +26,17 @@ rows (``models/autoencoder.py:Bands``), and the first rank answers. Calibration 
 each amax's MAX over the mesh. Offload under a mesh keeps each rank's own shard tree
 on the host and moves it whole around each request; the flow streams block by block
 only without a mesh, as in JAX.
+
+A FLUX.1 Kontext [dev] pipeline (``version`` ``flux-dev-kontext``, which the JAX
+package lacks) also edits: a request's ``input_image`` is decoded, resized to the
+preferred Kontext resolution nearest its aspect ratio, VAE-encoded to the posterior's
+mean and packed, and its tokens, with position ids (1, row, col), join the ones being
+denoised in every evaluation (BFL flux/sampling.py ``prepare_kontext`` and ``denoise``;
+:meth:`FluxPipeline.prepare_context`). BFL's encode samples the posterior; diffusers'
+``FluxKontextPipeline`` takes its mean, as this one does. Text-only requests are served
+as flux-dev serves them. A context image is refused (:class:`RequestError`, naming the
+field) on another version, beside an ``init_image``, with a step cache, on a mesh and
+under streamed flow offload.
 
 ``compile_blocks`` / ``compile_extras`` run each denoise step's blocks and extras
 through their ``torch.compile``'d counterparts (``models/flux.py:Compiled``), one graph
@@ -69,7 +80,7 @@ from .parallel.mesh import (
     gather_flux_params, gather_flux_stages, make_mesh, parse_axes, setup_flux, shard_encoder_params,
 )
 from .parallel.pp import make_pp_runner
-from .sampling import CacheConfig, denoise, make_denoise_step
+from .sampling import CacheConfig, denoise, joint_img_ids, make_denoise_step
 from .tracing import recording, span, timed
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
 from .utils.loader import load_models_from_config
@@ -77,7 +88,36 @@ from .utils.tree import ParamTree, copy_tree_, pin_tree_, tree_to
 
 MAX_RAND = 2**32 - 1
 
+# (width, height) pairs Kontext was trained at (BFL flux/sampling.py
+# PREFERED_KONTEXT_RESOLUTIONS; diffusers' PREFERRED_KONTEXT_RESOLUTIONS)
+PREFERRED_KONTEXT_RESOLUTIONS = (
+    (672, 1568), (688, 1504), (720, 1456), (752, 1392), (800, 1328), (832, 1248), (880, 1184), (944, 1104),
+    (1024, 1024), (1104, 944), (1184, 880), (1248, 832), (1328, 800), (1392, 752), (1456, 720), (1504, 688),
+    (1568, 672),
+)
+
 logger = logging.getLogger(__name__)
+
+
+class RequestError(ValueError):
+    """A request the pipeline refuses; its message names the body field. The servers
+    answer it with a 400."""
+
+
+def kontext_size(width: int, height: int) -> Tuple[int, int]:
+    """The (width, height) a Kontext context image of ``width`` × ``height`` pixels is
+    resized to: the preferred resolution nearest its aspect ratio, ties to the smaller
+    width (BFL ``prepare_kontext``'s ``min`` over (|Δ aspect|, w, h)), cut to
+    multiples of 16."""
+    aspect = width / height
+    _, w, h = min((abs(aspect - w / h), w, h) for w, h in PREFERRED_KONTEXT_RESOLUTIONS)
+    return 16 * (w // 16), 16 * (h // 16)
+
+
+def kontext_resize(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 → the image at :func:`kontext_size` (PIL LANCZOS; the identity
+    at a preferred size)."""
+    return np.array(Image.fromarray(img).resize(kontext_size(img.shape[1], img.shape[0]), Image.LANCZOS))
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -212,9 +252,12 @@ class FluxPipeline:
         self.cond_cache_hits = 0
         self.cond_cache_misses = 0
 
-        # per-phase wall clock of the last generate, and its final packed latents
+        # per-phase wall clock of the last generate, its final packed latents and, for a
+        # Kontext request, its packed context latents and their ids (else None)
         self.timings: Dict[str, float] = {}
         self.last_latents: Optional[torch.Tensor] = None
+        self.last_context: Optional[torch.Tensor] = None
+        self.last_context_ids: Optional[torch.Tensor] = None
         self._rng = np.random.default_rng()
         self.loras: List[lora_mod.LoraWeights] = []  # fused LoRAs (reference flux_model.py:518)
 
@@ -519,16 +562,51 @@ class FluxPipeline:
         txt = txt.to(self.device_flux, self.dtype)
         return packed, img_ids, vec, txt, txt_ids
 
+    def prepare_context(self, input_image, num_images: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A Kontext request's context image (anything :meth:`load_init_image_if_needed`
+        reads) → (packed context latents (N, L_ctx, C·4) in the flow's dtype, their ids
+        (N, L_ctx, 3)): decoded, resized (:func:`kontext_resize`), VAE-encoded to the
+        posterior's mean, packed 2×2; ids (1, row, col) (BFL flux/sampling.py
+        ``prepare_kontext``, which samples the posterior instead)."""
+        arr = kontext_resize(self.load_init_image_if_needed(input_image))
+        nhwc = torch.from_numpy(arr.astype(np.float32) / 127.5 - 1.0)[None]
+        z = ae_encode(self._ae_on_device(), self.config.ae_params, nhwc.to(self.device_ae, self.ae_dtype))
+        z = z.permute(0, 3, 1, 2).to(self.device_flux, self.dtype)  # (1, C, h, w)
+        packed = pack_latents(z).repeat(num_images, 1, 1)
+        return packed, make_img_ids(z.shape[-2], z.shape[-1], num_images, device=self.device_flux, first=1)
+
+    def _check_context(self, init_image, cache: CacheConfig) -> None:
+        """Raises :class:`RequestError`, naming the field, where this pipeline cannot
+        serve a request with ``input_image``."""
+        if self.name != ModelVersion.flux_dev_kontext.value:
+            raise RequestError(f"input_image: this server serves {self.name}, which takes no context image; "
+                               f"in-context editing needs {ModelVersion.flux_dev_kontext.value}")
+        if init_image is not None:
+            raise RequestError("input_image and init_image: a request edits a context image (Kontext) or "
+                               "starts from an init image (img2img), not both")
+        if cache.mode != "none":
+            raise RequestError("cache: the step cache does not run with an input_image; send the request "
+                               "without a cache")
+        if self.mesh is not None:
+            raise RequestError(f"input_image: a Kontext request does not run on a mesh ({self.mesh.shape}) "
+                               "yet; serve it on one card")
+        if self.offload_flow and self.config.stream_flow_offload:
+            raise RequestError("input_image: a Kontext request does not run under streamed flow offload; "
+                               "set stream_flow_offload false")
+
     # -------------------------------------------------------------------- calibration
 
-    def _calibration_denoise(self, img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg=None):
+    def _calibration_denoise(self, img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg=None,
+                             context=None, context_ids=None):
         """Per-step loop that accumulates amax trials and freezes the input scales
         after num_scale_trials steps (float8_quantize.py:220-246); under a mesh each
         trial's amaxes are the MAX over every rank. ``cfg``: the request's model
-        config (default ``model_cfg``)."""
+        config (default ``model_cfg``). ``context``, ``context_ids``: a Kontext
+        request's, as in ``sampling.denoise``."""
         cfg = self.model_cfg if cfg is None else cfg
-        step_collect = make_denoise_step(cfg, collect_amax=True)
-        step_plain = make_denoise_step(cfg)
+        img_ids = joint_img_ids(img_ids, context, context_ids)
+        step_collect = make_denoise_step(cfg, collect_amax=True, context=context)
+        step_plain = make_denoise_step(cfg, context=context)
         pairs = list(zip(timesteps[:-1], timesteps[1:]))
         if not silent:
             from tqdm import tqdm
@@ -569,8 +647,14 @@ class FluxPipeline:
         return_seed: bool = False,
         jpeg_quality: int = 99,
         cache=None,
+        input_image=None,
     ) -> io.BytesIO:
         """Generate image(s); returns JPEG bytes (reference flux_pipeline.py:525-663).
+
+        ``input_image``: a Kontext pipeline's context image (a path, base64 or a data
+        URL, a PIL image or an array), the image the prompt edits (:meth:`prepare_context`);
+        the output keeps ``width`` × ``height``. Refused (:class:`RequestError`) where
+        :meth:`_check_context` says.
 
         ``cache``: the step cache (sampling.CacheConfig, or a dict like ``{"mode":
         "dynamic", "threshold": 0.25}`` from the HTTP body), which skips model
@@ -580,8 +664,11 @@ class FluxPipeline:
 
         ``timings`` holds the seconds of this call's phases (spans of ``tracing.py``),
         its conditioning-cache hits and misses, and the compiled calls, graphs built
-        and eager calls of its denoise loop."""
+        and eager calls of its denoise loop; for a Kontext request, ``context_seconds``
+        and ``context_tokens``."""
         cache = CacheConfig.parse(cache)
+        if input_image is not None:
+            self._check_context(init_image, cache)
         # streamed offload (offload.py) once the input scales are frozen and without a
         # mesh; calibration, a mesh and stream_flow_offload=False move the whole tree
         # (a rank's shard) to the card and back
@@ -594,8 +681,9 @@ class FluxPipeline:
             logger.warning("step cache ignored: calibration trials pending or streamed offload active")
             cache = CacheConfig(mode="none")
         num_steps = 4 if self.name == ModelVersion.flux_schnell.value else num_steps
-        for key in ("encode_seconds", "text_seconds"):
+        for key in ("encode_seconds", "text_seconds", "context_seconds", "context_tokens"):
             self.timings.pop(key, None)
+        self.last_context = self.last_context_ids = context = ctx_ids = None
         with span("preprocess"):
             init_image = self.load_init_image_if_needed(init_image)
             height = 16 * (height // 16)
@@ -604,6 +692,12 @@ class FluxPipeline:
             img, timesteps = self.preprocess_latent(
                 init_image, height, width, num_steps, strength, generator, num_images
             )
+        if input_image is not None:
+            with timed("context", self.timings, "context_seconds"):
+                context, ctx_ids = self.prepare_context(input_image, num_images)
+                _sync(context)
+            self.timings["context_tokens"] = context.shape[1]
+            self.last_context, self.last_context_ids = context, ctx_ids
         with timed("prepare", self.timings, "prepare_seconds"):
             img, img_ids, vec, txt, txt_ids = self.prepare(img, prompt)
         cfg = self.model_cfg
@@ -621,7 +715,7 @@ class FluxPipeline:
             with timed("denoise", self.timings, "denoise_seconds"):
                 if self._needs_calibration:
                     img = self._calibration_denoise(
-                        img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg
+                        img, img_ids, txt, txt_ids, vec, timesteps, guidance, silent, cfg, context, ctx_ids
                     )
                 elif streaming:
                     tops, dbl, sgl = self._ensure_stream_state()
@@ -638,6 +732,7 @@ class FluxPipeline:
                         timesteps, guidance, fused=silent, progress=not silent,
                         cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
                         stack_runner=self._pp_runner, compiled=self.compiled,
+                        context=context, context_ids=ctx_ids,
                     )
                 if rows is not None:  # every rank's rows, in order
                     img = self.mesh.all_gather(img, "dp", dim=0)
@@ -754,7 +849,11 @@ class FluxPipeline:
         nothing again. The tile is picked before the bucket's first compiled call, which
         then holds it as a guard (a later pick recompiles). ``precompile_interactive``
         adds one non-silent 1-step generate per bucket: the path with the per-step
-        progress bar, which calls the same compiled functions as the silent one."""
+        progress bar, which calls the same compiled functions as the silent one.
+
+        A Kontext pipeline warms each (width, height) twice: text only, and with a
+        context image of that size (a bucket whose image tokens are the target's and
+        the context's), so that the context's encode is warm too."""
         from .ops import attention as attn_mod
         from .parallel.mesh import autotune_mesh_blocks
 
@@ -769,17 +868,26 @@ class FluxPipeline:
             n = attn_mod.load_tuned_blocks(blocks_path)
             if n:
                 logger.info("loaded %d autotuned attention tile entries from %s", n, blocks_path)
-        for width, height in resolutions:
+        buckets = [(w, h, None) for w, h in resolutions]
+        if (self.name == ModelVersion.flux_dev_kontext.value and self.mesh is None
+                and not (self.offload_flow and self.config.stream_flow_offload)):
+            # where a context runs (_check_context): a mid-grey context image of the bucket's size
+            buckets += [(w, h, np.full((h, w, 3), 128, np.uint8)) for w, h in resolutions]
+        for width, height, context in buckets:
             joint = self.config.text_enc_max_length + (height // 16) * (width // 16)
+            if context is not None:
+                cw, ch = kontext_size(width, height)
+                joint += (ch // 16) * (cw // 16)
             if autotune and self.mesh is None:
                 attn_mod.autotune_blocks(joint, folded_heads=cfg.num_heads, head_dim=cfg.head_dim, log=logger.info)
             elif autotune:
                 autotune_mesh_blocks(self.mesh, joint, cfg.num_heads, cfg.head_dim, seq_axis=cfg.attn_seq_axis,
                                      log=logger.info)
             self.generate(prompt=prompt, width=width, height=height, num_steps=num_steps,
-                          seed=0, silent=True)
+                          seed=0, silent=True, input_image=context)
             if precompile_interactive:
-                self.generate(prompt=prompt, width=width, height=height, num_steps=1, seed=0, silent=False)
+                self.generate(prompt=prompt, width=width, height=height, num_steps=1, seed=0, silent=False,
+                              input_image=context)
         if autotune and blocks_path and (attn_mod._TUNED_BLOCKS or attn_mod._TUNED_BLOCKS_RECT):
             if self.mesh is None or self.mesh.is_root:
                 attn_mod.save_tuned_blocks(blocks_path)

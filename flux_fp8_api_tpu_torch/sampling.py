@@ -21,6 +21,11 @@ than an uncached step (the median of 16 alternating groups in two runs; ≈ 1% o
 200 ms step): 0.6–0.76 ms is the indicator's own device work, and the rest is that wait
 (``dynamic`` at threshold 0 against the uncached loop, ``dynamic_sync_cost`` in
 chip_smoke.py; PERF.md).
+
+A Kontext request (BFL flux/sampling.py ``denoise``) brings a context: the packed
+latents of its context image, whose tokens every evaluation takes after the ones being
+denoised, with their own position ids, and whose part of the prediction is dropped
+before the Euler update. The step cache does not run with a context.
 """
 
 from __future__ import annotations
@@ -120,22 +125,38 @@ def _update(img, dt, pred):
 
 
 def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False, stack_runner=None,
-                      compiled: Optional[Compiled] = None):
+                      compiled: Optional[Compiled] = None, context: Optional[torch.Tensor] = None):
     """Bind the model config; returns ``step(model, img, img_ids, txt, txt_ids, vec,
     t_curr, t_prev, guidance)`` → img, or (img, amaxes) with ``collect_amax``.
-    ``stack_runner`` (pp) and ``compiled``: as in ``flux_apply``."""
+    ``stack_runner`` (pp) and ``compiled``: as in ``flux_apply``. ``context``: packed
+    context latents (B, L_ctx, C) that each evaluation takes after ``img``'s tokens;
+    ``img_ids`` then holds the ids of both (:func:`joint_img_ids`), and the prediction
+    is cut back to ``img``'s tokens."""
 
     def step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance):
         with span("step"):
             t_vec, dt = _euler(cfg, img, t_curr, t_prev)
-            out = flux_apply(model, cfg, img, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
+            x = img if context is None else torch.cat([img, context], dim=1)
+            out = flux_apply(model, cfg, x, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
                              collect_amax=collect_amax, stack_runner=stack_runner, compiled=compiled)
             pred, amaxes = out if collect_amax else (out, None)
+            if context is not None:
+                pred = pred[:, :img.shape[1]]
             with span("update"):
                 img = _update(img, dt, pred)
         return (img, amaxes) if collect_amax else img
 
     return step
+
+
+def joint_img_ids(img_ids: torch.Tensor, context: Optional[torch.Tensor], ids: Optional[torch.Tensor]):
+    """The ids of an evaluation's image tokens: the target's, then the context's where
+    there is a context (concatenated once per request)."""
+    if context is None:
+        return img_ids
+    if ids is None or ids.shape[:2] != context.shape[:2]:
+        raise ValueError("a context needs its ids, one row per context token")
+    return torch.cat([img_ids, ids], dim=1)
 
 
 def _polyval(coefficients, x: torch.Tensor) -> torch.Tensor:
@@ -232,9 +253,14 @@ def denoise(
     dp_mesh=None,
     stack_runner=None,
     compiled: Optional[Compiled] = None,
+    context: Optional[torch.Tensor] = None,
+    context_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the full denoise loop over ``timesteps`` (num_steps + 1 floats).
     ``fused=False`` with ``progress`` shows the per-step tqdm bar.
+    ``context`` and ``context_ids``: a Kontext request's packed context latents
+    (B, L_ctx, C) and their ids (B, L_ctx, 3), taken after ``img``'s tokens in every
+    evaluation (:func:`make_denoise_step`); never with a step cache (the pipeline refuses one).
 
     ``cache`` with a mode other than "none" runs the step cache, and ``stats`` (if
     given) receives ``stats["model_evals"]``, the number of model evaluations (an int).
@@ -243,20 +269,23 @@ def denoise(
     into ``flux_apply`` (``parallel/pp.py``); the step cache refuses one, as in JAX
     (sampling.py:280-318). ``compiled``: which parts of each model evaluation run
     compiled (``models/flux.py:Compiled``; default none)."""
-    if cache is not None and cache.mode != "none" and stack_runner is not None:
+    cached = cache is not None and cache.mode != "none"
+    if cached and stack_runner is not None:
         raise ValueError("the step cache requires the default scan runner (it does not run under pp)")
+    assert not (cached and context is not None), "the pipeline refuses a cache beside a context (_check_context)"
+    img_ids = joint_img_ids(img_ids, context, context_ids)
     pairs = list(zip(timesteps[:-1], timesteps[1:]))
     if progress and not fused:
         from tqdm import tqdm
 
         pairs = tqdm(pairs)
-    if cache is not None and cache.mode != "none":
+    if cached:
         img, n_evals = _denoise_cached(model, cfg, cache, img, img_ids, txt, txt_ids, vec,
                                        timesteps, guidance, pairs, dp_mesh, compiled)
         if stats is not None:
             stats["model_evals"] = n_evals
         return img
-    step = make_denoise_step(cfg, stack_runner=stack_runner, compiled=compiled)
+    step = make_denoise_step(cfg, stack_runner=stack_runner, compiled=compiled, context=context)
     for t_curr, t_prev in pairs:
         img = step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance)
     return img

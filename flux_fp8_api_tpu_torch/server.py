@@ -4,10 +4,12 @@
 Endpoints and JSON shapes are the JAX server's:
 
 - POST /generate  {prompt, width, height, num_steps, guidance, seed, strength,
-                   init_image, cache} → image/jpeg (+ ``X-Seed``: the seed used);
-                   a malformed ``cache``, or any cache under pipeline parallelism,
-                   answers 400, and a pipeline feature not ported yet
-                   (``NotImplementedError``) 501
+                   init_image, cache, input_image} → image/jpeg (+ ``X-Seed``: the
+                   seed used); a malformed ``cache``, any cache under pipeline
+                   parallelism, and a request the pipeline refuses
+                   (``pipeline.RequestError``: an ``input_image`` where no Kontext
+                   model serves it, ...) answer 400, and a pipeline feature not
+                   ported yet (``NotImplementedError``) 501
 - POST /lora      {action: load|unload, path, name, scale} → JSON status
 - GET  /          the browser UI (``webui.py``)
 - GET  /health (with the fused LoRAs' names, and the mesh of a meshed pipeline),
@@ -37,6 +39,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 
 from . import tracing
+from .pipeline import RequestError
 from .sampling import CacheConfig
 from .webui import render_index
 
@@ -53,6 +56,7 @@ GENERATE_DEFAULTS: Dict[str, Any] = {
     "strength": 1.0,
     "init_image": None,
     "cache": None,
+    "input_image": None,  # a Kontext model's context image (base64), BFL's API name
 }
 
 
@@ -100,6 +104,8 @@ class PipelineServer:
             try:
                 with tracing.span("generate"):
                     out = self.pipeline.generate(silent=True, **args)
+            except RequestError as e:
+                return (*_error(400, str(e)), {})
             except NotImplementedError as e:
                 return (*_error(501, str(e)), {})
             else:

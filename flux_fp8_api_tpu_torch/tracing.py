@@ -16,6 +16,8 @@ the thread that sends the response)::
       queue                        the wait for the generate lock
       generate                     the server's call of FluxPipeline.generate
         preprocess                 noise, schedule; vae_encode for an init image
+        context                    a Kontext request's context image: decode,
+                                   resize, VAE encode, pack, ending in a device sync
         prepare                    ids, packing and text
           text                     T5, CLIP, emphasis for the conditioning-cache
                                    misses, offload moves; under a profiler it ends
@@ -31,8 +33,8 @@ the thread that sends the response)::
     reply                          the response's start to its last body message
 
 Counters: ``models/flux.py:COMPILED_CALLS``, ``COMPILES`` and ``EAGER_CALLS``, whose
-deltas each generate puts in its ``timings``; the server's reply totals
-(:class:`Totals`).
+deltas each generate puts in its ``timings``; a Kontext request's context tokens
+(``timings["context_tokens"]``); the server's reply totals (:class:`Totals`).
 """
 
 from __future__ import annotations

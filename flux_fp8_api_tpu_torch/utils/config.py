@@ -25,6 +25,10 @@ class StrEnum(str, Enum):
 class ModelVersion(StrEnum):
     flux_dev = "flux-dev"
     flux_schnell = "flux-schnell"
+    # FLUX.1 Kontext [dev] (BFL flux/util.py "flux-dev-kontext"): flux-dev's flow, served
+    # with a context image's tokens beside the ones it denoises (pipeline.py). The JAX
+    # package has no such version.
+    flux_dev_kontext = "flux-dev-kontext"
 
 
 class QuantizationDtype(StrEnum):
@@ -231,7 +235,7 @@ def _default_flux_params(version: ModelVersion) -> FluxParams:
         axes_dim=[16, 56, 56],
         theta=10_000,
         qkv_bias=True,
-        guidance_embed=version == ModelVersion.flux_dev,
+        guidance_embed=version != ModelVersion.flux_schnell,
     )
 
 
@@ -275,11 +279,16 @@ def load_config(
 ) -> ModelSpec:
     """Build a ModelSpec from CLI-style arguments (reference ``util.py:122-213``)."""
     name = ModelVersion(name)
-    dev = name == ModelVersion.flux_dev
+    dev = name != ModelVersion.flux_schnell  # flux-dev and Kontext: guidance, T5 at 512
+    repo_id, repo_flow = {
+        ModelVersion.flux_dev: ("black-forest-labs/FLUX.1-dev", "flux1-dev.sft"),
+        ModelVersion.flux_schnell: ("black-forest-labs/FLUX.1-schnell", "flux1-schnell.sft"),
+        ModelVersion.flux_dev_kontext: ("black-forest-labs/FLUX.1-Kontext-dev", "flux1-kontext-dev.safetensors"),
+    }[name]
     return ModelSpec(
         version=name,
-        repo_id="black-forest-labs/FLUX.1-dev" if dev else "black-forest-labs/FLUX.1-schnell",
-        repo_flow="flux1-dev.sft" if dev else "flux1-schnell.sft",
+        repo_id=repo_id,
+        repo_flow=repo_flow,
         repo_ae="ae.sft",
         ckpt_path=flux_path,
         params=_default_flux_params(name),
