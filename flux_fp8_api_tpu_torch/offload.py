@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .models.flux import EAGER, Compiled, FluxStatic, _Tape
-from .sampling import _euler, _guidance_vec, _update
+from .sampling import Schedule, _guidance_vec, _update
 from .utils.tree import tree_nbytes, tree_to
 
 BLOCK_STACKS = ("double_blocks", "single_blocks")
@@ -168,12 +168,15 @@ def streamed_denoise(
     every step, a rolling window of a few blocks). ``sync_every``: see
     :class:`BlockStream`. ``compiled``: which of the step's functions run compiled,
     as in ``sampling.denoise``. The latents equal the resident loop's
-    (``sampling.denoise``, with the same ``compiled``) bit for bit at every budget."""
-    pairs = list(zip(timesteps[:-1], timesteps[1:]))
+    (``sampling.denoise``, with the same ``compiled``) bit for bit at every budget. The
+    schedule crosses to the card once (``sampling.Schedule``), so ``sync_every`` alone
+    bounds how far the host runs ahead of the compute."""
+    sched = Schedule(cfg, img, timesteps)
+    steps = range(len(sched))
     if progress:
         from tqdm import tqdm
 
-        pairs = tqdm(pairs, desc="denoise (streamed offload)")
+        steps = tqdm(steps, desc="denoise (streamed offload)")
     blocks = list(dbl_blocks) + list(sgl_blocks)
     n_dbl, n = len(dbl_blocks), len(dbl_blocks) + len(sgl_blocks)
     retained = retained_blocks(dbl_blocks, sgl_blocks, retain_bytes)
@@ -200,8 +203,8 @@ def streamed_denoise(
     pre, final, double, single = (compiled or EAGER).functions(
         cfg, tops_dev, [blocks[i] for i in (0, n_dbl) if i < n], txt_len + img.shape[1],
         img, img_ids, txt, txt_ids, y, g_vec)
-    for t_curr, t_prev in pairs:
-        t_vec, dt = _euler(cfg, img, t_curr, t_prev)
+    for i in steps:
+        t_vec, dt = sched.step(i)
         img_e, txt_e, vec_silu, cos, sin = pre(tops_dev, cfg, img, img_ids, txt, txt_ids, t_vec, y, g_vec, tape)
         for j in range(n_dbl):
             img_e, txt_e = double(cfg, take(j), img_e, txt_e, vec_silu, cos, sin, tape)

@@ -80,7 +80,7 @@ from .parallel.mesh import (
     gather_flux_params, gather_flux_stages, make_mesh, parse_axes, setup_flux, shard_encoder_params,
 )
 from .parallel.pp import make_pp_runner
-from .sampling import CacheConfig, denoise, joint_img_ids, make_denoise_step
+from .sampling import CacheConfig, Schedule, denoise, joint_img_ids, make_denoise_step
 from .tracing import recording, span, timed
 from .utils.config import ModelSpec, ModelVersion, into_device, into_dtype, load_config_from_path
 from .utils.loader import load_models_from_config
@@ -607,15 +607,16 @@ class FluxPipeline:
         img_ids = joint_img_ids(img_ids, context, context_ids)
         step_collect = make_denoise_step(cfg, collect_amax=True, context=context)
         step_plain = make_denoise_step(cfg, context=context)
-        pairs = list(zip(timesteps[:-1], timesteps[1:]))
+        sched = Schedule(cfg, img, timesteps)
+        steps = range(len(sched))
         if not silent:
             from tqdm import tqdm
 
-            pairs = tqdm(pairs, desc="denoise(calibrating)")
-        for t_curr, t_prev in pairs:
+            steps = tqdm(steps, desc="denoise(calibrating)")
+        for i in steps:
             if self._trials_done < self.config.num_scale_trials:
                 img, amaxes = step_collect(
-                    self.model_params, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance
+                    self.model_params, img, img_ids, txt, txt_ids, vec, *sched.step(i), guidance
                 )
                 self._amax_running = merge_amax(self._amax_running, reduce_amaxes(amaxes, self.mesh))
                 apply_input_scales(self.model_params, self._amax_running)
@@ -625,7 +626,7 @@ class FluxPipeline:
                     self._needs_calibration = False
             else:
                 img = step_plain(
-                    self.model_params, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance
+                    self.model_params, img, img_ids, txt, txt_ids, vec, *sched.step(i), guidance
                 )
         return img
 
@@ -664,8 +665,9 @@ class FluxPipeline:
 
         ``timings`` holds the seconds of this call's phases (spans of ``tracing.py``),
         its conditioning-cache hits and misses, and the compiled calls, graphs built
-        and eager calls of its denoise loop; for a Kontext request, ``context_seconds``
-        and ``context_tokens``."""
+        and eager calls of its denoise loop; on a card, the steps that loop enqueued while
+        the card still ran the step before (``steps_ahead``, ``sampling.Lead``); for a
+        Kontext request, ``context_seconds`` and ``context_tokens``."""
         cache = CacheConfig.parse(cache)
         if input_image is not None:
             self._check_context(init_image, cache)
@@ -706,7 +708,7 @@ class FluxPipeline:
             cfg = self._denoise_cfg(txt.shape[1] + img.shape[1])
             (img, img_ids, vec, txt, txt_ids), rows = self._put_flow_input(img, img_ids, vec, txt, txt_ids)
 
-        cache_stats: Dict[str, Any] = {}
+        loop_stats: Dict[str, Any] = {}
         host_flow = None
         if self.offload_flow and not streaming:  # outside the denoise time, as in JAX
             host_flow, self.model_params = self.model_params, tree_to(self.model_params, self.device_flux)
@@ -730,7 +732,7 @@ class FluxPipeline:
                     img = denoise(
                         self.model_params, cfg, img, img_ids, txt, txt_ids, vec,
                         timesteps, guidance, fused=silent, progress=not silent,
-                        cache=cache, stats=cache_stats, dp_mesh=self.mesh if rows is not None else None,
+                        cache=cache, stats=loop_stats, dp_mesh=self.mesh if rows is not None else None,
                         stack_runner=self._pp_runner, compiled=self.compiled,
                         context=context, context_ids=ctx_ids,
                     )
@@ -746,10 +748,11 @@ class FluxPipeline:
         self.timings["denoise_it_per_s"] = (len(timesteps) - 1) / max(
             self.timings["denoise_seconds"], 1e-9
         )
-        if "model_evals" in cache_stats:
-            self.timings["cache_model_evals"] = cache_stats["model_evals"]
-        else:
-            self.timings.pop("cache_model_evals", None)
+        for key, name in (("model_evals", "cache_model_evals"), ("steps_ahead", "steps_ahead")):
+            if key in loop_stats:
+                self.timings[name] = loop_stats[key]
+            else:
+                self.timings.pop(name, None)
         self.last_latents = img
         if self.mesh is not None and not self.mesh.is_root:
             # the first rank answers; the others decode their bands, where there are any

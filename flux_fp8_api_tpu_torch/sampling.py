@@ -8,7 +8,9 @@ each model evaluation runs the compiled blocks and extras, one graph per functio
 bucket, where JAX jits the whole step per (batch, resolution, steps) bucket; both drive
 modes call the same compiled functions. The Euler update and the loop stay Python:
 capturing the loop in a CUDA graph, the counterpart of JAX's fused ``lax.scan``, is
-later work (ROADMAP).
+later work (ROADMAP). The request's timesteps cross to the card once, before its first
+step (:class:`Schedule`), so no step waits for the card: the host enqueues step i+1
+while the card runs step i.
 
 The step cache (:class:`CacheConfig`, JAX ``_denoise_scan_cached``) skips model
 evaluations that would change little and reuses the last evaluated velocity. The JAX
@@ -103,13 +105,50 @@ class CacheConfig:
         raise TypeError(f"cache must be None, CacheConfig or dict, got {type(spec)}")
 
 
-def _euler(cfg: FluxStatic, img, t_curr: float, t_prev: float):
-    """(t_vec, dt): the timestep vector in the compute dtype and the step size rounded
-    as the JAX step rounds it (f32 difference, then the latent's dtype)."""
-    b = img.shape[0]
-    t_vec = torch.full((b,), t_curr, dtype=torch.float32, device=img.device).to(cfg.dtype)
-    dt = (torch.tensor(t_prev, dtype=torch.float32) - torch.tensor(t_curr, dtype=torch.float32)).to(img.dtype)
-    return t_vec, dt.to(img.device)
+class Schedule:
+    """Every step's timestep vector and step size of one request, on the latent's
+    device: built once on the host and moved in one copy, from page-locked memory on a
+    card, so that no step makes a host tensor or waits for the card. The rounding is the
+    JAX step's: ``t_vec`` the fp32 timestep in the compute dtype, ``dt`` the fp32
+    difference in the latent's dtype; ``ts`` the fp32 timesteps (the cache's slope)."""
+
+    def __init__(self, cfg: FluxStatic, img: torch.Tensor, timesteps):
+        t = torch.tensor(timesteps, dtype=torch.float32)
+        host = torch.cat([t, t[1:] - t[:-1]])
+        if img.device.type == "cuda":
+            host = host.pin_memory()
+        flat = host.to(img.device, non_blocking=True)
+        n = len(t) - 1
+        self.ts = flat[:n + 1]
+        self.t_vecs = self.ts[:n, None].to(cfg.dtype).repeat(1, img.shape[0])
+        self.dts = flat[n + 1:].to(img.dtype)
+
+    def __len__(self) -> int:
+        return len(self.dts)
+
+    def step(self, i: int):
+        """(t_vec, dt) of step ``i``: ``t_vec`` a contiguous (B,) tensor of its own, as
+        the compiled ``pre`` saw it when it was built, ``dt`` a 0-d view."""
+        return self.t_vecs[i].clone(), self.dts[i]
+
+
+class Lead:
+    """Counts the steps whose enqueue began while the card still ran the step before:
+    the loop calls :meth:`starting` before it enqueues a step and :meth:`stepped` after
+    the step's update, which records an event; ``Event.query`` does not wait. On a card
+    only (``steps_ahead`` is None elsewhere)."""
+
+    def __init__(self, device: torch.device):
+        self.event = torch.cuda.Event() if device.type == "cuda" else None
+        self.steps_ahead = None if self.event is None else 0
+
+    def starting(self) -> None:
+        if self.event is not None and not self.event.query():  # an unrecorded event reads done
+            self.steps_ahead += 1
+
+    def stepped(self) -> None:
+        if self.event is not None:
+            self.event.record()
 
 
 def _guidance_vec(cfg: FluxStatic, img, guidance: float):
@@ -127,15 +166,15 @@ def _update(img, dt, pred):
 def make_denoise_step(cfg: FluxStatic, collect_amax: bool = False, stack_runner=None,
                       compiled: Optional[Compiled] = None, context: Optional[torch.Tensor] = None):
     """Bind the model config; returns ``step(model, img, img_ids, txt, txt_ids, vec,
-    t_curr, t_prev, guidance)`` → img, or (img, amaxes) with ``collect_amax``.
+    t_vec, dt, guidance)`` → img, or (img, amaxes) with ``collect_amax``; ``t_vec`` and
+    ``dt`` are a step of the request's :class:`Schedule`.
     ``stack_runner`` (pp) and ``compiled``: as in ``flux_apply``. ``context``: packed
     context latents (B, L_ctx, C) that each evaluation takes after ``img``'s tokens;
     ``img_ids`` then holds the ids of both (:func:`joint_img_ids`), and the prediction
     is cut back to ``img``'s tokens."""
 
-    def step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance):
+    def step(model, img, img_ids, txt, txt_ids, vec, t_vec, dt, guidance):
         with span("step"):
-            t_vec, dt = _euler(cfg, img, t_curr, t_prev)
             x = img if context is None else torch.cat([img, context], dim=1)
             out = flux_apply(model, cfg, x, img_ids, txt, txt_ids, t_vec, vec, _guidance_vec(cfg, img, guidance),
                              collect_amax=collect_amax, stack_runner=stack_runner, compiled=compiled)
@@ -181,28 +220,29 @@ def _relative_drift(ind: torch.Tensor, prev_ind: torch.Tensor, dp_mesh) -> torch
 
 
 def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, txt, txt_ids, vec,
-                    timesteps, guidance: float, pairs, dp_mesh=None,
+                    sched: Schedule, guidance: float, steps, lead: Lead, dp_mesh=None,
                     compiled: Optional[Compiled] = None) -> Tuple[torch.Tensor, int]:
     """The Euler loop with the step cache (JAX ``_denoise_scan_cached``, sampling.py:175-271);
-    → (img, model evaluations). ``pairs`` iterates (t_curr, t_prev) over ``timesteps``.
+    → (img, model evaluations). ``steps`` iterates the indices of ``sched``'s steps;
+    ``lead`` counts the steps enqueued ahead of the card.
 
     The skip decision is the host's: ``interval`` and forced steps need no device value,
     ``dynamic`` reads its accumulated drift once per unforced step (``dp_mesh``: the
     mesh whose dp ranks each hold some of the batch rows). Timestep differences are
-    fp32 tensors, as in the JAX scan (Python floats would give an fp64 slope).
-    ``compiled``: as in ``flux_apply``, the indicator an extra."""
-    n_steps = len(timesteps) - 1
+    fp32 tensors (``sched.ts``), as in the JAX scan (Python floats would give an fp64
+    slope). ``compiled``: as in ``flux_apply``, the indicator an extra."""
+    n_steps, ts = len(sched), sched.ts
     dev = img.device
-    ts = torch.tensor(timesteps, dtype=torch.float32, device=dev)
     g_vec = _guidance_vec(cfg, img, guidance)
     dynamic, first_order = cache.mode == "dynamic", cache.order == 1
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     accum, prev_ind = zero, None
     cached = prev = t_last = t_prev_last = None  # order 1: the last two evaluations, fp32
     n_evals = 0
-    for i, (t_curr, t_prev) in enumerate(pairs):
+    for i in steps:
+        lead.starting()
         with span("step"):
-            t_vec, dt = _euler(cfg, img, t_curr, t_prev)
+            t_vec, dt = sched.step(i)
             evaluate = i < cache.warmup or i >= n_steps - cache.tail
             if dynamic:
                 ind = flux_cache_indicator(model, cfg, img, t_vec, vec, g_vec, compiled).float()
@@ -233,6 +273,7 @@ def _denoise_cached(model, cfg: FluxStatic, cache: CacheConfig, img, img_ids, tx
                 pred = cached
             with span("update"):
                 img = _update(img, dt, pred.to(img.dtype) if first_order else pred)
+        lead.stepped()
     return img, n_evals
 
 
@@ -262,8 +303,11 @@ def denoise(
     (B, L_ctx, C) and their ids (B, L_ctx, 3), taken after ``img``'s tokens in every
     evaluation (:func:`make_denoise_step`); never with a step cache (the pipeline refuses one).
 
-    ``cache`` with a mode other than "none" runs the step cache, and ``stats`` (if
-    given) receives ``stats["model_evals"]``, the number of model evaluations (an int).
+    The schedule crosses to the device once (:class:`Schedule`), so no step waits for
+    the card. ``stats`` (if given) receives ``stats["steps_ahead"]`` on a card: the
+    steps whose enqueue began while the card still ran the step before (:class:`Lead`).
+    ``cache`` with a mode other than "none" runs the step cache, and ``stats`` then
+    also receives ``stats["model_evals"]``, the number of model evaluations (an int).
     ``dp_mesh``: the mesh over whose dp ranks the batch rows are split (the dynamic
     cache's drift is reduced over it). ``stack_runner`` plugs a block-stack strategy
     into ``flux_apply`` (``parallel/pp.py``); the step cache refuses one, as in JAX
@@ -274,18 +318,23 @@ def denoise(
         raise ValueError("the step cache requires the default scan runner (it does not run under pp)")
     assert not (cached and context is not None), "the pipeline refuses a cache beside a context (_check_context)"
     img_ids = joint_img_ids(img_ids, context, context_ids)
-    pairs = list(zip(timesteps[:-1], timesteps[1:]))
+    sched, lead = Schedule(cfg, img, timesteps), Lead(img.device)
+    steps = range(len(sched))
     if progress and not fused:
         from tqdm import tqdm
 
-        pairs = tqdm(pairs)
+        steps = tqdm(steps)
     if cached:
         img, n_evals = _denoise_cached(model, cfg, cache, img, img_ids, txt, txt_ids, vec,
-                                       timesteps, guidance, pairs, dp_mesh, compiled)
+                                       sched, guidance, steps, lead, dp_mesh, compiled)
         if stats is not None:
             stats["model_evals"] = n_evals
-        return img
-    step = make_denoise_step(cfg, stack_runner=stack_runner, compiled=compiled, context=context)
-    for t_curr, t_prev in pairs:
-        img = step(model, img, img_ids, txt, txt_ids, vec, t_curr, t_prev, guidance)
+    else:
+        step = make_denoise_step(cfg, stack_runner=stack_runner, compiled=compiled, context=context)
+        for i in steps:
+            lead.starting()
+            img = step(model, img, img_ids, txt, txt_ids, vec, *sched.step(i), guidance)
+            lead.stepped()
+    if stats is not None and lead.steps_ahead is not None:
+        stats["steps_ahead"] = lead.steps_ahead
     return img

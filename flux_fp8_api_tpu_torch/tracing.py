@@ -23,7 +23,9 @@ the thread that sends the response)::
                                    misses, offload moves; under a profiler it ends
                                    in a device sync
         denoise                    the loop, ending in a device sync
-          step                     one schedule step
+          step                     one schedule step: its enqueue, since no step
+                                   waits for the card (the dynamic cache's one
+                                   read per unforced step aside)
             dispatch               Compiled.functions: the bucket and its admission
             pre, double_blocks, single_blocks, final
             update                 the Euler step
@@ -34,7 +36,10 @@ the thread that sends the response)::
 
 Counters: ``models/flux.py:COMPILED_CALLS``, ``COMPILES`` and ``EAGER_CALLS``, whose
 deltas each generate puts in its ``timings``; a Kontext request's context tokens
-(``timings["context_tokens"]``); the server's reply totals (:class:`Totals`).
+(``timings["context_tokens"]``); on a card, the denoise steps whose enqueue began while
+the card still ran the step before (``timings["steps_ahead"]``, ``sampling.Lead``: an
+event after each step's update, queried without a wait); the server's reply totals
+(:class:`Totals`).
 """
 
 from __future__ import annotations

@@ -475,8 +475,8 @@ def test_card_sync_every_bounds_the_hosts_lead_over_compute(card, monkeypatch, r
     assert retain == "0" or 0 < sum(kept) < len(kept) - 4
     # the unit: the largest block that streams
     slice_ = max(tree_nbytes(b) for b, k in zip(blocks, kept) if not k)
-    real = toffload._single_block
-    monkeypatch.setattr(toffload, "_single_block", lambda *a: (torch.cuda._sleep(20_000_000), real(*a))[1])
+    real = tflux._single_block  # the streamed loop's eager single block (Compiled.functions)
+    monkeypatch.setattr(tflux, "_single_block", lambda *a: (torch.cuda._sleep(20_000_000), real(*a))[1])
     peaks = {s: _reserved_peak(lambda: toffload.streamed_denoise(tops, dbl, sgl, card, *x, ts[:steps + 1], 3.5, cfg,
                                                               retain_bytes=retain_bytes, sync_every=s))
              for s in (0, 2)}

@@ -139,13 +139,14 @@ def test_calibration_protocol_matches_jax(models):
     collect_t, plain_t = tsampling.make_denoise_step(pcfg, collect_amax=True), tsampling.make_denoise_step(pcfg)
     targs = [t(x[k]) for k in ("img", "img_ids", "txt", "txt_ids", "vec")]
     running, timg = None, targs[0]
-    for i, (tc, tp) in enumerate(zip(timesteps[:-1], timesteps[1:])):
+    sched = tsampling.Schedule(pcfg, timg, timesteps)
+    for i in range(len(sched)):
         if i < 2:
-            timg, amaxes = collect_t(model, timg, *targs[1:], tc, tp, 3.5)
+            timg, amaxes = collect_t(model, timg, *targs[1:], *sched.step(i), 3.5)
             running = tcal.merge_amax(running, amaxes)
             tcal.apply_input_scales(model, running)
         else:
-            timg = plain_t(model, timg, *targs[1:], tc, tp, 3.5)
+            timg = plain_t(model, timg, *targs[1:], *sched.step(i), 3.5)
     assert torch.equal(timg, out)
 
 
